@@ -1,0 +1,13 @@
+"""SPMM in PyTorch for NVIDIA Hopper.
+
+The PyTorch counterpart of ``spmm_tpu`` (the JAX/TPU package, which stays the
+reference): module names mirror ``spmm_tpu``'s so each counterpart is easy to
+find.  This package imports ``torch`` only — never ``jax`` and nothing of
+``spmm_tpu`` — and keeps its own copies of the host-side modules it needs.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no GPU they raise instead of falling back to the CPU.  The one hand-written
+kernel on the PV->SMILES path, ``ops.decode_attention.beam_decode_attention``,
+is CUDA C++ (``csrc/beam_decode_attention.cu``), built with ``nvcc`` at first
+use into ``build/spmm_tpu_torch/``.
+"""

@@ -1,0 +1,134 @@
+"""The weight bridge: reference-named state dicts for the port's modules.
+
+Two sources, one naming (the reference SPMM state dict, which the port's
+``nn.Module`` tree reproduces, so both load with ``strict=True``):
+
+  - ``state_dict_from_jax_tree``: a ``spmm_tpu`` params tree (numpy leaves)
+    -> tensors.  The port's own copy of the mapping of
+    spmm_tpu/checkpoint/export.py:47-141 — Linear weights transpose
+    [in, out] -> [out, in]; the tied LM-head decoder weight is the word
+    table; the decoder bias appears under both of the reference's aliased
+    names (xbert.py:686-691); ``property_mtr_head`` flattens to the
+    Sequential indices ``.0/.2/.3``; the pretrain heads only if present.
+  - ``load_reference_checkpoint``: a reference ``{"state_dict": ...}``
+    ``.ckpt`` with the ``_unk`` -> ``_mask`` rename (reference
+    d_regression.py:157-161).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from spmm_tpu_torch.configs import BertArchConfig, property_config, text_config
+
+Params = dict[str, Any]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _put_linear(out: dict, prefix: str, p: Params) -> None:
+    out[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
+    out[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _put_ln(out: dict, prefix: str, p: Params) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _put_bert(out: dict, tree: Params, prefix: str) -> None:
+    emb = tree["embeddings"]
+    out[f"{prefix}.embeddings.word_embeddings.weight"] = _t(emb["word"])
+    out[f"{prefix}.embeddings.position_embeddings.weight"] = _t(emb["position"])
+    out[f"{prefix}.embeddings.token_type_embeddings.weight"] = _t(
+        emb["token_type"])
+    _put_ln(out, f"{prefix}.embeddings.LayerNorm", emb["ln"])
+    for i, layer in enumerate(tree["layers"]):
+        lp = f"{prefix}.encoder.layer.{i}"
+        for name, key in (("attention", "self_attn"),
+                          ("crossattention", "cross_attn")):
+            if key not in layer:
+                continue
+            a = layer[key]
+            _put_linear(out, f"{lp}.{name}.self.query", a["q"])
+            _put_linear(out, f"{lp}.{name}.self.key", a["k"])
+            _put_linear(out, f"{lp}.{name}.self.value", a["v"])
+            _put_linear(out, f"{lp}.{name}.output.dense", a["out"])
+            _put_ln(out, f"{lp}.{name}.output.LayerNorm", a["ln"])
+        mlp = layer["mlp"]
+        _put_linear(out, f"{lp}.intermediate.dense", mlp["up"])
+        _put_linear(out, f"{lp}.output.dense", mlp["down"])
+        _put_ln(out, f"{lp}.output.LayerNorm", mlp["ln"])
+
+
+def _put_bert_mlm(out: dict, tree: Params, prefix: str) -> None:
+    _put_bert(out, tree["bert"], f"{prefix}.bert")
+    head = tree["mlm_head"]
+    _put_linear(out, f"{prefix}.cls.predictions.transform.dense",
+                head["transform"])
+    _put_ln(out, f"{prefix}.cls.predictions.transform.LayerNorm", head["ln"])
+    if "w" in head["decoder"]:
+        dec_w = _t(np.asarray(head["decoder"]["w"]).T)
+    else:
+        # tied head: the decoder weight IS the word table, written twice
+        # exactly like torch.save of a tied module
+        dec_w = out[f"{prefix}.bert.embeddings.word_embeddings.weight"]
+    out[f"{prefix}.cls.predictions.decoder.weight"] = dec_w
+    out[f"{prefix}.cls.predictions.decoder.bias"] = _t(head["decoder"]["b"])
+    out[f"{prefix}.cls.predictions.bias"] = _t(head["decoder"]["b"])
+
+
+def state_dict_from_jax_tree(
+    tree: Params,
+    text_cfg: Optional[BertArchConfig] = None,
+    prop_cfg: Optional[BertArchConfig] = None,
+) -> dict[str, torch.Tensor]:
+    """A ``spmm_tpu`` SPMM params tree with numpy leaves -> reference-named
+    fp32 tensors for ``SPMM.load_state_dict(strict=True)``."""
+    for key, cfg in (("text_encoder", text_cfg or text_config()),
+                     ("property_encoder", prop_cfg or property_config())):
+        sub = tree[key]["bert"] if key == "text_encoder" else tree[key]
+        if len(sub["layers"]) != cfg.num_hidden_layers:
+            raise ValueError(f"{key} has {len(sub['layers'])} layers, the "
+                             f"config {cfg.num_hidden_layers}")
+    out: dict[str, torch.Tensor] = {}
+    _put_bert_mlm(out, tree["text_encoder"], "text_encoder")
+    _put_bert(out, tree["property_encoder"], "property_encoder")
+    _put_linear(out, "property_embed", tree["property_embed"])
+    out["property_cls"] = _t(tree["property_cls"])
+    out["property_mask"] = _t(tree["property_mask"])
+    mtr = tree["property_mtr_head"]
+    _put_linear(out, "property_mtr_head.0", mtr["l1"])
+    _put_ln(out, "property_mtr_head.2", mtr["ln"])
+    _put_linear(out, "property_mtr_head.3", mtr["l2"])
+    for name in ("property_proj", "text_proj", "itm_head"):
+        if name in tree:
+            _put_linear(out, name, tree[name])
+    return out
+
+
+def load_reference_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """Read a reference ``{"state_dict": ...}`` checkpoint as fp32 tensors
+    on the CPU, with ``_unk`` renamed to ``_mask``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k.replace("_unk", "_mask"): v.detach().to(torch.float32)
+            for k, v in state.items() if isinstance(v, torch.Tensor)}
+
+
+def spmm_subset(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The keys an inference ``SPMM`` holds: drops the feature queues, the
+    momentum twins (``*_m.``) and the pretraining heads."""
+    heads = ("property_proj.", "text_proj.", "itm_head.")
+    out = {}
+    for k, v in state.items():
+        top = k.split(".", 1)[0]
+        if "queue" in top or top.endswith("_m") or k.startswith(heads):
+            continue
+        out[k] = v
+    return out

@@ -1,0 +1,63 @@
+"""Architecture configuration (copy of ``spmm_tpu.configs``' BERT part).
+
+The two architectures on the PV->SMILES path, with the values of the
+reference config_bert.json / config_bert_property.json.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class BertArchConfig:
+    """Architecture of one chem-BERT stack.
+
+    ``fusion_layer``: layers >= fusion_layer carry cross-attention and form
+    the "fusion" section; layers below form the "text" section.
+    ``encoder_width``: K/V projection input width of cross-attention.
+    ``tie_word_embeddings``: the LM-head decoder weight IS the word
+    embedding table (the reference's HF tie).
+    """
+
+    vocab_size: int = 300
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    fusion_layer: int = 6
+    encoder_width: int = 768
+    add_cross_attention: bool = True
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    layer_norm_eps: float = 1e-12
+    initializer_range: float = 0.02
+    pad_token_id: int = 0
+    tie_word_embeddings: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def text_config() -> BertArchConfig:
+    """12-layer SMILES encoder/decoder; top 6 layers are fusion (cross-attn)."""
+    return BertArchConfig(
+        vocab_size=300,
+        num_hidden_layers=12,
+        fusion_layer=6,
+        add_cross_attention=True,
+    )
+
+
+def property_config() -> BertArchConfig:
+    """6-layer property-vector encoder; no cross-attention layers (its
+    one-entry word table exists but is bypassed via inputs_embeds)."""
+    return BertArchConfig(
+        vocab_size=1,
+        num_hidden_layers=6,
+        fusion_layer=6,
+        add_cross_attention=False,
+    )

@@ -1,0 +1,153 @@
+"""PV -> SMILES k-beam generation (counterpart of ``spmm_tpu.inference.pv2smiles``).
+
+Two workloads over the same beam search:
+  - single-query (``generate_with_property``): one (possibly partially
+    masked) property vector, ``n_generate`` independent beam searches
+    (reference d_pv2smiles_single.py:55-111);
+  - batched/file mode (``generate_batched``): one PV per molecule, no
+    property masking, deterministic k-beam with stop_count=k (reference
+    d_pv2smiles_batched.py:17-59).
+"""
+
+from __future__ import annotations
+
+import copy
+import random
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spmm_tpu_torch.inference.decoding import BeamSpec, beam_search_batched
+from spmm_tpu_torch.models.bert import BertForMaskedLM
+from spmm_tpu_torch.models.spmm import N_PROPERTIES, SPMM
+from spmm_tpu_torch.tokenizer import SmilesTokenizer
+from spmm_tpu_torch.utils.device import check_on, resolve_device
+
+Tensor = torch.Tensor
+
+
+def encode_pv(model: SPMM, pv_normalized: Tensor,
+              prop_mask: Optional[Tensor]) -> Tensor:
+    """PV [B, 53] (+ mask, 1 = masked) -> property-encoder hiddens [B, 54, H]
+    (reference d_pv2smiles_single.py:69-76)."""
+    return model.encode_properties(model.embed_properties(pv_normalized,
+                                                          prop_mask))
+
+
+def decoder_for(model: SPMM, bf16: bool) -> BertForMaskedLM:
+    """The text encoder the beam search runs: the model's own in fp32, a
+    bf16 copy with ``bf16`` (fp32 LayerNorm, scores and softmax are kept).
+    Make it once per service or call, not per batch."""
+    if not bf16:
+        return model.text_encoder
+    return copy.deepcopy(model.text_encoder).to(torch.bfloat16)
+
+
+@torch.no_grad()
+def _beam_batch(model: SPMM, decoder: BertForMaskedLM, pv: Tensor,
+                prop_mask: Optional[Tensor], spec: BeamSpec,
+                generator: Optional[torch.Generator] = None,
+                kv_fp8: bool = False) -> dict:
+    """Batched beam search from normalized PVs [B, 53].
+
+    ``decoder`` (see ``decoder_for``) sets the decoder's dtype: with a bf16
+    decoder the encoder output enters in bf16 and the KV cache is bf16 —
+    the property encoder itself stays fp32.  ``kv_fp8`` stores the KV cache
+    in float8_e4m3fn (compute stays bf16/fp32)."""
+    prop_embeds = encode_pv(model, pv, prop_mask)                # [B, 54, H]
+    cross_mask = torch.ones(prop_embeds.shape[:2], dtype=torch.int32,
+                            device=pv.device)
+    dtype = next(decoder.parameters()).dtype
+    prop_embeds = prop_embeds.to(dtype)
+    cache_dtype = torch.float8_e4m3fn if kv_fp8 else dtype
+    return beam_search_batched(decoder, model.text_cfg, prop_embeds,
+                               cross_mask, spec, generator=generator,
+                               cache_dtype=cache_dtype)
+
+
+def _decode_beams(tok: SmilesTokenizer, result: dict, i: int, k: int,
+                  stochastic: bool, py_rng: random.Random) -> str:
+    """Pick query i's output from its top-k beams (reference
+    d_pv2smiles_single.py:102-110: deterministic takes the best, stochastic
+    picks uniformly among the finished; sequences decode as sentence[:-1]
+    with '[CLS]' removed).  ``result`` holds host numpy arrays."""
+    n_fin = int(result["n_finished"][i])
+    seqs = result["seqs"][i]
+    lens = result["lengths"][i]
+    n_avail = k if n_fin == 0 else min(k, n_fin)
+    choice = 0 if not stochastic else py_rng.randrange(n_avail)
+    ids = seqs[choice][: max(int(lens[choice]) - 1, 1)]   # strip trailing SEP
+    return tok.decode(ids)
+
+
+def to_host(result: dict) -> dict:
+    return {key: (v.cpu().numpy() if isinstance(v, Tensor) else v)
+            for key, v in result.items()}
+
+
+def generate_with_property(
+    model: SPMM,
+    tok: SmilesTokenizer,
+    pv_normalized: np.ndarray,        # [53] already z-normalized
+    prop_mask: np.ndarray,            # [53] 1 = masked
+    n_generate: int = 1000,
+    k: int = 2,
+    stochastic: bool = True,
+    seed: int = 0,
+    device_batch: int = 128,
+    kv_fp8: bool = False,
+    device=None,
+) -> list[str]:
+    """Single-query workload: n_generate beam searches over one condition."""
+    dev = resolve_device(device)
+    check_on(model, dev)
+    spec = BeamSpec(k=k, stop_count=k * k, stochastic=stochastic)
+    py_rng = random.Random(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    decoder = decoder_for(model, bf16=True)
+    pv = torch.as_tensor(np.asarray(pv_normalized, np.float32), device=dev)
+    mask = torch.as_tensor(np.asarray(prop_mask, np.float32), device=dev)
+    out: list[str] = []
+    for start in range(0, n_generate, device_batch):
+        n = min(device_batch, n_generate - start)
+        result = to_host(_beam_batch(
+            model, decoder, pv.expand(device_batch, N_PROPERTIES),
+            mask.expand(device_batch, N_PROPERTIES), spec, gen, kv_fp8))
+        for i in range(n):
+            out.append(_decode_beams(tok, result, i, k, stochastic, py_rng))
+    return out
+
+
+def generate_batched(
+    model: SPMM,
+    tok: SmilesTokenizer,
+    pvs_normalized: np.ndarray,       # [N, 53]
+    k: int = 2,
+    stochastic: bool = False,
+    seed: int = 0,
+    device_batch: int = 128,
+    kv_fp8: bool = False,
+    device=None,
+) -> list[str]:
+    """File-mode workload: one k-beam per molecule, stop_count=k, no
+    property masking (reference d_pv2smiles_batched.py); always the best
+    beam (reference d_pv2smiles_batched.py:57)."""
+    dev = resolve_device(device)
+    check_on(model, dev)
+    spec = BeamSpec(k=k, stop_count=k, stochastic=stochastic)
+    py_rng = random.Random(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    decoder = decoder_for(model, bf16=True)
+    n_total = pvs_normalized.shape[0]
+    out: list[str] = []
+    for start in range(0, n_total, device_batch):
+        n = min(device_batch, n_total - start)
+        chunk = np.zeros((device_batch, N_PROPERTIES), np.float32)
+        chunk[:n] = pvs_normalized[start: start + n]
+        result = to_host(_beam_batch(
+            model, decoder, torch.as_tensor(chunk, device=dev), None, spec,
+            gen, kv_fp8))
+        for i in range(n):
+            out.append(_decode_beams(tok, result, i, k, False, py_rng))
+    return out

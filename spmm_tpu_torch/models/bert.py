@@ -1,0 +1,331 @@
+"""Chem-BERT core as ``nn.Module``s (counterpart of ``spmm_tpu.models.bert``).
+
+Inference forward of the ALBEF-style sectioned BERT the reference builds in
+xbert.py: layers ``>= fusion_layer`` also carry cross-attention, and a
+forward runs one of three sections (``_layer_range``):
+
+  - ``mode='text'``        : layers [0, fusion_layer)
+  - ``mode='fusion'``      : layers [fusion_layer, n_layers)
+  - ``mode='multi_modal'`` : all layers
+
+Submodules carry the reference state-dict names (``bert.encoder.layer.{i}
+.attention.self.query`` ...), so a reference-named state dict — a reference
+checkpoint, or ``checkpoint.convert.state_dict_from_jax_tree`` of a JAX
+tree — loads with ``strict=True``.  Function counterparts: ``BertEmbeddings``
+= ``embeddings_forward``, ``BertAttention`` = ``attention_block``,
+``BertLayer.mlp`` = ``mlp_block``, ``BertLayer`` = ``layer_forward``,
+``BertEncoder`` = ``encoder_forward``, ``BertModel`` = ``bert_forward``,
+``BertLMPredictionHead`` = ``mlm_head_forward``, ``BertForMaskedLM`` =
+``mlm_forward``.  Dropout, remat and the sequence-parallel hooks belong to
+training and are not here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from spmm_tpu_torch.configs import BertArchConfig
+from spmm_tpu_torch.ops.attention import multi_head_attention
+from spmm_tpu_torch.ops.masks import (
+    extend_attention_mask,
+    extend_causal_mask,
+    invert_encoder_mask,
+)
+
+Tensor = torch.Tensor
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in fp32 and cast back to the input dtype
+    (spmm_tpu/models/bert.py:58-64): bf16 weights enter as fp32 values."""
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+def split_heads(x: Tensor, num_heads: int) -> Tensor:
+    b, l, hd = x.shape
+    return x.reshape(b, l, num_heads, hd // num_heads).transpose(1, 2)
+
+
+def merge_heads(x: Tensor) -> Tensor:
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+class BertEmbeddings(nn.Module):
+    """word + position + token-type embeddings -> LN.
+
+    ``position_offset`` is the KV-cache prefix length (reference
+    xbert.py:203-204); token type is always 0 in this model family."""
+
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, h)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
+        self.LayerNorm = LayerNorm(h, cfg.layer_norm_eps)
+
+    def forward(self, input_ids: Optional[Tensor] = None,
+                inputs_embeds: Optional[Tensor] = None,
+                position_offset: int = 0) -> Tensor:
+        if inputs_embeds is None:
+            inputs_embeds = self.word_embeddings(input_ids)
+        seq_len = inputs_embeds.shape[1]
+        positions = torch.arange(position_offset, position_offset + seq_len,
+                                 device=inputs_embeds.device)
+        x = (inputs_embeds + self.position_embeddings(positions)
+             + self.token_type_embeddings.weight[0])
+        return self.LayerNorm(x)
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, cfg: BertArchConfig, kv_width: int):
+        super().__init__()
+        h = cfg.hidden_size
+        self.query = nn.Linear(h, h)
+        self.key = nn.Linear(kv_width, h)
+        self.value = nn.Linear(kv_width, h)
+
+
+class BertSelfOutput(nn.Module):
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+
+class BertAttention(nn.Module):
+    """Projected MHA + output dense + residual LN (reference xbert.py:362-422).
+
+    ``kv`` supplies precomputed (k, v) head tensors — the cross-attention
+    K/V computed once per decode."""
+
+    def __init__(self, cfg: BertArchConfig, kv_width: int):
+        super().__init__()
+        self.num_heads = cfg.num_attention_heads
+        self.self = BertSelfAttention(cfg, kv_width)
+        self.output = BertSelfOutput(cfg)
+
+    def forward(self, hidden: Tensor, kv_source: Optional[Tensor],
+                additive_mask: Optional[Tensor],
+                kv: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+        h = self.num_heads
+        q = split_heads(self.self.query(hidden), h)
+        if kv is not None:
+            k, v = kv
+        else:
+            k = split_heads(self.self.key(kv_source), h)
+            v = split_heads(self.self.value(kv_source), h)
+        ctx = multi_head_attention(q, k, v, additive_mask)
+        out = self.output.dense(merge_heads(ctx))
+        return self.output.LayerNorm(out + hidden)
+
+
+class BertIntermediate(nn.Module):
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+
+
+class BertOutput(nn.Module):
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+
+class BertLayer(nn.Module):
+    """One layer: self-attn (+ cross-attn in fusion layers) + FFN."""
+
+    def __init__(self, cfg: BertArchConfig, has_cross: bool):
+        super().__init__()
+        self.attention = BertAttention(cfg, cfg.hidden_size)
+        if has_cross:
+            self.crossattention = BertAttention(cfg, cfg.encoder_width)
+        self.intermediate = BertIntermediate(cfg)
+        self.output = BertOutput(cfg)
+
+    @property
+    def has_cross(self) -> bool:
+        return hasattr(self, "crossattention")
+
+    def mlp(self, hidden: Tensor) -> Tensor:
+        """Intermediate erf-GELU + output dense + residual LN (``mlp_block``)."""
+        up = F.gelu(self.intermediate.dense(hidden))
+        down = self.output.dense(up)
+        return self.output.LayerNorm(down + hidden)
+
+    def forward(self, hidden: Tensor, self_mask: Optional[Tensor],
+                encoder_hidden: Optional[Tensor] = None,
+                cross_mask: Optional[Tensor] = None,
+                cross_kv: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+        hidden = self.attention(hidden, hidden, self_mask)
+        if self.has_cross:
+            if encoder_hidden is None and cross_kv is None:
+                raise ValueError(
+                    "encoder_hidden_states required for cross-attention layers")
+            hidden = self.crossattention(hidden, encoder_hidden, cross_mask,
+                                         kv=cross_kv)
+        return self.mlp(hidden)
+
+
+def _layer_range(cfg: BertArchConfig, mode: str) -> range:
+    if mode == "text":
+        return range(0, cfg.fusion_layer)
+    if mode == "fusion":
+        return range(cfg.fusion_layer, cfg.num_hidden_layers)
+    if mode == "multi_modal":
+        return range(0, cfg.num_hidden_layers)
+    raise ValueError(f"unknown mode: {mode!r}")
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.layer = nn.ModuleList(
+            BertLayer(cfg, cfg.add_cross_attention and i >= cfg.fusion_layer)
+            for i in range(cfg.num_hidden_layers))
+
+    def forward(self, hidden: Tensor, self_mask: Optional[Tensor],
+                encoder_hidden=None, cross_mask=None, mode: str = "multi_modal",
+                cross_kv: Optional[dict] = None) -> Tensor:
+        """Run the section selected by ``mode``.  ``encoder_hidden`` /
+        ``cross_mask`` may be lists, assigned round-robin over the fusion
+        layers; ``cross_kv`` ({"k": [L, B, h, Le, D], "v": ...}) supplies
+        precomputed cross K/V per absolute layer index."""
+        cfg = self.cfg
+        for i in _layer_range(cfg, mode):
+            if isinstance(encoder_hidden, (list, tuple)):
+                j = (i - cfg.fusion_layer) % len(encoder_hidden)
+                enc, xmask = encoder_hidden[j], cross_mask[j]
+            else:
+                enc, xmask = encoder_hidden, cross_mask
+            layer = self.layer[i]
+            ckv = None
+            if cross_kv is not None and layer.has_cross:
+                ckv = (cross_kv["k"][i], cross_kv["v"][i])
+            hidden = layer(hidden, self_mask, enc, xmask, cross_kv=ckv)
+        return hidden
+
+
+class BertModel(nn.Module):
+    """BertModel.forward equivalent (reference xbert.py:950-1091)."""
+
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = BertEmbeddings(cfg)
+        self.encoder = BertEncoder(cfg)
+
+    def forward(
+        self,
+        input_ids: Optional[Tensor] = None,
+        attention_mask: Optional[Tensor] = None,
+        inputs_embeds: Optional[Tensor] = None,
+        encoder_embeds: Optional[Tensor] = None,
+        encoder_hidden_states: Union[Tensor, Sequence[Tensor], None] = None,
+        encoder_attention_mask=None,
+        is_decoder: bool = False,
+        mode: str = "multi_modal",
+        cross_kv: Optional[dict] = None,
+    ) -> Tensor:
+        """Returns the last hidden state [B, L, H].  ``encoder_embeds``
+        bypasses the embedding layer; ``cross_kv`` replaces
+        ``encoder_hidden_states`` with precomputed per-layer cross K/V."""
+        if encoder_embeds is not None:
+            hidden = encoder_embeds
+        else:
+            hidden = self.embeddings(input_ids, inputs_embeds)
+        b, l = hidden.shape[:2]
+        dev = hidden.device
+        if attention_mask is None:
+            attention_mask = torch.ones((b, l), dtype=torch.int32, device=dev)
+        if is_decoder:
+            self_mask = extend_causal_mask(attention_mask, q_len=l)
+        else:
+            self_mask = extend_attention_mask(attention_mask)
+
+        cross_mask = None
+        if cross_kv is not None and encoder_hidden_states is None:
+            if encoder_attention_mask is None:
+                encoder_attention_mask = torch.ones(
+                    (b, cross_kv["k"].shape[-2]), dtype=torch.int32, device=dev)
+            cross_mask = invert_encoder_mask(encoder_attention_mask)
+        elif encoder_hidden_states is not None:
+            if isinstance(encoder_hidden_states, (list, tuple)):
+                if encoder_attention_mask is None:
+                    encoder_attention_mask = [
+                        torch.ones(e.shape[:2], dtype=torch.int32, device=dev)
+                        for e in encoder_hidden_states]
+                cross_mask = [invert_encoder_mask(m)
+                              for m in encoder_attention_mask]
+            else:
+                if encoder_attention_mask is None:
+                    encoder_attention_mask = torch.ones(
+                        encoder_hidden_states.shape[:2], dtype=torch.int32,
+                        device=dev)
+                cross_mask = invert_encoder_mask(encoder_attention_mask)
+
+        return self.encoder(hidden, self_mask, encoder_hidden_states,
+                            cross_mask, mode, cross_kv=cross_kv)
+
+
+class BertPredictionTransform(nn.Module):
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+
+class BertLMPredictionHead(nn.Module):
+    """LM head: dense + GELU + LN, then the vocab decoder (reference
+    xbert.py:662-696).  The decoder bias IS ``bias`` (the reference aliases
+    ``cls.predictions.bias``); the decoder weight is tied by BertForMaskedLM."""
+
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.transform = BertPredictionTransform(cfg)
+        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        self.bias = self.decoder.bias
+
+    def forward(self, hidden: Tensor) -> Tensor:
+        x = F.gelu(self.transform.dense(hidden))
+        x = self.transform.LayerNorm(x)
+        return self.decoder(x)
+
+
+class BertOnlyMLMHead(nn.Module):
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.predictions = BertLMPredictionHead(cfg)
+
+
+class BertForMaskedLM(nn.Module):
+    """BertModel + LM head returning logits (reference xbert.py:1377-1428)."""
+
+    def __init__(self, cfg: BertArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = BertModel(cfg)
+        self.cls = BertOnlyMLMHead(cfg)
+        if cfg.tie_word_embeddings:
+            self.cls.predictions.decoder.weight = (
+                self.bert.embeddings.word_embeddings.weight)
+
+    def forward(self, **kwargs) -> Tensor:
+        return self.cls.predictions(self.bert(**kwargs))

@@ -1,0 +1,100 @@
+"""Port boundary: spmm_tpu_torch imports neither jax nor anything of
+spmm_tpu, and its entry points never drop to the CPU unasked."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "spmm_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith(("jax.", "jaxlib"))
+            or name == "spmm_tpu" or name.startswith("spmm_tpu."))
+
+
+def _modules() -> list[str]:
+    import spmm_tpu_torch
+
+    return ["spmm_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(spmm_tpu_torch.__path__,
+                                              "spmm_tpu_torch.")]
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert "spmm_tpu_torch.ops.decode_attention" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith(('jax.', 'jaxlib')) or n == 'spmm_tpu' or "
+        "n.startswith('spmm_tpu.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_import_statement_names_jax_or_spmm_tpu():
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                offenders += [(path, n) for n in names if _forbidden(n)]
+    assert not offenders
+
+
+def test_entry_points_need_a_gpu_unless_told_otherwise():
+    """Without device=..., an entry point runs on cuda; with no GPU it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from spmm_tpu_torch.configs import BertArchConfig
+    from spmm_tpu_torch.inference.pv2smiles import (
+        generate_batched, generate_with_property)
+    from spmm_tpu_torch.models.spmm import SPMM
+    from spmm_tpu_torch.serving import Pv2SmilesService
+    from spmm_tpu_torch.tokenizer import SmilesTokenizer
+
+    tc = BertArchConfig(hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=1, intermediate_size=32,
+                        fusion_layer=1, encoder_width=32)
+    pc = BertArchConfig(vocab_size=1, hidden_size=32, num_hidden_layers=1,
+                        num_attention_heads=1, intermediate_size=32,
+                        fusion_layer=1, add_cross_attention=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SPMM.random_init(0, tc, pc)
+    model = SPMM.random_init(0, tc, pc, device="cpu")
+    tok = SmilesTokenizer()
+    pvs = np.zeros((1, 53), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_batched(model, tok, pvs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_with_property(model, tok, pvs[0], pvs[0], n_generate=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Pv2SmilesService(model, tok)
+    # a model on one device and a call for another: refused, not moved
+    with pytest.raises(ValueError, match="is on"):
+        generate_batched(model, tok, pvs, device="meta")
