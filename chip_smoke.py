@@ -3,27 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, PV->SMILES k-beam serving, at the full width of
-the SPMM model (12-layer 768-wide decoder, 6-layer property encoder) with
-random weights made from a seed, and holds every kernel of that path against
-its plain PyTorch version.  Phases, in order; any failure exits non-zero:
+Drives the port's two paths at the full width of the SPMM model (12-layer
+768-wide text BERT with fusion from layer 6, 6-layer property BERT, 53
+properties) with random weights made from a seed, and holds every kernel
+against its plain PyTorch version:
+
+  - PV->SMILES k-beam serving, through kernel 1 (beam_decode_attention);
+  - SMILES->PV serving, every attention through kernel 2 (fused_mha).
+
+Phases, in order; any failure exits non-zero:
 
   1. device   needs CUDA; prints the card's name and power limit
               (nvidia-smi), turns TF32 off;
-  2. build    builds the kernels from the sources in the checkout;
+  2. build    builds both kernels from the sources in the checkout, one
+              nvcc each, started together;
   3. kernels  beam_decode_attention vs its plain version at the serving
               shapes (m=128, h=12, k=2, D=64, T=104) for f32/bf16/fp8
-              caches, plus k=1 and k=5; times kernel, plain version, one
-              scaled_dot_product_attention call, and computes the bound;
-  4. exact    full-width fp32 beam search over 8 PVs, once through the
-              kernel and once through the plain version: identical seqs,
-              as initialised and with the [SEP] logit raised (harvest);
+              caches, plus k=1 and k=5; fused_mha vs its plain version at
+              the five shapes of tests/test_pallas_attention.py, its bf16
+              case and every launch class of SMILES->PV at full width
+              (B=128, h=12, D=64; S in 16/32/54; L=100); times each kernel,
+              its plain version and one scaled_dot_product_attention call,
+              and computes the bound;
+  4. exact    full-width fp32 beam search over 8 PVs, once through kernel 1
+              and once through the plain version: identical seqs, as
+              initialised and with the [SEP] logit raised (harvest); and
+              fp32 predict_pv of 128 SMILES through kernel 2 and through
+              the plain attention: within 1e-4, 960 launches per batch;
   5. serving  HTTP server -> Pv2SmilesService (bf16, k=2, batch 128):
               raw and partially masked requests, /healthz, a timed full
-              batch, one kv_fp8 batch; the kernel's launches are counted
-              over this phase, the main path;
-  6. profile  one bf16 batch of 128 under torch.profiler: device busy
-              share and the kernels that take the device time.
+              batch, one kv_fp8 batch; then HTTP -> Smiles2PvService (fp32,
+              batch 128): a wave of 128 requests, an empty one (400),
+              /healthz.  Each path is a main path: every kernel's launches
+              are counted from 0 over it;
+  6. profile  one bf16 PV->SMILES batch and one fp32 SMILES->PV batch of
+              128 under torch.profiler: device busy share and the kernels
+              that take the device time.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -32,6 +47,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -42,6 +58,12 @@ SEP_BIAS = 0.7
 KERNEL = {"name": "beam_decode_attention", "route": "cuda",
           "source": "spmm_tpu_torch/csrc/beam_decode_attention.cu",
           "replaces": "spmm_tpu/ops/decode_attention.py:57"}
+KERNEL2 = {"name": "fused_mha", "route": "cuda",
+           "source": "spmm_tpu_torch/csrc/fused_attention.cu",
+           "replaces": "spmm_tpu/ops/pallas_attention.py:28"}
+S2P_INPUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "examples", "s2p_input.txt")
+S2P_LAUNCHES = 6 + 53 * 18      # text layers + 53 steps x (6 + 6 x 2)
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -208,6 +230,115 @@ def time_kernel(dev) -> dict:
     }
 
 
+def mha_inputs(dev, b, h, lq, lk, d, dtype, mask_kind, seed,
+               kv_contiguous=False):
+    """q (and k/v unless ``kv_contiguous``) as split_heads views of [B, L,
+    h*D] projections, as BertAttention passes them; the precomputed cross
+    K/V are contiguous [B, h, Lk, D] slices.  Masks from random lengths."""
+    import torch
+
+    from spmm_tpu_torch.ops.masks import (
+        extend_attention_mask, extend_causal_mask)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def heads(n):
+        return torch.randn((b, n, h * d), generator=g, device=dev).to(
+            dtype).view(b, n, h, d).transpose(1, 2)
+
+    q = heads(lq)
+    if kv_contiguous:
+        k, v = (torch.randn((b, h, lk, d), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+    else:
+        k, v = heads(lk), heads(lk)
+    lens = torch.randint(1, lk + 1, (b,), generator=g, device=dev)
+    bin_mask = (torch.arange(lk, device=dev)[None] < lens[:, None]).int()
+    if mask_kind == "none":
+        return q, k, v, None
+    if mask_kind == "padding":
+        return q, k, v, extend_attention_mask(bin_mask)
+    return q, k, v, extend_causal_mask(bin_mask, q_len=lq, past_len=lk - lq)
+
+
+def compare_mha(dev) -> dict:
+    """fused_mha vs fused_mha_reference: the JAX suite's shapes and every
+    launch class of SMILES->PV at full width.  Bars 2e-5 (f32), 3e-2 (bf16)."""
+    import torch
+
+    from spmm_tpu_torch.ops.fused_attention import fused_mha, fused_mha_reference
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("pallas-test", 3, 4, lq, lk, f32, kind, False)
+             for lq, lk, kind in ((16, 16, "none"), (24, 24, "padding"),
+                                  (24, 24, "causal"), (1, 32, "padding"),
+                                  (8, 16, "padding"))]
+    cases.append(("pallas-test", 2, 2, 16, 16, bf16, "none", False))
+    for dt in (f32, bf16):
+        cases.append(("text", 128, 12, 100, 100, dt, "padding", False))
+        for S in (16, 32, 54):
+            cases += [("property", 128, 12, S, S, dt, "padding", False),
+                      ("fusion-self", 128, 12, S, S, dt, "causal", False),
+                      ("fusion-cross", 128, 12, S, 100, dt, "padding", True)]
+    worst: dict[str, float] = {}
+    for n, (label, b, h, lq, lk, dt, kind, kv_contig) in enumerate(cases):
+        q, k, v, mask = mha_inputs(dev, b, h, lq, lk, 64, dt, kind, seed=n,
+                                   kv_contiguous=kv_contig)
+        got = fused_mha(q, k, v, mask)
+        want = fused_mha_reference(q, k, v, mask)
+        sync(dev)
+        tol = 2e-5 if dt == f32 else 3e-2
+        err = (got.float() - want.float()).abs().max().item()
+        name = str(dt).replace("torch.", "")
+        log(f"  {label:12s} B={b:3d} h={h:2d} {lq:3d}x{lk:<3d} {kind:7s} "
+            f"{name:8s} max|err|={err:.3e} (tol {tol:g})")
+        if not (err <= tol and got.dtype == dt
+                and tuple(got.shape) == (b, h, lq, 64)):
+            fail(f"fused_mha disagrees with its plain version ({label}, "
+                 f"{lq}x{lk}, {kind}, {name})")
+        worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def time_mha(dev) -> list:
+    """fp32, B=128, h=12, D=64: the fusion cross-attention (54x100, padding
+    mask) and causal self-attention (54x54) of the last segment.  Kernel,
+    plain version, one SDPA call with the same float mask, and the bound.
+    Each launch reads 85-121 MB, more than the 50 MB L2 holds."""
+    import torch
+    import torch.nn.functional as F
+
+    from spmm_tpu_torch.ops.fused_attention import fused_mha, fused_mha_reference
+
+    b, h, d = 128, 12, 64
+    rows = []
+    for label, lq, lk, kind, kv_contig in (
+            ("fusion-cross 54x100", 54, 100, "padding", True),
+            ("fusion-self 54x54 causal", 54, 54, "causal", False)):
+        q, k, v, mask = mha_inputs(dev, b, h, lq, lk, d, torch.float32, kind,
+                                   seed=lq + lk, kv_contiguous=kv_contig)
+        kernel_ms = cuda_ms(lambda i: fused_mha(q, k, v, mask), iters=50)
+        plain_ms = cuda_ms(lambda i: fused_mha_reference(q, k, v, mask),
+                           iters=20)
+        library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters=50)
+        sdpa_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                    - fused_mha(q, k, v, mask)).abs().max().item()
+        # each input read once, the output written once
+        nbytes = 4 * (2 * b * h * lq * d + 2 * b * h * lk * d
+                      + mask.numel())
+        flops = 4 * b * h * lq * lk * d
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        rows.append({
+            "shape": label, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "sdpa_vs_kernel_max_abs": sdpa_err})
+    return rows
+
+
 # --------------------------------------------------------------------------- #
 # phase 4: full-width fp32 exactness, kernel vs plain
 # --------------------------------------------------------------------------- #
@@ -255,27 +386,77 @@ def exactness(dev, model, decoder, n_pv: int = 8, max_steps: int = 100) -> dict:
             "launches": lk}
 
 
+def s2p_batch(n: int = 128) -> tuple:
+    """n SMILES (the example file, cycled) tokenized into the service's one
+    bucket, L=100."""
+    from spmm_tpu_torch.cli._common import make_tokenizer
+
+    with open(S2P_INPUT) as f:
+        examples = [line.strip() for line in f if line.strip()]
+    smiles = [examples[i % len(examples)] for i in range(n)]
+    ids, mask = make_tokenizer().encode_batch(
+        ["[CLS]" + s for s in smiles], max_len=100, buckets=(100,))
+    return smiles, ids, mask
+
+
+def exactness_s2p(dev, model) -> tuple[dict, dict]:
+    """fp32 predict_pv of 128 SMILES through kernel 2 and through the plain
+    attention: within 1e-4 (the golden-gate bar), 960 kernel launches."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv
+    from spmm_tpu_torch.ops.fused_attention import fused_mha
+
+    smiles, ids, mask = s2p_batch()
+    out = {}
+    for impl in ("kernel", "plain"):
+        before = fused_mha.launches
+        t0 = time.perf_counter()
+        preds = predict_pv(model, ids, mask, attention_impl=impl, device=dev)
+        sync(dev)
+        out[impl] = (preds, time.perf_counter() - t0,
+                     fused_mha.launches - before)
+    (pk, tk, lk), (pp, tp, lp) = out["kernel"], out["plain"]
+    if pk.shape != (128, 53) or pk.dtype != torch.float32:
+        fail(f"predict_pv gave {pk.dtype} {tuple(pk.shape)}")
+    if not torch.isfinite(pk).all():
+        fail("predict_pv gave non-finite predictions")
+    err = (pk - pp).abs().max().item()
+    if err > 1e-4:
+        fail(f"fp32 predictions differ by {err:.3e} > 1e-4 between the "
+             f"kernel and the plain attention")
+    if lk != S2P_LAUNCHES or lp != 0:
+        fail(f"predict_pv launched fused_mha {lk} times (plain run {lp}), "
+             f"expected {S2P_LAUNCHES}")
+    ref = {s: row for s, row in zip(smiles, pk.cpu().numpy())}
+    return {"max_abs_diff": err, "kernel_s": tk, "plain_s": tp,
+            "launches": lk, "pred_abs_max": float(np.abs(
+                pk.cpu().numpy()).max())}, ref
+
+
 # --------------------------------------------------------------------------- #
 # phase 5: serving through the HTTP front-end
 # --------------------------------------------------------------------------- #
 
 
-def _post(url: str, payload: dict):
+def _post(url: str, payload: dict, path: str = "/pv2smiles"):
     import urllib.request
 
     req = urllib.request.Request(
-        url + "/pv2smiles", data=json.dumps(payload).encode(),
+        url + path, data=json.dumps(payload).encode(),
         headers={"Content-Type": "application/json"}, method="POST")
     with urllib.request.urlopen(req, timeout=600) as resp:
         return resp.status, json.loads(resp.read())
 
 
-def _concurrent(url: str, payloads: list) -> list:
+def _concurrent(url: str, payloads: list, path: str = "/pv2smiles",
+                key: str = "smiles") -> list:
     results: list = [None] * len(payloads)
 
     def client(i):
         try:
-            results[i] = _post(url, payloads[i])
+            results[i] = _post(url, payloads[i], path)
         except Exception as exc:  # noqa: BLE001 — checked below
             results[i] = (None, repr(exc))
 
@@ -286,9 +467,9 @@ def _concurrent(url: str, payloads: list) -> list:
     for th in threads:
         th.join(timeout=900)
     for i, (status, body) in enumerate(results):
-        if status != 200 or not isinstance(body.get("smiles"), str):
+        if status != 200 or key not in body:
             fail(f"request {i}: {status} {body}")
-    return [body["smiles"] for _, body in results]
+    return [body[key] for _, body in results]
 
 
 def serving(dev, model, batch: int = 128) -> dict:
@@ -299,6 +480,7 @@ def serving(dev, model, batch: int = 128) -> dict:
     from spmm_tpu_torch.cli._common import load_stats, make_tokenizer
     from spmm_tpu_torch.cli.serve import make_server
     from spmm_tpu_torch.ops.decode_attention import beam_decode_attention
+    from spmm_tpu_torch.ops.fused_attention import fused_mha
     from spmm_tpu_torch.serving import Pv2SmilesService
 
     tok, stats = make_tokenizer(), load_stats()
@@ -326,6 +508,7 @@ def serving(dev, model, batch: int = 128) -> dict:
         wave2 = [{"pv": raw_pv()} for _ in range(batch)]
 
         beam_decode_attention.launches = 0      # the main path starts here
+        fused_mha.launches = 0
         t0 = time.perf_counter()
         first = _concurrent(url, wave1)
         t1 = time.perf_counter()
@@ -334,6 +517,9 @@ def serving(dev, model, batch: int = 128) -> dict:
         full = _concurrent(url, wave2)
         t2 = time.perf_counter()
         launches = beam_decode_attention.launches   # ... and ends here
+        if fused_mha.launches:
+            fail(f"PV->SMILES serving launched fused_mha "
+                 f"{fused_mha.launches} times")
         wave2_batches = svc.stats["batches"] - batches_before
         per_batch_s = ((svc.stats["batch_seconds"] - secs_before)
                        / wave2_batches)
@@ -370,6 +556,71 @@ def serving(dev, model, batch: int = 128) -> dict:
     }
 
 
+def serving_s2p(dev, model, ref: dict, batch: int = 128) -> dict:
+    """A wave of ``batch`` concurrent POST /smiles2pv through the HTTP
+    server -> Smiles2PvService (fp32), plus one empty SMILES (400).  The
+    served PVs equal the offline kernel predictions within 1e-4 (normalized
+    units)."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from spmm_tpu_torch.cli._common import load_stats, make_tokenizer
+    from spmm_tpu_torch.cli.serve import make_server
+    from spmm_tpu_torch.ops.decode_attention import beam_decode_attention
+    from spmm_tpu_torch.ops.fused_attention import fused_mha
+    from spmm_tpu_torch.serving import Smiles2PvService
+
+    tok, stats = make_tokenizer(), load_stats()
+    smiles = s2p_batch(batch)[0]
+    svc = Smiles2PvService(model, tok, stats=stats, batch_size=batch,
+                           max_wait_ms=1500.0, device=dev)
+    server = make_server({"smiles2pv": svc}, "127.0.0.1", 0, stats=stats)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        beam_decode_attention.launches = 0      # the main path starts here
+        fused_mha.launches = 0
+        t0 = time.perf_counter()
+        pvs = _concurrent(url, [{"smiles": s} for s in smiles], "/smiles2pv",
+                          "pv")
+        wall = time.perf_counter() - t0
+        launches = fused_mha.launches           # ... and ends here
+        other = beam_decode_attention.launches
+        try:
+            status = _post(url, {"smiles": ""}, "/smiles2pv")[0]
+        except urllib.error.HTTPError as exc:
+            status = exc.code
+        if status != 400:
+            fail(f"an empty SMILES got {status}, not 400")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())["services"]["smiles2pv"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    if health["requests"] != batch:
+        fail(f"/healthz counts {health['requests']} requests, sent {batch}")
+    if launches != S2P_LAUNCHES * health["batches"] or other:
+        fail(f"SMILES->PV serving ran {launches} fused_mha launches in "
+             f"{health['batches']} batches ({other} of kernel 1)")
+    got = stats.normalize(np.asarray(pvs, np.float32))
+    want = np.stack([ref[s] for s in smiles])
+    if got.shape != (batch, 53) or not np.isfinite(got).all():
+        fail(f"served PVs: shape {got.shape}, finite "
+             f"{bool(np.isfinite(got).all())}")
+    err = float(np.abs(got - want).max())
+    if err > 1e-4:
+        fail(f"served PVs differ from offline predict_pv by {err:.3e}")
+    per_batch_s = health["batch_seconds"] / health["batches"]
+    return {"launches": launches, "batches": health["batches"],
+            "requests": health["requests"], "wave_wall_s": wall,
+            "batch_call_s": per_batch_s, "mol_per_s": batch / per_batch_s,
+            "served_vs_offline_max_abs": err, "example": pvs[0][:4]}
+
+
 # --------------------------------------------------------------------------- #
 # phase 6: where one serving batch spends its time
 # --------------------------------------------------------------------------- #
@@ -393,14 +644,31 @@ def profile_batch(dev, model, batch: int = 128) -> dict:
     def run():
         out["res"] = _beam_batch(model, decoder, pv, mask, spec)
 
-    run()                                         # warm-up
-    sync(dev)
+    sync(dev)                     # warm: phase 5 ran this shape
     t0 = time.perf_counter()
     run()
     sync(dev)
     unprofiled = time.perf_counter() - t0
     prof = device_breakdown(run)
     return dict(prof, steps=out["res"]["steps"], unprofiled_wall_s=unprofiled)
+
+
+def profile_s2p(dev, model) -> dict:
+    """One fp32 predict_pv batch of 128 (L=100) under torch.profiler."""
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv
+    from spmm_tpu_torch.utils.profiling import device_breakdown
+
+    _, ids, mask = s2p_batch()
+
+    def run():
+        predict_pv(model, ids, mask, device=dev)
+
+    sync(dev)                     # warm: phases 4 and 5 ran this shape
+    t0 = time.perf_counter()
+    run()
+    sync(dev)
+    unprofiled = time.perf_counter() - t0
+    return dict(device_breakdown(run, top=10), unprofiled_wall_s=unprofiled)
 
 
 # --------------------------------------------------------------------------- #
@@ -415,14 +683,18 @@ def main() -> int:
         return 2
     try:
         from spmm_tpu_torch.models.spmm import SPMM
-        from spmm_tpu_torch.ops import decode_attention
+        from spmm_tpu_torch.ops import decode_attention, fused_attention
         from spmm_tpu_torch.utils.device import resolve_device
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})",
               file=sys.stderr)
         return 2
 
+    def mark(phase: str) -> None:
+        log(f"-- {phase} at {time.perf_counter() - t_start:.1f} s")
+
     # ---- 1. device ----
+    mark("device")
     dev = resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -436,18 +708,30 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc per source, all started together ----
+    from concurrent.futures import ThreadPoolExecutor
+
     from spmm_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    decode_attention.build()
-    log(f"[build] beam_decode_attention in {time.perf_counter() - t0:.1f} s")
-    report = _build.library_path("beam_decode_attention").with_suffix(".log")
-    for line in report.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    def timed_build(mod) -> float:
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
 
-    # ---- 3. kernel vs plain ----
+    mark("build")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        secs = list(pool.map(timed_build, (decode_attention, fused_attention)))
+    log(f"[build] beam_decode_attention {secs[0]:.1f} s, fused_attention "
+        f"{secs[1]:.1f} s, together {time.perf_counter() - t0:.1f} s")
+    for name in ("beam_decode_attention", "fused_attention"):
+        report = _build.library_path(name).with_suffix(".log")
+        for line in report.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # ---- 3. kernels vs plain ----
+    mark("kernels")
     log("[kernels] beam_decode_attention vs plain version")
     worst = compare_kernel(dev)
     timing = time_kernel(dev)
@@ -456,8 +740,17 @@ def main() -> int:
         f"bound {timing['bound_ms']:.4f} ms ({timing['live_rows']}/"
         f"{timing['all_rows']} prefix rows attended; all-lane bound "
         f"{timing['bound_ms_all_lanes']:.4f} ms)")
+    log("[kernels] fused_mha vs plain version")
+    worst2 = compare_mha(dev)
+    timing2 = time_mha(dev)
+    for row in timing2:
+        log(f"  {row['shape']} f32: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); sdpa vs "
+            f"kernel {row['sdpa_vs_kernel_max_abs']:.2e}")
 
     # ---- 4. full-width fp32 exactness ----
+    mark("exact")
     t0 = time.perf_counter()
     model = SPMM.random_init(SEED, device=dev)
     log(f"[exact] full-width SPMM random init in "
@@ -476,8 +769,15 @@ def main() -> int:
             f"{res['logp_max_abs_diff']:.2e}, {res['launches']} launches; "
             f"kernel path {res['kernel_s']:.2f} s, plain {res['plain_s']:.2f} s")
     del sep_biased
+    exact["smiles2pv"], s2p_ref = exactness_s2p(dev, model)
+    res = exact["smiles2pv"]
+    log(f"  smiles2pv: fp32 predict_pv of 128 SMILES (L=100), max |pred "
+        f"diff| {res['max_abs_diff']:.2e} (max |pred| "
+        f"{res['pred_abs_max']:.3f}), {res['launches']} fused_mha launches; "
+        f"kernel path {res['kernel_s']:.2f} s, plain {res['plain_s']:.2f} s")
 
-    # ---- 5. serving (the main path) ----
+    # ---- 5. serving: each path is a main path ----
+    mark("serving")
     log("[serving] HTTP -> Pv2SmilesService (bf16, k=2, batch 128)")
     serve = serving(dev, model)
     log(f"  {serve['requests']} requests in {serve['batches']} batches, "
@@ -488,25 +788,46 @@ def main() -> int:
         f"{serve['kv_fp8_batch_s']:.3f} s = {serve['kv_fp8_mol_per_s']:.1f} "
         f"mol/s ({serve['kv_fp8_same_as_bf16']}/128 same as bf16)")
     log(f"  examples: {serve['examples']}")
+    log("[serving] HTTP -> Smiles2PvService (fp32, batch 128)")
+    serve2 = serving_s2p(dev, model, s2p_ref)
+    log(f"  {serve2['requests']} requests in {serve2['batches']} batch(es), "
+        f"{serve2['launches']} fused_mha launches; batch call "
+        f"{serve2['batch_call_s']:.3f} s = {serve2['mol_per_s']:.1f} mol/s; "
+        f"wave wall incl. HTTP {serve2['wave_wall_s']:.3f} s; served vs "
+        f"offline {serve2['served_vs_offline_max_abs']:.2e}; empty SMILES "
+        f"-> 400")
 
     # ---- 6. profile ----
-    prof = profile_batch(dev, model)
-    busy = prof["busy_share"]
-    log(f"[profile] one bf16 batch of 128, {prof['steps']} steps: wall "
-        f"{prof['unprofiled_wall_s']:.3f} s unprofiled, {prof['wall_s']:.3f} "
-        f"s profiled; device busy "
-        + ("not measured (no device events in the trace)" if busy is None
-           else f"{prof['device_busy_s']:.3f} s = {100 * busy:.1f}% of the "
-                f"profiled wall, {prof['device_events']} device events"))
-    for row in prof["top"]:
-        log(f"  {row['ms']:9.3f} ms {row['count']:6d}x  {row['name']}")
+    mark("profile")
+    profiles = {"pv2smiles_bf16": profile_batch(dev, model),
+                "smiles2pv_fp32": profile_s2p(dev, model)}
+    for name, prof in profiles.items():
+        busy = prof["busy_share"]
+        log(f"[profile] {name}, one batch of 128: wall "
+            f"{prof['unprofiled_wall_s']:.3f} s unprofiled, "
+            f"{prof['wall_s']:.3f} s profiled; device busy "
+            + ("not measured (no device events in the trace)" if busy is None
+               else f"{prof['device_busy_s']:.3f} s = {100 * busy:.1f}% of "
+                    f"the profiled wall, {prof['device_events']} device "
+                    f"events"))
+        for row in prof["top"]:
+            log(f"  {row['ms']:9.3f} ms {row['count']:6d}x  {row['name']}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"serving": serve, "exact": exact, "profile": prof}))
+    print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
+                      "exact": exact, "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   max_abs_err=worst["bfloat16"],
                   max_abs_err_by_cache_dtype=worst, **timing)
-    print(json.dumps({"kernels": [record]}))
+    head = timing2[0]
+    record2 = dict(KERNEL2, launches=serve2["launches"],
+                   max_abs_err=worst2["float32"],
+                   max_abs_err_by_dtype=worst2,
+                   **{key: head[key] for key in (
+                       "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")},
+                   per_shape=timing2)
+    print(json.dumps({"kernels": [record, record2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

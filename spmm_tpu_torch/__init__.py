@@ -6,8 +6,12 @@ find.  This package imports ``torch`` only — never ``jax`` and nothing of
 ``spmm_tpu`` — and keeps its own copies of the host-side modules it needs.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
-no GPU they raise instead of falling back to the CPU.  The one hand-written
-kernel on the PV->SMILES path, ``ops.decode_attention.beam_decode_attention``,
-is CUDA C++ (``csrc/beam_decode_attention.cu``), built with ``nvcc`` at first
-use into ``build/spmm_tpu_torch/``.
+no GPU they raise instead of falling back to the CPU.  Two hand-written
+kernels, CUDA C++ built with ``nvcc`` at first use into
+``build/spmm_tpu_torch/``, carry the two paths:
+
+  - PV->SMILES beam search: ``ops.decode_attention.beam_decode_attention``
+    (``csrc/beam_decode_attention.cu``);
+  - SMILES->PV prediction: ``ops.fused_attention.fused_mha``
+    (``csrc/fused_attention.cu``), every attention of ``predict_pv``.
 """

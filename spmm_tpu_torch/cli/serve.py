@@ -10,9 +10,9 @@ Counterpart of ``spmm_tpu.cli.serve``.  Endpoints (JSON in/out):
                     conditioning (reference d_pv2smiles_single.py:60-66):
                     null leaves a property unconstrained, and so does a 1 in
                     an optional "mask" list of 53 0/1 flags.
+  POST /smiles2pv   {"smiles": "..."} -> {"pv": [53 floats]}, denormalized
+                    (400 on an empty or non-string value)
   GET  /healthz     -> {"ok": true, "services": {...per-service stats}}
-
-/smiles2pv answers 404 until the smiles2pv slice of the port lands.
 
 Run: python -m spmm_tpu_torch.cli.serve --checkpoint <reference .ckpt>
 """
@@ -54,11 +54,28 @@ def parse_pv2smiles(req: dict, stats) -> tuple[np.ndarray, np.ndarray]:
     return np.where(mask > 0, 0.0, pv), mask
 
 
+def parse_smiles2pv(req: dict) -> str:
+    """Request body -> the SMILES string; raises ValueError / KeyError on a
+    malformed request."""
+    smiles = req["smiles"]
+    if not isinstance(smiles, str) or not smiles:
+        raise ValueError("smiles must be a non-empty string")
+    return smiles
+
+
 def make_server(services: dict, host: str, port: int,
                 stats=None) -> ThreadingHTTPServer:
-    """HTTP server routing to ``services`` ({'pv2smiles': ...}).  ``stats``
+    """HTTP server routing to ``services`` ({'pv2smiles': ...,
+    'smiles2pv': ...}; a missing one answers 404).  ``stats``
     (PropertyStats) enables the raw-PV normalization.  Returns the server
     unstarted — call ``serve_forever()``."""
+    # route -> (request body -> service item, service result -> reply body)
+    routes = {
+        "pv2smiles": (lambda req: parse_pv2smiles(req, stats),
+                      lambda smiles: {"smiles": smiles}),
+        "smiles2pv": (parse_smiles2pv,
+                      lambda pv: {"pv": [float(x) for x in pv]}),
+    }
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):   # one line per request is noise
@@ -80,13 +97,14 @@ def make_server(services: dict, host: str, port: int,
 
         def do_POST(self):
             name = self.path.lstrip("/")
-            svc = services.get(name)
-            if name != "pv2smiles" or svc is None:
+            svc, route = services.get(name), routes.get(name)
+            if svc is None or route is None:
                 return self._reply(404, {"error": f"no route {self.path}"})
+            parse, reply = route
             # parse/validate THIS request: client errors -> 400
             try:
                 raw = self.rfile.read(int(self.headers["Content-Length"]))
-                item = parse_pv2smiles(json.loads(raw), stats)
+                item = parse(json.loads(raw))
             except (KeyError, ValueError, TypeError,
                     json.JSONDecodeError) as exc:
                 return self._reply(400, {"error": str(exc)})
@@ -96,7 +114,7 @@ def make_server(services: dict, host: str, port: int,
             except Exception as exc:  # noqa: BLE001 — reported to the client
                 return self._reply(500, {"error": f"{type(exc).__name__}: "
                                                   f"{exc}"})
-            self._reply(200, {"smiles": result})
+            self._reply(200, reply(result))
 
     class Server(ThreadingHTTPServer):
         # a wave of concurrent clients must not overflow the listen backlog
@@ -111,7 +129,7 @@ def main(argv=None):
         load_reference_checkpoint, spmm_subset)
     from spmm_tpu_torch.cli._common import load_stats, make_tokenizer
     from spmm_tpu_torch.models.spmm import SPMM
-    from spmm_tpu_torch.serving import Pv2SmilesService
+    from spmm_tpu_torch.serving import Pv2SmilesService, Smiles2PvService
     from spmm_tpu_torch.utils.device import resolve_device
 
     p = argparse.ArgumentParser()
@@ -138,12 +156,18 @@ def main(argv=None):
     model.load_state_dict(spmm_subset(load_reference_checkpoint(
         args.checkpoint)), strict=True)
     model = model.to(dev).eval()
-    services = {"pv2smiles": Pv2SmilesService(
-        model, tok, k=args.k, stochastic=args.stochastic, seed=args.seed,
-        batch_size=args.batch_size, max_wait_ms=args.max_wait_ms, device=dev)}
+    services = {
+        "pv2smiles": Pv2SmilesService(
+            model, tok, k=args.k, stochastic=args.stochastic, seed=args.seed,
+            batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
+            device=dev),
+        "smiles2pv": Smiles2PvService(
+            model, tok, stats=stats, batch_size=args.batch_size,
+            max_wait_ms=args.max_wait_ms, device=dev),
+    }
     server = make_server(services, args.host, args.port, stats=stats)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
-          f"(POST /pv2smiles, GET /healthz)")
+          f"(POST /pv2smiles, POST /smiles2pv, GET /healthz)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -153,16 +153,24 @@ def decode_step(
     return model.cls.predictions(hidden)[:, 0, :]
 
 
+def _log_softmax(x: Tensor) -> Tensor:
+    """``jax.nn.log_softmax`` in x's dtype, rounding where it rounds: the
+    shift, exp and log in x's dtype, the sum of the exps in fp32."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    total = torch.exp(shifted).float().sum(dim=-1, keepdim=True)
+    return shifted - torch.log(total.to(x.dtype))
+
+
 def _sample_topk(logits: Tensor, k: int, stochastic: bool,
                  uniforms: Optional[Tensor]) -> tuple[Tensor, Tensor]:
     """(log softmax p of the selected, indices); stochastic = Gumbel top-k
     (== torch.multinomial without replacement, reference
     d_pv2smiles_single.py:37-44) over the given uniforms.
 
-    The log softmax, and so the running beam score, is fp32 whatever the
-    decoder's dtype.  The JAX package keeps it in the logits' dtype, which
-    under a bf16 decoder rounds every beam score to bf16."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    The log softmax is in the logits' dtype, as in the JAX package
+    (spmm_tpu/inference/decoding.py:385): under a bf16 decoder the live
+    beam scores are bf16, while the harvested ones are fp32."""
+    logp = _log_softmax(logits)
     if stochastic:
         g = -torch.log(-torch.log(uniforms))
         _, idx = _top_k(logp + g, k)
@@ -236,7 +244,8 @@ def beam_search_batched(
     # running top-k of harvested beams; the buffer comes before the new
     # candidates in the merge, so earlier harvests win ties
     fin_seqs = torch.zeros((m, k, T), dtype=torch.int64, device=dev)
-    fin_logp = torch.full((m, k), float("-inf"), device=dev)
+    fin_logp = torch.full((m, k), float("-inf"), dtype=torch.float32,
+                          device=dev)
     fin_len = torch.zeros((m, k), dtype=torch.int64, device=dev)
     fin_cnt = torch.zeros((m,), dtype=torch.int64, device=dev)
     done = torch.zeros((m,), dtype=torch.bool, device=dev)

@@ -85,8 +85,12 @@ class BertEmbeddings(nn.Module):
         if inputs_embeds is None:
             inputs_embeds = self.word_embeddings(input_ids)
         seq_len = inputs_embeds.shape[1]
-        positions = torch.arange(position_offset, position_offset + seq_len,
-                                 device=inputs_embeds.device)
+        # positions past the table read its last row, as JAX's gather
+        # clamps an out-of-range index (spmm_tpu/models/bert.py:112-113)
+        positions = torch.arange(
+            position_offset, position_offset + seq_len,
+            device=inputs_embeds.device).clamp_max(
+                self.position_embeddings.num_embeddings - 1)
         x = (inputs_embeds + self.position_embeddings(positions)
              + self.token_type_embeddings.weight[0])
         return self.LayerNorm(x)
@@ -112,7 +116,8 @@ class BertAttention(nn.Module):
     """Projected MHA + output dense + residual LN (reference xbert.py:362-422).
 
     ``kv`` supplies precomputed (k, v) head tensors — the cross-attention
-    K/V computed once per decode."""
+    K/V computed once per decode.  ``attention_impl`` picks the attention
+    core (``ops.attention.multi_head_attention``'s ``impl``)."""
 
     def __init__(self, cfg: BertArchConfig, kv_width: int):
         super().__init__()
@@ -122,7 +127,8 @@ class BertAttention(nn.Module):
 
     def forward(self, hidden: Tensor, kv_source: Optional[Tensor],
                 additive_mask: Optional[Tensor],
-                kv: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+                kv: Optional[tuple[Tensor, Tensor]] = None,
+                attention_impl: str = "plain") -> Tensor:
         h = self.num_heads
         q = split_heads(self.self.query(hidden), h)
         if kv is not None:
@@ -130,7 +136,7 @@ class BertAttention(nn.Module):
         else:
             k = split_heads(self.self.key(kv_source), h)
             v = split_heads(self.self.value(kv_source), h)
-        ctx = multi_head_attention(q, k, v, additive_mask)
+        ctx = multi_head_attention(q, k, v, additive_mask, attention_impl)
         out = self.output.dense(merge_heads(ctx))
         return self.output.LayerNorm(out + hidden)
 
@@ -172,14 +178,17 @@ class BertLayer(nn.Module):
     def forward(self, hidden: Tensor, self_mask: Optional[Tensor],
                 encoder_hidden: Optional[Tensor] = None,
                 cross_mask: Optional[Tensor] = None,
-                cross_kv: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
-        hidden = self.attention(hidden, hidden, self_mask)
+                cross_kv: Optional[tuple[Tensor, Tensor]] = None,
+                attention_impl: str = "plain") -> Tensor:
+        hidden = self.attention(hidden, hidden, self_mask,
+                                attention_impl=attention_impl)
         if self.has_cross:
             if encoder_hidden is None and cross_kv is None:
                 raise ValueError(
                     "encoder_hidden_states required for cross-attention layers")
             hidden = self.crossattention(hidden, encoder_hidden, cross_mask,
-                                         kv=cross_kv)
+                                         kv=cross_kv,
+                                         attention_impl=attention_impl)
         return self.mlp(hidden)
 
 
@@ -203,7 +212,8 @@ class BertEncoder(nn.Module):
 
     def forward(self, hidden: Tensor, self_mask: Optional[Tensor],
                 encoder_hidden=None, cross_mask=None, mode: str = "multi_modal",
-                cross_kv: Optional[dict] = None) -> Tensor:
+                cross_kv: Optional[dict] = None,
+                attention_impl: str = "plain") -> Tensor:
         """Run the section selected by ``mode``.  ``encoder_hidden`` /
         ``cross_mask`` may be lists, assigned round-robin over the fusion
         layers; ``cross_kv`` ({"k": [L, B, h, Le, D], "v": ...}) supplies
@@ -219,7 +229,8 @@ class BertEncoder(nn.Module):
             ckv = None
             if cross_kv is not None and layer.has_cross:
                 ckv = (cross_kv["k"][i], cross_kv["v"][i])
-            hidden = layer(hidden, self_mask, enc, xmask, cross_kv=ckv)
+            hidden = layer(hidden, self_mask, enc, xmask, cross_kv=ckv,
+                           attention_impl=attention_impl)
         return hidden
 
 
@@ -243,10 +254,13 @@ class BertModel(nn.Module):
         is_decoder: bool = False,
         mode: str = "multi_modal",
         cross_kv: Optional[dict] = None,
+        attention_impl: str = "plain",
     ) -> Tensor:
         """Returns the last hidden state [B, L, H].  ``encoder_embeds``
         bypasses the embedding layer; ``cross_kv`` replaces
-        ``encoder_hidden_states`` with precomputed per-layer cross K/V."""
+        ``encoder_hidden_states`` with precomputed per-layer cross K/V;
+        ``attention_impl`` ("plain" or "kernel") runs every attention of the
+        section through that core."""
         if encoder_embeds is not None:
             hidden = encoder_embeds
         else:
@@ -282,7 +296,8 @@ class BertModel(nn.Module):
                 cross_mask = invert_encoder_mask(encoder_attention_mask)
 
         return self.encoder(hidden, self_mask, encoder_hidden_states,
-                            cross_mask, mode, cross_kv=cross_kv)
+                            cross_mask, mode, cross_kv=cross_kv,
+                            attention_impl=attention_impl)
 
 
 class BertPredictionTransform(nn.Module):

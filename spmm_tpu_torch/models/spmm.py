@@ -98,9 +98,26 @@ class SPMM(nn.Module):
 
     def encode_properties(self, prop_inputs: torch.Tensor,
                           attention_mask: Optional[torch.Tensor] = None,
-                          is_decoder: bool = False) -> torch.Tensor:
+                          is_decoder: bool = False,
+                          attention_impl: str = "plain") -> torch.Tensor:
         """6-layer property encoder over injected embeddings (reference
         SPMM_models.py:90)."""
         return self.property_encoder(inputs_embeds=prop_inputs,
                                      attention_mask=attention_mask,
-                                     is_decoder=is_decoder, mode="multi_modal")
+                                     is_decoder=is_decoder, mode="multi_modal",
+                                     attention_impl=attention_impl)
+
+    def encode_text(self, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor,
+                    attention_impl: str = "plain") -> torch.Tensor:
+        """Unimodal SMILES encoding, layers [0, fusion) (``encode_text``,
+        reference SPMM_models.py:94)."""
+        return self.text_encoder.bert(input_ids=input_ids,
+                                      attention_mask=attention_mask,
+                                      mode="text",
+                                      attention_impl=attention_impl)
+
+    def mtr_head_forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        """property_mtr_head, Linear-GELU-LN-Linear -> one scalar per
+        position (``mtr_head_forward``, reference SPMM_models.py:39-42)."""
+        return self.property_mtr_head(hidden)[..., 0]

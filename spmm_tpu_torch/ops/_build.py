@@ -3,7 +3,9 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``.  Libraries go to ``build/spmm_tpu_torch/``
 beside the package, named by a hash of the source, so a changed source is
-rebuilt and an unchanged one is loaded as it is.
+rebuilt and an unchanged one is loaded as it is.  Two builds of one source
+write separate temporary files and rename them into place, so concurrent
+builds are safe.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def build(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp.so"
+    tmp = BUILD_DIR / (f"{out.stem}.{os.getpid()}.{threading.get_ident()}"
+                       ".tmp.so")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
@@ -64,9 +67,12 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    """The loaded library of ``csrc/<name>.cu``, built at first use.  The
+    build runs outside the lock, so that several sources compile at once."""
     with _lock:
         lib = _loaded.get(name)
-        if lib is None:
-            lib = _loaded[name] = ctypes.CDLL(str(build(name)))
-        return lib
+    if lib is None:
+        path = build(name)
+        with _lock:
+            lib = _loaded.setdefault(name, ctypes.CDLL(str(path)))
+    return lib

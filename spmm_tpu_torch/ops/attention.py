@@ -1,8 +1,16 @@
 """Multi-head attention core (counterpart of ``spmm_tpu.ops.attention``).
 
-The plain path of the JAX function (reference xbert.py:304-350 semantics):
-fp32 scores scaled by 1/sqrt(head_dim), the additive mask before an fp32
-softmax, probabilities cast to ``v``'s dtype before the product with V.
+Two implementations behind one interface (reference xbert.py:304-350
+semantics: fp32 scores scaled by 1/sqrt(head_dim), the additive mask before
+an fp32 softmax, probabilities cast to ``v``'s dtype before the product
+with V):
+
+  - impl="plain"   matmul -> fp32 softmax -> matmul (default, as "xla" is in
+                   the JAX package);
+  - impl="kernel"  ``ops.fused_attention.fused_mha``, the counterpart of the
+                   JAX package's impl="pallas": the hand-written CUDA kernel
+                   on a CUDA tensor, its plain version on a CPU one.  The
+                   mask must be head-uniform, as it is in this model family.
 """
 
 from __future__ import annotations
@@ -11,6 +19,8 @@ import math
 from typing import Optional
 
 import torch
+
+from spmm_tpu_torch.ops.fused_attention import fused_mha
 
 
 def multi_head_attention(
@@ -21,10 +31,8 @@ def multi_head_attention(
     impl: str = "plain",
 ) -> torch.Tensor:
     """Scaled dot-product attention; returns [B, h, Lq, D] in v's dtype."""
-    if impl == "pallas":
-        raise NotImplementedError(
-            "the fused attention kernel (spmm_tpu/ops/pallas_attention.py "
-            "pallas_mha) is not ported yet: ROADMAP.md queue 2, item 2")
+    if impl == "kernel":
+        return fused_mha(q, k, v, additive_mask)
     if impl != "plain":
         raise ValueError(f"unknown attention impl {impl!r}")
     # bf16 operands upcast exactly, so the fp32 product equals an fp32-

@@ -6,8 +6,8 @@ launches when it is full OR when the oldest request has waited
 device call per batch, and resolves each caller's
 ``concurrent.futures.Future`` with its own result.
 
-:class:`Pv2SmilesService` serves property vector -> SMILES.  The SMILES ->
-PV service waits for the smiles2pv slice of the port.
+:class:`Pv2SmilesService` serves property vector -> SMILES and
+:class:`Smiles2PvService` SMILES -> property vector.
 """
 
 from __future__ import annotations
@@ -167,5 +167,40 @@ class Pv2SmilesService(BatchingService):
             # decode only the real rows
             return [_decode_beams(tok, result, i, k, stochastic, py_rng)
                     for i in range(n)]
+
+        super().__init__(batch_fn, batch_size, max_wait_ms)
+
+
+class Smiles2PvService(BatchingService):
+    """SMILES -> PV serving: submit a SMILES string, receive the 53-entry
+    property vector (denormalized when ``stats`` is given, else normalized).
+
+    One fixed-length bucket (``max_len``) so that every batch has one shape
+    (reference d_smiles2pv.py truncates at 100 likewise).  fp32 by default,
+    every attention through the fused kernel; ``bf16`` runs a bfloat16 copy
+    of the model."""
+
+    def __init__(self, model, tok, *, stats=None, batch_size: int = 128,
+                 max_wait_ms: float = 25.0, max_len: int = 100,
+                 bf16: bool = False, device=None):
+        from spmm_tpu_torch.inference.smiles2pv import (
+            cast_params_bf16, predict_pv)
+        from spmm_tpu_torch.utils.device import check_on, resolve_device
+
+        dev = resolve_device(device)
+        check_on(model, dev)
+        if bf16:
+            model = cast_params_bf16(model)
+
+        def batch_fn(smiles: list[str], n: int) -> list[np.ndarray]:
+            texts = [s if s.startswith("[CLS]") else "[CLS]" + s
+                     for s in smiles]
+            ids, mask = tok.encode_batch(texts, max_len=max_len,
+                                         buckets=(max_len,))
+            preds = predict_pv(model, ids, mask, bf16=bf16,
+                               device=dev).cpu().numpy()[:n]
+            if stats is not None:
+                preds = stats.denormalize(preds)
+            return list(preds)
 
         super().__init__(batch_fn, batch_size, max_wait_ms)

@@ -147,3 +147,9 @@ class SmilesTokenizer:
             ids[i, : len(s)] = s
             mask[i, : len(s)] = 1
         return ids, mask
+
+
+def default_buckets(max_len: int = 100) -> tuple[int, ...]:
+    """Static pad buckets: powers-of-two-ish steps up to max_len."""
+    b = [16, 24, 32, 48, 64, 80, max_len]
+    return tuple(x for x in b if x <= max_len) or (max_len,)

@@ -115,6 +115,83 @@ def test_top_k_keeps_first_of_ties():
     np.testing.assert_array_equal(vals.numpy(), np.asarray(want_v))
 
 
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_sample_topk_matches_jax(stochastic, dtype):
+    """The log softmax and so the beam scores keep the logits' dtype, as in
+    JAX (decoding.py:385): bf16 logits give bf16 scores, equal bit for bit."""
+    rng = np.random.default_rng(4)
+    logits = (3.0 * rng.normal(size=(M, 2, 300))).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    jlogits = jnp.asarray(logits, dtype)
+    want_v, want_i = jdec._sample_topk(jlogits, 2, stochastic, key)
+    uniforms = t(jax.random.uniform(key, jlogits.shape, minval=1e-20,
+                                    maxval=1.0)) if stochastic else None
+    got_v, got_i = decoding._sample_topk(
+        t(jlogits.astype(jnp.float32)).to(getattr(torch, dtype)), 2,
+        stochastic, uniforms)
+    assert got_v.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got_v.float().numpy(),
+                                      np.asarray(want_v, np.float32))
+    else:
+        np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v),
+                                   atol=2e-6, rtol=0)
+
+
+def test_beam_bookkeeping_bf16_matches_jax(monkeypatch):
+    """Both packages' beam loops fed the same bf16 logits (decode_step
+    replaced by a table lookup): live scores stay bf16, harvested ones are
+    fp32 (decoding.py:487,498).  seqs, lengths and counts agree exactly and
+    every score is a bf16 value.  Scores agree within one bf16 ulp: inside
+    its compiled loop XLA may keep a fused bf16 intermediate in fp32, which
+    rounds a sum differently now and then."""
+    k, steps = 2, 10
+    rng = np.random.default_rng(9)
+    table = (3.0 * rng.normal(size=(steps + 1, M * k, 300))).astype(
+        np.float32)
+    table[:, :, 3] += 5.0                       # [SEP] often near the top
+    jtable = jnp.asarray(table, jnp.bfloat16)
+    ttable = t(jtable.astype(jnp.float32)).to(torch.bfloat16)
+
+    def jax_step(params, cfg, token, pos, cache, *args, **kwargs):
+        return jtable[pos], cache
+
+    def port_step(model, cfg, token, pos, cache, *args):
+        assert cache.dtype == torch.bfloat16
+        return ttable[pos]
+
+    monkeypatch.setattr(jdec, "decode_step", jax_step)
+    monkeypatch.setattr(decoding, "decode_step", port_step)
+    tree = jax_tree(0)
+    tcj, _ = jax_configs()
+    tct, _ = torch_configs()
+    enc, enc_mask = encoder_inputs()
+    want = jax.device_get(jdec.beam_search_batched(
+        to_jax(tree)["text_encoder"], tcj, jnp.asarray(enc),
+        jnp.asarray(enc_mask),
+        jdec.BeamSpec(k=k, stop_count=4, max_steps=steps, attention="xla"),
+        cache_dtype=jnp.bfloat16))
+    got = decoding.beam_search_batched(
+        port_model(tree).text_encoder, tct, t(enc), t(enc_mask),
+        decoding.BeamSpec(k=k, stop_count=4, max_steps=steps),
+        cache_dtype=torch.bfloat16)
+    assert want["n_finished"].any()
+    logp = got["logp"]
+    assert logp.dtype == torch.float32
+    assert torch.equal(logp, logp.to(torch.bfloat16).float())
+    np.testing.assert_array_equal(got["seqs"].numpy(), want["seqs"])
+    np.testing.assert_array_equal(got["n_finished"].numpy(),
+                                  want["n_finished"])
+    np.testing.assert_array_equal(got["lengths"].numpy(), want["lengths"])
+    finite = np.isfinite(want["logp"])
+    np.testing.assert_array_equal(np.isfinite(logp.numpy()), finite)
+    w = want["logp"][finite]
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(w))) - 7)
+    assert (np.abs(logp.numpy()[finite] - w) <= ulp).all()
+
+
 @pytest.fixture(scope="module")
 def pv_case():
     tree = jax_tree(3, sep_bias=0.3)

@@ -1,0 +1,132 @@
+"""Port parity: spmm_tpu_torch.ops.fused_attention (kernel 2's wrapper and
+plain version) vs spmm_tpu.ops.pallas_attention.pallas_mha in interpret mode.
+
+On the CPU ``fused_mha`` runs its plain version, so both names are held to
+the Pallas kernel: within 2e-5 in fp32 and 3e-2 in bf16, the bars of
+tests/test_pallas_attention.py.  Cases: its five shapes, a query-row mask
+[B,1,Lq,Lk] and a padding mask [B,1,1,Lk] with random lengths, q/k/v as
+split_heads views, a batch row whose keys are all masked, and the wrapper's
+refusals.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from spmm_tpu.ops import masks as jmasks
+from spmm_tpu.ops.pallas_attention import pallas_mha
+
+from spmm_tpu_torch.ops import masks
+from spmm_tpu_torch.ops.fused_attention import fused_mha, fused_mha_reference
+
+B, H, D = 3, 4, 64
+
+
+def _qkv(rng, lq, lk, b=B, h=H, d=D):
+    return tuple(rng.normal(size=(b, h, n, d)).astype(np.float32)
+                 for n in (lq, lk, lk))
+
+
+def _masks(kind, lq, lk, rng=None):
+    """(JAX mask, port mask) of one kind, both from one numpy mask."""
+    if kind == "none":
+        return None, None
+    if kind == "padding":                     # the JAX suite's case
+        bin_mask = np.ones((B, lk), np.int32)
+        bin_mask[1, lk // 2:] = 0
+    elif kind == "random_padding":            # ragged rows
+        bin_mask = (rng.random((B, lk)) < 0.6).astype(np.int32)
+        bin_mask[:, 0] = 1
+    else:
+        bin_mask = np.ones((B, lk), np.int32)
+        bin_mask[0, lk - 2:] = 0
+    if kind == "causal":
+        return (jmasks.extend_causal_mask(jnp.asarray(bin_mask), q_len=lq,
+                                          past_len=lk - lq),
+                masks.extend_causal_mask(torch.from_numpy(bin_mask), q_len=lq,
+                                         past_len=lk - lq))
+    return (jmasks.extend_attention_mask(jnp.asarray(bin_mask)),
+            masks.extend_attention_mask(torch.from_numpy(bin_mask)))
+
+
+FN = {"fused_mha": fused_mha, "reference": fused_mha_reference}
+
+
+@pytest.mark.parametrize("fn", sorted(FN))
+@pytest.mark.parametrize("lq,lk,mask_kind", [
+    (16, 16, "none"),
+    (24, 24, "padding"),
+    (24, 24, "causal"),
+    (1, 32, "padding"),     # decode-shaped query
+    (8, 16, "padding"),     # cross-attention shaped
+    (24, 24, "random_padding"),
+    (10, 33, "causal"),     # [B,1,Lq,Lk] with Lk > 32
+])
+def test_matches_pallas(fn, lq, lk, mask_kind):
+    rng = np.random.default_rng(lq * 100 + lk)
+    q, k, v = _qkv(rng, lq, lk)
+    jm, tm = _masks(mask_kind, lq, lk, rng)
+    want = pallas_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm,
+                      interpret=True)
+    got = FN[fn](*(torch.from_numpy(x) for x in (q, k, v)), tm)
+    assert got.dtype == torch.float32 and got.shape == (B, H, lq, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("fn", sorted(FN))
+@pytest.mark.parametrize("mask_kind", ["none", "causal"])
+def test_bf16_matches_pallas(fn, mask_kind):
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, 16, 16)
+    jm, tm = _masks(mask_kind, 16, 16, rng)
+    want = pallas_mha(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), jm,
+                      interpret=True)
+    got = FN[fn](*(torch.from_numpy(x).to(torch.bfloat16)
+                   for x in (q, k, v)), tm)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2)
+
+
+def test_split_heads_views_and_fully_masked_row():
+    """q/k/v as the transposed views BertAttention passes.  A batch row whose
+    keys are all masked (-10000, not -inf) comes out as in JAX, but that
+    row is ill-conditioned: its fp32 scores near -10000 are rounded to
+    2**-10, so a one-ulp difference in a dot product moves a probability by
+    about 0.1%.  It is held to 1e-3, the other rows to 2e-5."""
+    from spmm_tpu_torch.models.bert import split_heads
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3, B, 20, H * D)).astype(np.float32)
+    q, k, v = (split_heads(torch.from_numpy(a), H) for a in x)
+    assert not q.is_contiguous()
+    bin_mask = np.ones((B, 20), np.int32)
+    bin_mask[1] = 0
+    tm = masks.extend_attention_mask(torch.from_numpy(bin_mask))
+    want = pallas_mha(*(jnp.asarray(a.numpy()) for a in (q, k, v)),
+                      jmasks.extend_attention_mask(jnp.asarray(bin_mask)),
+                      interpret=True)
+    got = fused_mha(q, k, v, tm)
+    want = np.asarray(want)
+    keep = [0, 2]
+    np.testing.assert_allclose(got[keep].numpy(), want[keep], atol=2e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got[1].numpy(), want[1], atol=1e-3, rtol=0)
+
+
+def test_wrapper_refusals():
+    x = torch.zeros(1, 2, 4, 32)
+    with pytest.raises(TypeError, match="float32"):
+        fused_mha(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError):
+        fused_mha(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="k and v"):
+        fused_mha(x, x[..., :16], x[..., :16])
+    with pytest.raises(ValueError, match="4-D"):
+        fused_mha(x, x, x, torch.zeros(1, 4))
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_mha(*(torch.zeros(1, 2, 4, 32, device="meta"),) * 3)
+    assert fused_mha.launches == 0          # the CPU never launches

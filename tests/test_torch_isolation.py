@@ -31,6 +31,8 @@ def _modules() -> list[str]:
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert "spmm_tpu_torch.ops.decode_attention" in mods
+    assert "spmm_tpu_torch.ops.fused_attention" in mods
+    assert "spmm_tpu_torch.cli.smiles2pv" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -71,11 +73,14 @@ def test_entry_points_need_a_gpu_unless_told_otherwise():
     raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
+    from spmm_tpu_torch.chem.normalize import PropertyStats
+    from spmm_tpu_torch.cli.smiles2pv import pv_generate
     from spmm_tpu_torch.configs import BertArchConfig
     from spmm_tpu_torch.inference.pv2smiles import (
         generate_batched, generate_with_property)
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv
     from spmm_tpu_torch.models.spmm import SPMM
-    from spmm_tpu_torch.serving import Pv2SmilesService
+    from spmm_tpu_torch.serving import Pv2SmilesService, Smiles2PvService
     from spmm_tpu_torch.tokenizer import SmilesTokenizer
 
     tc = BertArchConfig(hidden_size=32, num_hidden_layers=2,
@@ -95,6 +100,15 @@ def test_entry_points_need_a_gpu_unless_told_otherwise():
         generate_with_property(model, tok, pvs[0], pvs[0], n_generate=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Pv2SmilesService(model, tok)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Smiles2PvService(model, tok)
+    ids, mask = tok.encode_batch(["[CLS]CCO"], max_len=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict_pv(model, ids, mask)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pv_generate(model, tok, ["CCO"], PropertyStats.load())
     # a model on one device and a call for another: refused, not moved
     with pytest.raises(ValueError, match="is on"):
         generate_batched(model, tok, pvs, device="meta")
+    with pytest.raises(ValueError, match="is on"):
+        predict_pv(model, ids, mask, device="meta")

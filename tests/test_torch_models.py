@@ -115,6 +115,38 @@ def test_encode_pv_matches_jax(pair, masked):
                                rtol=0)
 
 
+@pytest.mark.parametrize("offset", [60, 96])
+def test_positions_past_the_table_clamp_as_in_jax(offset):
+    """max_position_embeddings=64 with positions up to offset + 7 (103):
+    JAX's gather reads the last row past the table, and so does the port."""
+    import dataclasses
+
+    from spmm_tpu.configs import BertArchConfig as JaxCfg
+    from spmm_tpu_torch.configs import BertArchConfig
+    from spmm_tpu_torch.models.bert import BertEmbeddings
+
+    tc, _ = jax_configs()
+    jcfg = dataclasses.replace(tc, max_position_embeddings=64)
+    assert isinstance(jcfg, JaxCfg)
+    p = jax.tree.map(np.asarray, jbert.init_bert_params(
+        jax.random.PRNGKey(3), jcfg)["embeddings"])
+    emb = BertEmbeddings(BertArchConfig(**dataclasses.asdict(jcfg)))
+    emb.load_state_dict({
+        "word_embeddings.weight": t(p["word"]),
+        "position_embeddings.weight": t(p["position"]),
+        "token_type_embeddings.weight": t(p["token_type"]),
+        "LayerNorm.weight": t(p["ln"]["scale"]),
+        "LayerNorm.bias": t(p["ln"]["bias"])}, strict=True)
+    ids = np.random.default_rng(6).integers(4, 300, size=(2, 8)).astype(
+        np.int32)
+    want = jbert.embeddings_forward(jax.tree.map(jnp.asarray, p), jcfg,
+                                    jnp.asarray(ids), position_offset=offset)
+    with torch.no_grad():
+        got = emb(t(ids), position_offset=offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+
+
 def test_bridge_ties_and_aliases(pair):
     _, model, tree = pair
     head = model.text_encoder.cls.predictions

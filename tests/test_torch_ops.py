@@ -1,7 +1,8 @@
 """Port parity: spmm_tpu_torch.ops.masks / ops.attention vs spmm_tpu.ops.
 
 Masks must match bit for bit; attention within 2e-5 on the cases of
-tests/test_pallas_attention.py:14-20 (fp32), within 3e-2 in bf16.
+tests/test_pallas_attention.py:14-20 (fp32), within 3e-2 in bf16, for the
+plain impl against JAX's "xla" and the kernel impl against its "pallas".
 """
 
 import numpy as np
@@ -90,7 +91,41 @@ def test_attention_bf16_matches_jax():
                                np.asarray(want, np.float32), atol=3e-2)
 
 
-def test_pallas_impl_not_ported_yet():
+@pytest.mark.parametrize("lq,lk,mask_kind", [
+    (16, 16, "none"),
+    (24, 24, "padding"),
+    (24, 24, "causal"),
+    (1, 32, "padding"),     # decode-shaped query
+    (8, 16, "padding"),     # cross-attention shaped
+])
+def test_kernel_impl_matches_jax_pallas(lq, lk, mask_kind):
+    """impl="kernel" (fused_mha; its plain version on the CPU) against the
+    JAX package's impl="pallas" (pallas_mha in interpret mode off-TPU)."""
+    rng = np.random.default_rng(2)
+    b, h, d = 3, 4, 64
+    q, k, v = (rng.normal(size=(b, h, n, d)).astype(np.float32)
+               for n in (lq, lk, lk))
+    bin_mask = np.ones((b, lk), np.int32)
+    bin_mask[1, lk // 2:] = 0
+    if mask_kind == "none":
+        jm = tm = None
+    elif mask_kind == "padding":
+        jm = jmasks.extend_attention_mask(jnp.asarray(bin_mask))
+        tm = masks.extend_attention_mask(torch.from_numpy(bin_mask))
+    else:
+        jm = jmasks.extend_causal_mask(jnp.asarray(bin_mask), q_len=lq,
+                                       past_len=lk - lq)
+        tm = masks.extend_causal_mask(torch.from_numpy(bin_mask), q_len=lq,
+                                      past_len=lk - lq)
+    want = jmha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm,
+                impl="pallas")
+    got = multi_head_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), tm, impl="kernel")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+
+
+def test_unknown_impl_raises():
     x = torch.zeros(1, 1, 2, 64)
-    with pytest.raises(NotImplementedError, match="queue 2"):
+    with pytest.raises(ValueError, match="unknown attention impl"):
         multi_head_attention(x, x, x, impl="pallas")

@@ -2,7 +2,8 @@
 tests/test_serving.py and tests/test_serve_cli.py pin for the JAX package —
 request coalescing that callers cannot see, deadline flushes, failures on
 every future of a batch, the offline results through the service and over
-HTTP, partial conditioning, 400s on malformed input and /healthz.
+HTTP, partial conditioning, 400s on malformed input and /healthz, for
+POST /pv2smiles and POST /smiles2pv.
 """
 
 import json
@@ -18,7 +19,8 @@ import torch
 from spmm_tpu_torch.chem.normalize import PropertyStats
 from spmm_tpu_torch.cli.serve import make_server
 from spmm_tpu_torch.inference.pv2smiles import generate_batched
-from spmm_tpu_torch.serving import BatchingService, Pv2SmilesService
+from spmm_tpu_torch.serving import (
+    BatchingService, Pv2SmilesService, Smiles2PvService)
 from spmm_tpu_torch.tokenizer import SmilesTokenizer
 
 from torch_parity import CPU, jax_tree, port_model
@@ -161,8 +163,13 @@ def test_pv2smiles_service_stochastic_is_reproducible(tiny):
 def served(tiny):
     model, tok = tiny
     stats = PropertyStats.load()
-    services = {"pv2smiles": Pv2SmilesService(
-        model, tok, k=2, batch_size=4, max_wait_ms=30.0, device=CPU)}
+    services = {
+        "pv2smiles": Pv2SmilesService(model, tok, k=2, batch_size=4,
+                                      max_wait_ms=30.0, device=CPU),
+        "smiles2pv": Smiles2PvService(model, tok, stats=stats, batch_size=4,
+                                      max_wait_ms=30.0, max_len=24,
+                                      device=CPU),
+    }
     server = make_server(services, "127.0.0.1", 0, stats=stats)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -205,7 +212,7 @@ def test_route_matches_offline_and_healthz_counts(served):
     assert status == 200 and isinstance(body["smiles"], str)
     status, after = _healthz(url)
     assert status == 200 and after["ok"]
-    assert set(after["services"]) == {"pv2smiles"}
+    assert set(after["services"]) == {"pv2smiles", "smiles2pv"}
     assert (after["services"]["pv2smiles"]["requests"]
             - before["services"]["pv2smiles"]["requests"]) == 4
 
@@ -237,13 +244,37 @@ def test_route_partial_conditioning(served):
     ("/pv2smiles", {"pv": [1.0] * 53, "mask": [0.5] * 53,
                     "normalized": True}, 400),
     ("/pv2smiles", {"smiles": "CCO"}, 400),
-    ("/smiles2pv", {"smiles": "CCO"}, 404),     # waits for its slice
+    ("/smiles2pv", {"smiles": ""}, 400),
+    ("/smiles2pv", {"smiles": 5}, 400),
+    ("/smiles2pv", {"pv": [1.0] * 53}, 400),
     ("/nope", {}, 404),
 ])
 def test_validation_errors(served, path, payload, code):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(served[0], path, payload)
     assert e.value.code == code
+
+
+def test_smiles2pv_route_matches_offline(served):
+    """POST /smiles2pv answers the denormalized offline prediction
+    (tests/test_serve_cli.py:102) and /healthz counts the requests."""
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv
+
+    url, model, tok, stats = served
+    smiles = ["CCO", "c1ccccc1"]
+    ids, mask = tok.encode_batch(["[CLS]" + s for s in smiles], max_len=24,
+                                 buckets=(24,))
+    want = stats.denormalize(predict_pv(model, ids, mask,
+                                        device=CPU).numpy())
+    _, before = _healthz(url)
+    for i, s in enumerate(smiles):
+        status, body = _post(url, "/smiles2pv", {"smiles": s})
+        assert status == 200 and len(body["pv"]) == 53
+        np.testing.assert_allclose(np.asarray(body["pv"], np.float32),
+                                   want[i], atol=1e-4, rtol=1e-4)
+    _, after = _healthz(url)
+    assert (after["services"]["smiles2pv"]["requests"]
+            - before["services"]["smiles2pv"]["requests"]) == 2
 
 
 def test_concurrent_clients_coalesce(served):
