@@ -16,20 +16,32 @@ Phases, in order; any failure exits non-zero:
   1. device   needs CUDA; prints the card's name and power limit
               (nvidia-smi), turns TF32 off;
   2. build    builds both kernels from the sources in the checkout, one
-              nvcc each, started together;
+              nvcc each, started together; prints each kernel's registers
+              and spills (ptxas) and, from the CUDA occupancy API, the
+              blocks per SM and shared memory of its launches on the paths;
   3. kernels  beam_decode_attention vs its plain version at the serving
               shapes (m=128, h=12, k=2, D=64, T=104) for f32/bf16/fp8
-              caches, plus k=1 and k=5; fused_mha vs its plain version at
-              the five shapes of tests/test_pallas_attention.py, its bf16
-              case and every launch class of SMILES->PV at full width
-              (B=128, h=12, D=64; S in 16/32/54; L=100); times each kernel,
-              its plain version and one scaled_dot_product_attention call,
-              and computes the bound;
-  4. exact    full-width fp32 beam search over 8 PVs, once through kernel 1
-              and once through the plain version: identical seqs, as
-              initialised and with the [SEP] logit raised (harvest); and
-              fp32 predict_pv of 128 SMILES through kernel 2 and through
-              the plain attention: within 1e-4, 960 launches per batch;
+              caches on random ancestry, plus k=1 and k=5; on the decoder's
+              shared-prefix ancestry at positions on both sides of the
+              kernel's 32-row tile edges; at T=300, k=8, m=16 in fp32 (its
+              largest shared memory).  fused_mha vs its plain version at the
+              five shapes of tests/test_pallas_attention.py, its bf16 case
+              and every launch class of SMILES->PV at full width (B=128,
+              h=12, D=64; S in 16/32/54; L=100).  Times each kernel, its
+              plain version and one scaled_dot_product_attention call from
+              the replay of a CUDA graph (device time, without the host's
+              launch overhead) and computes the bound: kernel 1 at m=128 and
+              m=16, kernel 2 at every launch class with its launches per
+              batch;
+  4. exact    captures the mask that inference/decoding.py passes kernel 1
+              at the last step of a full-width bf16 batch of 128 (by
+              wrapping the name it calls), holds kernel 1 to its plain
+              version on it and times it there; then full-width fp32 beam
+              search over 8 PVs, once through kernel 1 and once through the
+              plain version: identical seqs, as initialised and with the
+              [SEP] logit raised (harvest); and fp32 predict_pv of 128
+              SMILES through kernel 2 and through the plain attention:
+              within 1e-4, 960 launches per batch;
   5. serving  HTTP server -> Pv2SmilesService (bf16, k=2, batch 128):
               raw and partially masked requests, /healthz, a timed full
               batch, one kv_fp8 batch; then HTTP -> Smiles2PvService (fp32,
@@ -38,7 +50,8 @@ Phases, in order; any failure exits non-zero:
               are counted from 0 over it;
   6. profile  one bf16 PV->SMILES batch and one fp32 SMILES->PV batch of
               128 under torch.profiler: device busy share and the kernels
-              that take the device time.
+              that take the device time; kernel 2's profiled total beside
+              phase 3's sum of launches x ms.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -92,20 +105,83 @@ def sync(dev) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn(i) over ``iters`` calls, by CUDA events."""
+    """Mean device time of fn(i) over ``iters`` calls, by CUDA events around
+    the replay of one CUDA graph that holds all of them: the host's launch
+    overhead (tens of microseconds a call through ctypes) does not count,
+    only the device's work and the graph's gaps between kernels."""
     import torch
 
     for i in range(warmup):
         fn(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for i in range(iters):
-        fn(i)
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
+
+
+def ptxas_usage(report: str) -> list:
+    """(kernel, "registers, spills") for each entry function of an
+    ``nvcc -Xptxas -v`` report, names demangled by c++filt where it exists."""
+    import re
+    import shutil
+
+    entries, name = [], None
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+        elif name and "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            entries.append([name, f"{regs} registers, {spill}"])
+            name = None
+    if entries and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in entries), capture_output=True, text=True).stdout
+        for entry, readable in zip(entries, names.splitlines()):
+            entry[0] = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                              readable)
+    return entries
+
+
+def occupancy() -> dict:
+    """Blocks per SM and dynamic shared-memory bytes of each kernel's
+    launches on the paths (and kernel 1's largest case), as the CUDA
+    occupancy API gives them for the launch each wrapper makes."""
+    import ctypes
+
+    from spmm_tpu_torch.ops import decode_attention, fused_attention
+
+    info = (ctypes.c_int * 2)()
+    rows = {}
+
+    def ask(label, query, *args) -> None:
+        err = query(*args, info)
+        if err:
+            fail(f"occupancy of {label}: CUDA error {err}")
+        rows[label] = {"blocks_per_sm": info[0], "dynamic_smem_bytes": info[1]}
+
+    lib1, lib2 = decode_attention._library(), fused_attention._library()
+    for label, code, k, pos in (("bf16 k=2 pos=103", 1, 2, 103),
+                                ("fp8 k=2 pos=103", 2, 2, 103),
+                                ("f32 k=8 pos=299", 0, 8, 299)):
+        ask(f"beam_decode_attention {label}", lib1.bda_occupancy, code, k, 64,
+            pos)
+    for label, lq, lk, *_ in s2p_launch_classes():
+        ask(f"fused_mha f32 {label}", lib2.fmha_occupancy, 0, 64, lq, lk)
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -113,9 +189,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # --------------------------------------------------------------------------- #
 
 
-def kernel_inputs(dev, m, h, k, T, d, L, cache_dtype, pos, seed):
-    """Random cache / q / k_new / v_new and an ancestry mask with random
-    parents at every written position (t < pos)."""
+def ancestry(dev, m, k, T, pos, kind, g):
+    """[m, k, T] ancestor lanes.  "random": a random parent at every
+    position; "shared": the decoder's pattern, all beams on one lane up to a
+    divergence step, then each on its own lane (rows of the other lanes are
+    attended by no beam)."""
+    import torch
+
+    if kind == "random":
+        return torch.randint(0, k, (m, k, T), generator=g, device=dev)
+    lane = torch.randint(0, k, (m, 1, 1), generator=g, device=dev)
+    div = torch.randint(0, pos + 1, (m, 1, 1), generator=g, device=dev)
+    own = torch.arange(k, device=dev)[None, :, None]
+    t = torch.arange(T, device=dev)[None, None, :]
+    return torch.where(t < div, lane, own).expand(m, k, T).contiguous()
+
+
+def kernel_inputs(dev, m, h, k, T, d, L, cache_dtype, pos, seed,
+                  kind="random", mask=None):
+    """Random cache / q / k_new / v_new and an ancestry mask of ``kind`` at
+    every written position (t < pos), or the given ``mask``."""
     import torch
 
     from spmm_tpu_torch.ops.decode_attention import ancestry_mask, compute_dtype
@@ -126,57 +219,106 @@ def kernel_inputs(dev, m, h, k, T, d, L, cache_dtype, pos, seed):
                         device=dev).to(cache_dtype)
     q, kn, vn = (torch.randn((m, h, k, d), generator=g, device=dev).to(cdt)
                  for _ in range(3))
-    anc = torch.randint(0, k, (m, k, T), generator=g, device=dev)
-    valid = (torch.arange(T, device=dev) < pos).expand(m, k, T)
-    return q, kn, vn, cache, ancestry_mask(anc, valid).contiguous()
+    if mask is None:
+        anc = ancestry(dev, m, k, T, pos, kind, g)
+        valid = (torch.arange(T, device=dev) < pos).expand(m, k, T)
+        mask = ancestry_mask(anc, valid).contiguous()
+    return q, kn, vn, cache, mask
 
 
-def compare_kernel(dev) -> dict:
+def check_kernel(dev, label, inputs, pos, worst) -> None:
+    """Kernel 1 vs its plain version on one case: ctx within 1e-5 (f32) or
+    2e-2 (bf16, fp8), the append bitwise, the rest of the cache unchanged."""
     import torch
 
     from spmm_tpu_torch.ops.decode_attention import (
         beam_decode_attention, beam_decode_attention_reference)
 
+    q, kn, vn, cache, mask = inputs
+    cache_dtype, (m, k) = cache.dtype, cache.shape[2:5:2]
+    tol = 1e-5 if cache_dtype == torch.float32 else 2e-2
+    c_kernel, c_plain = cache.clone(), cache.clone()
+    got = beam_decode_attention(q, kn, vn, c_kernel, mask, pos, 1)
+    want = beam_decode_attention_reference(q, kn, vn, c_plain, mask, pos, 1)
+    sync(dev)
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    row_ok = (torch.equal(bits(c_kernel[0, 1, :, :, :, pos]),
+                          bits(kn.to(cache_dtype)))
+              and torch.equal(bits(c_kernel[1, 1, :, :, :, pos]),
+                              bits(vn.to(cache_dtype))))
+    rest_ok = torch.equal(bits(c_kernel), bits(c_plain)) and \
+        torch.equal(bits(c_kernel[..., :pos, :]), bits(cache[..., :pos, :]))
+    name = str(cache_dtype).replace("torch.", "")
+    log(f"  {label:8s} m={m:3d} k={k} T={cache.shape[5]:3d} {name:14s} "
+        f"pos={pos:3d}  max|ctx err|={err:.3e} (tol {tol:g})  append="
+        f"{'bitwise' if row_ok else 'WRONG'}  rest="
+        f"{'unchanged' if rest_ok else 'CHANGED'}")
+    if not (ok and row_ok and rest_ok):
+        fail(f"kernel disagrees with its plain version ({label}, m={m}, "
+             f"k={k}, {name}, pos={pos})")
+    worst[name] = max(worst.get(name, 0.0), err)
+
+
+def compare_kernel(dev) -> dict:
+    """Random ancestry at the serving shapes, the decoder's shared-prefix
+    ancestry on both sides of the kernel's 32-row tile edges, and the
+    largest shared-memory case (T=300, k=8, fp32)."""
+    import torch
+
     h, d, T, L = 12, 64, 104, 2
-    cases = [(128, 2, dt) for dt in (torch.float32, torch.bfloat16,
-                                     torch.float8_e4m3fn)]
-    cases += [(64, 1, torch.float32), (16, 5, torch.float32)]
+    f32, bf16, fp8 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
+    cases = [("random", 128, 2, T, dt, pos) for dt in (f32, bf16, fp8)
+             for pos in (1, 33, 103)]
+    cases += [("random", 64, 1, T, f32, pos) for pos in (1, 33, 103)]
+    cases += [("random", 16, 5, T, f32, pos) for pos in (1, 33, 103)]
+    cases += [("shared", 128, 2, T, dt, pos) for dt in (f32, bf16, fp8)
+              for pos in (31, 32, 33, 63, 64, 65, 103)]
+    cases += [(kind, 16, 8, 300, f32, pos) for kind in ("random", "shared")
+              for pos in (0, 150, 299)]
     worst: dict[str, float] = {}
-    for m, k, cache_dtype in cases:
-        tol = 1e-5 if cache_dtype == torch.float32 else 2e-2
-        for pos in (1, 33, 103):
-            q, kn, vn, cache, mask = kernel_inputs(
-                dev, m, h, k, T, d, L, cache_dtype, pos, seed=pos + 7 * k)
-            c_kernel, c_plain = cache.clone(), cache.clone()
-            got = beam_decode_attention(q, kn, vn, c_kernel, mask, pos, 1)
-            want = beam_decode_attention_reference(q, kn, vn, c_plain, mask,
-                                                   pos, 1)
-            sync(dev)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-            row_ok = (torch.equal(bits(c_kernel[0, 1, :, :, :, pos]),
-                                  bits(kn.to(cache_dtype)))
-                      and torch.equal(bits(c_kernel[1, 1, :, :, :, pos]),
-                                      bits(vn.to(cache_dtype))))
-            rest_ok = torch.equal(bits(c_kernel), bits(c_plain)) and \
-                torch.equal(bits(c_kernel[..., :pos, :]),
-                            bits(cache[..., :pos, :]))
-            name = str(cache_dtype).replace("torch.", "")
-            log(f"  m={m:3d} k={k} {name:14s} pos={pos:3d}  "
-                f"max|ctx err|={err:.3e} (tol {tol:g})  append="
-                f"{'bitwise' if row_ok else 'WRONG'}  rest="
-                f"{'unchanged' if rest_ok else 'CHANGED'}")
-            if not (ok and row_ok and rest_ok):
-                fail(f"kernel disagrees with its plain version (m={m}, k={k},"
-                     f" {name}, pos={pos})")
-            worst[name] = max(worst.get(name, 0.0), err)
+    for kind, m, k, t_len, cache_dtype, pos in cases:
+        inputs = kernel_inputs(dev, m, h, k, t_len, d, L, cache_dtype, pos,
+                               seed=pos + 7 * k, kind=kind)
+        check_kernel(dev, kind, inputs, pos, worst)
     return worst
 
 
-def time_kernel(dev) -> dict:
-    """Serving shape, bf16, pos=103: kernel, plain version, one SDPA call,
-    and the bound.  Launches walk the 12 layers, so each reads a layer's
-    prefix (81 MB > the 50 MB L2) cold, as the decoder does."""
+def capture_decoder_mask(dev, model, batch: int = 128) -> dict:
+    """One full-width bf16 PV->SMILES batch of ``batch`` with the name that
+    inference/decoding.py calls wrapped: keeps the mask and pos of its last
+    call (the last step)."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.inference import decoding
+    from spmm_tpu_torch.inference.decoding import BeamSpec
+    from spmm_tpu_torch.inference.pv2smiles import _beam_batch, decoder_for
+
+    seen: dict = {}
+    inner = decoding.beam_decode_attention
+
+    def wrapped(q, k_new, v_new, cache, mask, pos, layer):
+        seen.update(mask=mask, pos=pos)
+        return inner(q, k_new, v_new, cache, mask, pos, layer)
+
+    pv = torch.as_tensor(np.random.default_rng(SEED + 3).normal(
+        size=(batch, 53)).astype(np.float32), device=dev)
+    decoding.beam_decode_attention = wrapped
+    try:
+        res = _beam_batch(model, decoder_for(model, bf16=True), pv,
+                          torch.zeros_like(pv), BeamSpec(k=2, stop_count=2))
+    finally:
+        decoding.beam_decode_attention = inner
+    sync(dev)
+    return dict(seen, steps=res["steps"])
+
+
+def time_kernel(dev, m=128, pos=103, mask=None) -> dict:
+    """bf16 at h=12, k=2, D=64, T=104: kernel, plain version, one SDPA call,
+    and the bound, on random ancestry or on the given mask.  Launches walk
+    the 12 layers, so at m=128 each reads a layer's prefix (81 MB > the
+    50 MB L2) cold, as the decoder does."""
     import torch
     import torch.nn.functional as F
 
@@ -184,10 +326,10 @@ def time_kernel(dev) -> dict:
         beam_decode_attention, beam_decode_attention_reference)
     from spmm_tpu_torch.ops.masks import MASK_VALUE
 
-    m, h, k, d, T, L, pos = 128, 12, 2, 64, 104, 12, 103
+    h, k, d, T, L = 12, 2, 64, 104, 12
     dt = torch.bfloat16
     q, kn, vn, cache, mask = kernel_inputs(dev, m, h, k, T, d, L, dt, pos,
-                                           seed=1)
+                                           seed=1, mask=mask)
     kernel_ms = cuda_ms(lambda i: beam_decode_attention(
         q, kn, vn, cache, mask, pos, i % L), iters=60)
     plain_ms = cuda_ms(lambda i: beam_decode_attention_reference(
@@ -223,6 +365,7 @@ def time_kernel(dev) -> dict:
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "m": m, "pos": pos,
         "bytes": nbytes, "flops": flops, "live_rows": live_rows,
         "all_rows": m * k * pos,
         "bound_ms_all_lanes": all_lane_bytes / HBM_BYTES_PER_S * 1e3,
@@ -300,11 +443,26 @@ def compare_mha(dev) -> dict:
     return worst
 
 
+def s2p_launch_classes() -> list:
+    """(label, Lq, Lk, mask, cross K/V, launches per batch) of every
+    fused_mha launch of one SMILES->PV batch: the 6 text layers once, then
+    per step of a segment of S slots 6 property S x S, 6 causal fusion S x S
+    and 6 cross S x 100.  Segments 16 / 32 / 54 carry 15 / 16 / 22 steps."""
+    classes = [("text 100x100", 100, 100, "padding", False, 6)]
+    for s, steps in ((16, 15), (32, 16), (54, 22)):
+        classes += [
+            (f"property {s}x{s}", s, s, "padding", False, 6 * steps),
+            (f"fusion-self {s}x{s} causal", s, s, "causal", False, 6 * steps),
+            (f"fusion-cross {s}x100", s, 100, "padding", True, 6 * steps)]
+    assert sum(c[-1] for c in classes) == S2P_LAUNCHES
+    return classes
+
+
 def time_mha(dev) -> list:
-    """fp32, B=128, h=12, D=64: the fusion cross-attention (54x100, padding
-    mask) and causal self-attention (54x54) of the last segment.  Kernel,
-    plain version, one SDPA call with the same float mask, and the bound.
-    Each launch reads 85-121 MB, more than the 50 MB L2 holds."""
+    """fp32, B=128, h=12, D=64, at every launch class of SMILES->PV (the
+    54x100 cross-attention first).  Kernel, plain version, one SDPA call
+    with the same float mask, and the bound.  Launches per batch beside
+    each, so that sum(launches x ms) can be held against the profile."""
     import torch
     import torch.nn.functional as F
 
@@ -312,9 +470,9 @@ def time_mha(dev) -> list:
 
     b, h, d = 128, 12, 64
     rows = []
-    for label, lq, lk, kind, kv_contig in (
-            ("fusion-cross 54x100", 54, 100, "padding", True),
-            ("fusion-self 54x54 causal", 54, 54, "causal", False)):
+    classes = sorted(s2p_launch_classes(),
+                     key=lambda c: c[0] != "fusion-cross 54x100")
+    for label, lq, lk, kind, kv_contig, launches in classes:
         q, k, v, mask = mha_inputs(dev, b, h, lq, lk, d, torch.float32, kind,
                                    seed=lq + lk, kv_contiguous=kv_contig)
         kernel_ms = cuda_ms(lambda i: fused_mha(q, k, v, mask), iters=50)
@@ -331,7 +489,8 @@ def time_mha(dev) -> list:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS * 1e3
         rows.append({
-            "shape": label, "ms": kernel_ms, "plain_ms": plain_ms,
+            "shape": label, "launches_per_batch": launches,
+            "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
@@ -668,7 +827,8 @@ def profile_s2p(dev, model) -> dict:
     run()
     sync(dev)
     unprofiled = time.perf_counter() - t0
-    return dict(device_breakdown(run, top=10), unprofiled_wall_s=unprofiled)
+    # top 16: kernel 2's five instantiations must all be listed
+    return dict(device_breakdown(run, top=16), unprofiled_wall_s=unprofiled)
 
 
 # --------------------------------------------------------------------------- #
@@ -726,28 +886,45 @@ def main() -> int:
         f"{secs[1]:.1f} s, together {time.perf_counter() - t0:.1f} s")
     for name in ("beam_decode_attention", "fused_attention"):
         report = _build.library_path(name).with_suffix(".log")
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for entry, usage in ptxas_usage(report.read_text()):
+            log(f"  ptxas {entry}: {usage}")
+    occ = occupancy()
+    for label, row in occ.items():
+        log(f"  occupancy {label}: {row['blocks_per_sm']} blocks per SM, "
+            f"{row['dynamic_smem_bytes']} B dynamic shared memory")
 
     # ---- 3. kernels vs plain ----
     mark("kernels")
     log("[kernels] beam_decode_attention vs plain version")
     worst = compare_kernel(dev)
+
+    def log_timing(label: str, tm: dict) -> None:
+        log(f"  {label} bf16 m={tm['m']} pos={tm['pos']}: kernel "
+            f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, sdpa "
+            f"{tm['library_ms']:.4f} ms (kernel/sdpa "
+            f"{tm['ms'] / tm['library_ms']:.3f}), bound {tm['bound_ms']:.4f} "
+            f"ms = {100 * tm['bound_ms'] / tm['ms']:.1f}% of the kernel "
+            f"({tm['live_rows']}/{tm['all_rows']} prefix rows attended; "
+            f"all-lane bound {tm['bound_ms_all_lanes']:.4f} ms)")
+
     timing = time_kernel(dev)
-    log(f"  serving shape bf16 pos=103: kernel {timing['ms']:.4f} ms, plain "
-        f"{timing['plain_ms']:.4f} ms, sdpa {timing['library_ms']:.4f} ms, "
-        f"bound {timing['bound_ms']:.4f} ms ({timing['live_rows']}/"
-        f"{timing['all_rows']} prefix rows attended; all-lane bound "
-        f"{timing['bound_ms_all_lanes']:.4f} ms)")
+    log_timing("random mask", timing)
+    timing_small = time_kernel(dev, m=16)
+    log_timing("random mask", timing_small)
     log("[kernels] fused_mha vs plain version")
     worst2 = compare_mha(dev)
     timing2 = time_mha(dev)
     for row in timing2:
-        log(f"  {row['shape']} f32: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); sdpa vs "
-            f"kernel {row['sdpa_vs_kernel_max_abs']:.2e}")
+        log(f"  {row['shape']:26s} f32 x{row['launches_per_batch']:3d}: "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"sdpa {row['library_ms']:.4f} ms (kernel/sdpa "
+            f"{row['ms'] / row['library_ms']:.3f}), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) = "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel; sdpa "
+            f"vs kernel {row['sdpa_vs_kernel_max_abs']:.2e}")
+    mha_batch_ms = sum(r["launches_per_batch"] * r["ms"] for r in timing2)
+    log(f"  sum over classes of launches x ms: {mha_batch_ms:.2f} ms of "
+        f"kernel 2 per SMILES->PV batch")
 
     # ---- 4. full-width fp32 exactness ----
     mark("exact")
@@ -755,6 +932,19 @@ def main() -> int:
     model = SPMM.random_init(SEED, device=dev)
     log(f"[exact] full-width SPMM random init in "
         f"{time.perf_counter() - t0:.1f} s")
+    captured = capture_decoder_mask(dev, model)
+    log(f"[kernels] beam_decode_attention on the decoder's mask (last call "
+        f"of a bf16 batch of 128, {captured['steps']} steps, pos "
+        f"{captured['pos']})")
+    check_kernel(dev, "decoder", kernel_inputs(
+        dev, 128, 12, 2, 104, 64, 2, torch.bfloat16, captured["pos"], seed=5,
+        mask=captured["mask"]), captured["pos"], worst)
+    check_kernel(dev, "decoder", kernel_inputs(
+        dev, 128, 12, 2, 104, 64, 2, torch.float32, captured["pos"], seed=6,
+        mask=captured["mask"]), captured["pos"], worst)
+    timing_decoder = time_kernel(dev, pos=captured["pos"],
+                                 mask=captured["mask"])
+    log_timing("decoder mask", timing_decoder)
     # as initialised no beam emits [SEP] (the live-beam fallback after 100
     # steps); a copy with the [SEP] logit raised exercises the harvest
     sep_biased = copy.deepcopy(model.text_encoder)
@@ -812,13 +1002,20 @@ def main() -> int:
                     f"events"))
         for row in prof["top"]:
             log(f"  {row['ms']:9.3f} ms {row['count']:6d}x  {row['name']}")
+    in_profile = sum(row["ms"] for row in profiles["smiles2pv_fp32"]["top"]
+                     if "fused_mha" in row["name"])
+    log(f"[profile] kernel 2 in the SMILES->PV profile {in_profile:.2f} ms; "
+        f"phase 3's sum of launches x ms {mha_batch_ms:.2f} ms")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
                       "exact": exact, "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   max_abs_err=worst["bfloat16"],
-                  max_abs_err_by_cache_dtype=worst, **timing)
+                  max_abs_err_by_cache_dtype=worst, **timing,
+                  decoder_mask=timing_decoder, small_batch=timing_small,
+                  occupancy={key: row for key, row in occ.items()
+                             if key.startswith(KERNEL["name"])})
     head = timing2[0]
     record2 = dict(KERNEL2, launches=serve2["launches"],
                    max_abs_err=worst2["float32"],
@@ -826,7 +1023,10 @@ def main() -> int:
                    **{key: head[key] for key in (
                        "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
-                   per_shape=timing2)
+                   per_shape=timing2, sum_launches_x_ms=mha_batch_ms,
+                   profile_ms=in_profile,
+                   occupancy={key: row for key, row in occ.items()
+                              if key.startswith(KERNEL2["name"])})
     print(json.dumps({"kernels": [record, record2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

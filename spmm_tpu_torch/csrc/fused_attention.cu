@@ -22,25 +22,45 @@
 // head-uniform mask (`additive_mask[:, 0]` of the JAX wrapper) is fp32 with
 // strides (b, query row, key); a padding mask [B,1,1,Lk] has a query-row
 // stride of 0, a causal mask [B,1,Lq,Lk] a real one.  A null mask adds 0.
+// q, k, v and out must be 16-byte aligned, rows and all.
 //
-// Bound.  At the path's largest launch (B=128, h=12, Lq=54, Lk=100, D=64,
-// fp32) the function moves q, k, v and out once, 121 MB, which takes 36 us
-// at 3.35 TB/s; its 2.1 GFLOP take 32 us at the 67 TFLOP/s fp32 rate.  So
-// bytes bound it, with operations close behind.  What the design does about
-// it: one block per (b, h) reads that slice of K and V from device memory
-// once into shared memory, converted to fp32, and serves every query row of
-// the slice from there.  No tensor cores: the fp32 path must stay fp32
-// (parity bar 2e-5), so the products are fp32 FMAs, and what limits them is
-// shared-memory traffic.  So each warp takes kRows = 4 query rows at once,
-// like a small register-tiled GEMM: in the score loop one broadcast float4
-// of q (the 4 rows at one d) and one conflict-free word of transposed K per
-// key feed 4 FMAs, and in the P.V loop one broadcast float4 of P and one
-// word of V feed 4.  K is stored transposed, [D][Lk|1]: lane j reads key j,
-// and the odd row stride keeps the transposing writes conflict-free too.
-// Scores, softmax and output stay in registers; P goes through a per-warp
-// [Lk][4] tile.  Every sum runs in the plain version's order, d then j, so
-// the tiling changes no bit of the result.  wgmma for bf16, and splitting
-// the rows of a (b, h) across blocks, are left for later work.
+// What bounds it on an H100.  At the path's largest launch (B=128, h=12,
+// Lq=54, Lk=100, D=64, fp32) the function moves q, k, v and out once,
+// 121 MB, 36 us at 3.35 TB/s; its 2.1 GFLOP take 32 us at the 67 TFLOP/s
+// fp32 rate.  Bytes and fp32 FMAs bound it together, so the design has to
+// overlap the two and keep the FMA units fed.  No tensor cores: the fp32 path
+// must stay fp32 (parity bar 2e-5, TF32 keeps 3 digits).
+//
+//   - Persistent blocks.  The grid is what fits the card at once (the
+//     occupancy of this launch's shared memory and registers); each block
+//     walks work items, an item being 16 * TM query rows of one (b, h)
+//     slice: 32 where Lq <= 32, else 64 (TM is a template argument).
+//   - Shared memory sized to the launch's Lk, and small enough for several
+//     blocks per SM: the item's K, V and Q rows are copied in with 16-byte
+//     cp.async (rows are strided in device memory, so no bulk copy fits
+//     them), and the fp32 scores then overwrite K and Q.  At 54x100 that is
+//     72 KB, three blocks (24 warps) per SM, so one block's copies overlap
+//     the others' compute.  Double-buffering inside a block instead (the
+//     next item's rows copied while the current one computes) took 208 KB,
+//     one block of 8 warps per SM, and was slower: with so few warps
+//     every phase's latency shows (PERF.md).
+//   - Register micro-tiles, as in an SGEMM.  For the scores each thread owns
+//     TM query rows x TN keys (TN * 16 >= Lk, a template argument): per 4
+//     values of d it reads TM float4 of Q and TN float4 of K and does
+//     4 * TM * TN FMAs.  For P.V each thread owns TM rows x D/16 columns:
+//     per 4 keys it reads TM float4 of P and 4 rows of V and does
+//     4 * TM * D/16 FMAs.  Each
+//     sum runs in the plain version's order (d ascending for scores, j
+//     ascending for P.V), and the softmax is the exact two passes of one warp
+//     per row (a warp's 8 rows side by side, so that their shuffles and
+//     exponentials overlap), so the numbers are those of the earlier
+//     one-block-per-(b, h) design.
+//   - The mask: a padding mask's one row is copied in with the item; a mask
+//     with a row per query is read where the scores are written.
+//
+// Left for later work: padding waste (an item computes 16 * TM query rows
+// and 16 * TN keys, so 54 x 100 does 26% more FMAs than it needs, Lq = 16
+// twice), and the bf16 path on tensor cores (mma.sync / wgmma).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (spmm_tpu_torch/ops/_build.py); plain C interface,
@@ -53,17 +73,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 4;                              // query rows per warp pass
-constexpr int kMaxKeysPerLane = 8;
-constexpr int kMaxKeys = 32 * kMaxKeysPerLane;       // Lk <= 256
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxKeys = 256;           // Lk <= 256
 
 // probabilities take v's dtype before the V product
 template <typename T> __device__ __forceinline__ float round_prob(float p);
@@ -72,187 +84,361 @@ template <> __device__ __forceinline__ float round_prob<__nv_bfloat16>(float p) 
   return __bfloat162float(__float2bfloat16(p));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// N consecutive values (N = 2 or 4) from shared memory, widened to fp32
+__device__ __forceinline__ void load_f(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
 }
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void load_f(const float* p, float (&o)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  o[0] = v.x; o[1] = v.y;
+}
+__device__ __forceinline__ void load_f(const __nv_bfloat16* p, float (&o)[4]) {
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(v[0]), b = __bfloat1622float2(v[1]);
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+__device__ __forceinline__ void load_f(const __nv_bfloat16* p, float (&o)[2]) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  o[0] = a.x; o[1] = a.y;
+}
+__device__ __forceinline__ void store_f(float* p, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ void store_f(float* p, const float (&o)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
+}
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, const float (&o)[4]) {
+  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(p);
+  v[0] = __floats2bfloat162_rn(o[0], o[1]);
+  v[1] = __floats2bfloat162_rn(o[2], o[3]);
+}
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, const float (&o)[2]) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(o[0], o[1]);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 struct Args {
-  int H, Lq, Lk;
+  int H, Lq, Lk, n_items, row_blocks;
   // element strides: q, k, v, out as (b, h, l); mask as (b, query row, key)
   long long qs[3], ks[3], vs[3], os[3], ms[3];
   float scale;
 };
 
-// dynamic shared memory, in floats: K^T [D][Lk|1] | V [Lk][D] |
-// Q [kWarps][D][kRows] | P [kWarps][Lk][kRows]
-size_t smem_bytes(int lk, int d) {
-  return sizeof(float) * ((size_t)d * (lk | 1) + (size_t)lk * d +
-                          (size_t)kWarps * kRows * (d + lk));
-}
+// Shared memory, in order: K [Lk][D+pad] and Q [16*TM][D+pad] in T, which
+// the scores S / P [16*TM][16*TN] fp32 overwrite once the products are done; V
+// [Lk4][D+pad] in T; the mask row [16*TN] fp32 that a padding mask gives
+// every query row.  Rows of K, Q and V are padded by 16 bytes so that the
+// micro-tiles' 16-byte reads of 8 consecutive rows hit distinct banks.
+template <typename T, int D, int TN, int TM>
+struct Layout {
+  static constexpr int kRow = D + 16 / (int)sizeof(T);
+  static constexpr int kKeys = 16 * TN;
+  static constexpr int kRows = 16 * TM;                // query rows of an item
+  __host__ __device__ static size_t kq_bytes(int lk) {
+    const size_t kq = (size_t)(lk + kRows) * kRow * sizeof(T);
+    const size_t s = sizeof(float) * kRows * kKeys;
+    return kq > s ? kq : s;                          // both multiples of 16
+  }
+  static size_t bytes(int lk) {
+    return kq_bytes(lk) + (size_t)((lk + 3) & ~3) * kRow * sizeof(T) +
+           sizeof(float) * kKeys;
+  }
+};
 
-// grid: B*h blocks, one per (b, h); kThreads threads, one warp per kRows
-// query rows at a time.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+// grid: persistent, kThreads threads; thread (tr, tc) = (tid / 16, tid % 16)
+// owns query rows tr + 16 r (r < TM) of an item, keys tc + 16 n (n < TN) of
+// the scores and columns tc * D/16 ... of the output.
+template <typename T, int D, int TN, int TM>
+__global__ void __launch_bounds__(kThreads, TN <= 8 ? 3 : 1)
 fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
                  T* __restrict__ out, const Args a) {
+  using Lay = Layout<T, D, TN, TM>;
+  constexpr int ROW = Lay::kRow;
+  constexpr int KEYS = Lay::kKeys;
+  constexpr int ROWS = Lay::kRows;
+  constexpr int CPT = D / 16;                          // output columns per thread
+  constexpr int PIECES = D * (int)sizeof(T) / 16;      // 16-byte pieces per row
+  constexpr int PER_PIECE = 16 / (int)sizeof(T);
   extern __shared__ float4 smem4[];
-  constexpr int PER_LANE = D / 32;           // output columns per lane
-  const int Lk = a.Lk;
-  const int LkP = Lk | 1;                    // odd: conflict-free transpose
-  float* kt_s = reinterpret_cast<float*>(smem4);
-  float* v_s = kt_s + (size_t)D * LkP;
-  float* q_s = v_s + (size_t)Lk * D;
-  float* p_s = q_s + kWarps * kRows * D;
+  const int Lk = a.Lk, Lk4 = (Lk + 3) & ~3;
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  T* kb = reinterpret_cast<T*>(base);
+  T* qb = kb + (size_t)Lk * ROW;
+  float* s_p = reinterpret_cast<float*>(base);                      // [ROWS][KEYS]
+  T* vb = reinterpret_cast<T*>(base + Lay::kq_bytes(Lk));
+  float* mrow = reinterpret_cast<float*>(vb + (size_t)Lk4 * ROW);   // [KEYS]
+  const bool shared_mask_row = a.ms[1] == 0;
 
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x - b * a.H;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tr = tid >> 4, tc = tid & 15;
 
-  // ---- stage this (b, h) slice of K (transposed) and V, as fp32 ----
-  const T* kb = k + b * a.ks[0] + h * a.ks[1];
-  const T* vb = v + b * a.vs[0] + h * a.vs[1];
-  for (int idx = threadIdx.x; idx < Lk * D; idx += kThreads) {
-    const int j = idx / D, d = idx - j * D;
-    kt_s[d * LkP + j] = to_f32(kb[j * a.ks[2] + d]);
-    v_s[idx] = to_f32(vb[j * a.vs[2] + d]);
-  }
-  __syncthreads();
+  // V rows Lk..Lk4-1 are zeros (P is zero there too), so the P.V loop runs
+  // over whole groups of 4 keys
+  for (int x = tid; x < (Lk4 - Lk) * D; x += kThreads)
+    vb[(size_t)(Lk + x / D) * ROW + x % D] = T(0.f);
 
-  float* q_w = q_s + warp * kRows * D;       // [D][kRows]
-  float* p_w = p_s + warp * kRows * Lk;      // [Lk][kRows]
-  const T* qb = q + b * a.qs[0] + h * a.qs[1];
-  T* ob = out + b * a.os[0] + h * a.os[1];
-  const int n_groups = (a.Lq + kRows - 1) / kRows;
-  for (int g = warp; g < n_groups; g += kWarps) {
-    const int i0 = g * kRows;
-    // the group's query rows as [D][kRows]; rows past Lq are zeros
-    for (int idx = lane; idx < kRows * D; idx += 32) {
-      const int r = idx / D, d = idx - r * D;
-      q_w[d * kRows + r] =
-          i0 + r < a.Lq ? to_f32(qb[(i0 + r) * a.qs[2] + d]) : 0.f;
+  struct Item { int b, h, row0, rows; };
+  auto item = [&](int it) {
+    const int slice = it / a.row_blocks;
+    const int row0 = (it - slice * a.row_blocks) * ROWS;
+    return Item{slice / a.H, slice % a.H, row0, min(ROWS, a.Lq - row0)};
+  };
+  // copies the item's K, V and Q rows and its shared mask row
+  auto load = [&](int it) {
+    const Item w = item(it);
+    const T* kg = k + w.b * a.ks[0] + w.h * a.ks[1];
+    const T* vg = v + w.b * a.vs[0] + w.h * a.vs[1];
+    const T* qg = q + w.b * a.qs[0] + w.h * a.qs[1] + w.row0 * a.qs[2];
+    for (int x = tid; x < Lk * PIECES; x += kThreads) {
+      const int j = x / PIECES, e = (x - j * PIECES) * PER_PIECE;
+      cp_async16(kb + j * ROW + e, kg + j * a.ks[2] + e);
+      cp_async16(vb + j * ROW + e, vg + j * a.vs[2] + e);
     }
-    __syncwarp();
+    for (int x = tid; x < w.rows * PIECES; x += kThreads) {
+      const int i = x / PIECES, e = (x - i * PIECES) * PER_PIECE;
+      cp_async16(qb + i * ROW + e, qg + i * a.qs[2] + e);
+    }
+    if (mask != nullptr && shared_mask_row)
+      for (int j = tid; j < Lk; j += kThreads)
+        cp_async4(mrow + j, mask + w.b * a.ms[0] + j * a.ms[2]);
+    cp_async_commit();
+  };
 
-    // ---- scores: lane owns keys lane, lane + 32, ... of all kRows rows ----
-    float s[kRows][kMaxKeysPerLane];
+  int it = blockIdx.x;
+  if (it < a.n_items) load(it);
+  for (; it < a.n_items; it += gridDim.x) {
+    const Item w = item(it);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- scores: TM rows x TN keys per thread, d ascending (keys past Lk
+    // repeat row Lk-1, rows past the item's repeat garbage: never read) ----
+    float acc[TM][TN];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+    for (int r = 0; r < TM; ++r)
 #pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) s[r][t] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qd = reinterpret_cast<const float4*>(q_w)[d];
-      const float* kr = kt_s + d * LkP + lane;
+      for (int n = 0; n < TN; ++n) acc[r][n] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float qv[TM][4];
 #pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) {
-        if (32 * t < Lk) {
-          // keys past Lk read in-bounds garbage, dropped below
-          const float kv = kr[32 * t];
-          s[0][t] = fmaf(qd.x, kv, s[0][t]);
-          s[1][t] = fmaf(qd.y, kv, s[1][t]);
-          s[2][t] = fmaf(qd.z, kv, s[2][t]);
-          s[3][t] = fmaf(qd.w, kv, s[3][t]);
+      for (int r = 0; r < TM; ++r) load_f(qb + (tr + 16 * r) * ROW + d, qv[r]);
+#pragma unroll
+      for (int n = 0; n < TN; ++n) {
+        float kv[4];
+        load_f(kb + min(tc + 16 * n, Lk - 1) * ROW + d, kv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int r = 0; r < TM; ++r) acc[r][n] = fmaf(qv[r][e], kv[e], acc[r][n]);
+      }
+    }
+    __syncthreads();                     // K and Q are read: S overwrites them
+    {
+      const float* mg = mask == nullptr || shared_mask_row
+                            ? nullptr : mask + w.b * a.ms[0] + w.row0 * a.ms[1];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int n = 0; n < TN; ++n) {
+          const int i = tr + 16 * r, j = tc + 16 * n;
+          float m = 0.f;
+          if (mask != nullptr)
+            m = shared_mask_row ? mrow[j]
+                : (i < w.rows && j < Lk) ? mg[i * a.ms[1] + j * a.ms[2]] : 0.f;
+          s_p[i * KEYS + j] = acc[r][n] * a.scale + m;
+        }
+    }
+    __syncthreads();
+
+    // ---- exact two-pass softmax in fp32, one warp per row: the warp's 8
+    // rows go side by side, so that their reductions overlap ----
+    {
+      constexpr int NT = (KEYS + 31) / 32;               // keys per lane
+      constexpr int RPW = ROWS / kWarps;                 // rows per warp
+      float sv[RPW][NT], mx[RPW], sum[RPW];
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) {
+        const int i = warp + kWarps * u;
+        mx[u] = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const int j = lane + 32 * t;
+          sv[u][t] = (i < w.rows && j < Lk) ? s_p[i * KEYS + j] : -INFINITY;
+          mx[u] = fmaxf(mx[u], sv[u][t]);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < RPW; ++u)
+          mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], o));
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) {
+        sum[u] = 0.f;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const float e = lane + 32 * t < Lk && warp + kWarps * u < w.rows
+                              ? expf(sv[u][t] - mx[u]) : 0.f;
+          sv[u][t] = e;
+          sum[u] += e;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < RPW; ++u) sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], o);
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) {
+        const int i = warp + kWarps * u;
+        if (i >= w.rows) break;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const int j = lane + 32 * t;
+          if (j < Lk4) s_p[i * KEYS + j] = j < Lk ? round_prob<T>(sv[u][t] / sum[u]) : 0.f;
         }
       }
     }
+    __syncthreads();
 
-    // ---- exact two-pass softmax in fp32, row by row ----
+    // ---- out rows = P . V, TM rows x D/16 columns per thread, j ascending ----
+    {
+      float o[TM][CPT];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      const float* mr = (mask == nullptr || i >= a.Lq)
-                            ? nullptr : mask + b * a.ms[0] + i * a.ms[1];
-      float mx = -INFINITY;
+      for (int r = 0; r < TM; ++r)
 #pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) {
-        const int j = lane + 32 * t;
-        if (j < Lk) {
-          s[r][t] = s[r][t] * a.scale + (mr == nullptr ? 0.f : mr[j * a.ms[2]]);
-          mx = fmaxf(mx, s[r][t]);
+        for (int c = 0; c < CPT; ++c) o[r][c] = 0.f;
+      for (int j = 0; j < Lk4; j += 4) {
+        float p[TM][4];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) load_f(s_p + (tr + 16 * r) * KEYS + j, p[r]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float vv[CPT];
+          load_f(vb + (j + jj) * ROW + tc * CPT, vv);
+#pragma unroll
+          for (int r = 0; r < TM; ++r)
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) o[r][c] = fmaf(p[r][jj], vv[c], o[r][c]);
         }
       }
-      mx = warp_max(mx);
-      float sum = 0.f;
+      T* ob = out + w.b * a.os[0] + w.h * a.os[1];
 #pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) {
-        const float e = lane + 32 * t < Lk ? expf(s[r][t] - mx) : 0.f;
-        s[r][t] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-#pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) {
-        const int j = lane + 32 * t;
-        if (j < Lk) p_w[j * kRows + r] = round_prob<T>(s[r][t] / sum);
+      for (int r = 0; r < TM; ++r) {
+        const int i = tr + 16 * r;
+        if (i < w.rows) store_f(ob + (w.row0 + i) * a.os[2] + tc * CPT, o[r]);
       }
     }
-    __syncwarp();
-
-    // ---- out rows = P . V, fp32 accumulation; lane owns d = lane + 32 e ----
-    float o[kRows][PER_LANE];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int e = 0; e < PER_LANE; ++e) o[r][e] = 0.f;
-    for (int j = 0; j < Lk; ++j) {
-      const float4 pj = reinterpret_cast<const float4*>(p_w)[j];
-      const float* vr = v_s + j * D + lane;
-#pragma unroll
-      for (int e = 0; e < PER_LANE; ++e) {
-        const float vv = vr[32 * e];
-        o[0][e] = fmaf(pj.x, vv, o[0][e]);
-        o[1][e] = fmaf(pj.y, vv, o[1][e]);
-        o[2][e] = fmaf(pj.z, vv, o[2][e]);
-        o[3][e] = fmaf(pj.w, vv, o[3][e]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (i0 + r < a.Lq) {
-        T* orow = ob + (i0 + r) * a.os[2];
-#pragma unroll
-        for (int e = 0; e < PER_LANE; ++e) store(orow + lane + 32 * e, o[r][e]);
-      }
-    }
-    __syncwarp();                            // q_w and p_w are rewritten next
+    __syncthreads();                     // all of shared memory is free
+    if (it + (int)gridDim.x < a.n_items) load(it + gridDim.x);
   }
 }
 
-template <typename T, int D>
+// With `info` set, nothing is launched: info[0] gets the blocks per SM and
+// info[1] the dynamic shared-memory bytes of the launch.
+template <typename T, int D, int TN, int TM>
 int launch(const void* q, const void* k, const void* v, const float* mask,
-           void* out, int B, const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.Lk, D);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_mha_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+           void* out, int B, Args a, cudaStream_t stream, int* info) {
+  using Lay = Layout<T, D, TN, TM>;
+  auto kernel = fused_mha_kernel<T, D, TN, TM>;
+  static bool configured[64] = {};
+  static int optin[64] = {}, sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {          // once per device: no capture sets it again
+    err = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin[dev]);
     if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
   }
-  fused_mha_kernel<T, D><<<B * a.H, kThreads, smem, stream>>>(
+  a.row_blocks = (a.Lq + Lay::kRows - 1) / Lay::kRows;
+  a.n_items = B * a.H * a.row_blocks;
+  const size_t smem = Lay::bytes(a.Lk);
+  if (smem > (size_t)optin[dev]) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (info != nullptr) {
+    info[0] = per_sm;
+    info[1] = (int)smem;
+    return (int)cudaSuccess;
+  }
+  const int grid = min(a.n_items, max(per_sm, 1) * sms[dev]);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v,
+// items of 32 query rows where Lq <= 32, else of 64
+template <typename T, int D, int TN>
+int dispatch_rows(const void* q, const void* k, const void* v,
+                  const float* mask, void* out, int B, const Args& a,
+                  cudaStream_t st, int* info) {
+  if (a.Lq <= 32) return launch<T, D, TN, 2>(q, k, v, mask, out, B, a, st, info);
+  return launch<T, D, TN, 4>(q, k, v, mask, out, B, a, st, info);
+}
+
+template <typename T, int D>
+int dispatch_keys(const void* q, const void* k, const void* v,
+                  const float* mask, void* out, int B, const Args& a,
+                  cudaStream_t st, int* info) {
+  const int tn = (a.Lk + 15) / 16;
+  if (tn <= 1) return dispatch_rows<T, D, 1>(q, k, v, mask, out, B, a, st, info);
+  if (tn <= 2) return dispatch_rows<T, D, 2>(q, k, v, mask, out, B, a, st, info);
+  if (tn <= 4) return dispatch_rows<T, D, 4>(q, k, v, mask, out, B, a, st, info);
+  if (tn <= 7) return dispatch_rows<T, D, 7>(q, k, v, mask, out, B, a, st, info);
+  if (tn <= 8) return dispatch_rows<T, D, 8>(q, k, v, mask, out, B, a, st, info);
+  return dispatch_rows<T, D, 16>(q, k, v, mask, out, B, a, st, info);
+}
+
+int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              const float* mask, void* out, int B, const Args& a,
-             cudaStream_t st) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, mask, out, B, a, st);
-    case 64: return launch<T, 64>(q, k, v, mask, out, B, a, st);
-    default: return (int)cudaErrorInvalidValue;
+             cudaStream_t st, int* info) {
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return dispatch_keys<float, 32>(q, k, v, mask, out, B, a, st, info);
+      case 64: return dispatch_keys<float, 64>(q, k, v, mask, out, B, a, st, info);
+    }
+  } else {
+    switch (D) {
+      case 32: return dispatch_keys<__nv_bfloat16, 32>(q, k, v, mask, out, B, a, st, info);
+      case 64: return dispatch_keys<__nv_bfloat16, 64>(q, k, v, mask, out, B, a, st, info);
+    }
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+bool aligned(const void* p, const long long* strides, int esize) {
+  if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] * esize % 16 != 0) return false;
+  return true;
 }
 
 }  // namespace
@@ -264,13 +450,18 @@ int fmha_max_keys() { return kMaxKeys; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); D is 32 or 64.
 // strides: 15 element strides, (b, h, l) of q, k, v and out, then (b, query
-// row, key) of the mask; mask may be null.  Returns the CUDA error code of
-// the launch (0 = launched).
+// row, key) of the mask; mask may be null.  q, k, v and out, with their
+// strides, must be 16-byte aligned.  Returns the CUDA error code of the
+// launch (0 = launched).
 int fmha_launch(int dtype, int D, const void* q, const void* k, const void* v,
                 const float* mask, void* out, int B, int H, int Lq, int Lk,
                 const long long* strides, float scale, void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || Lk > kMaxKeys)
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || Lk > kMaxKeys || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
+  const int esize = dtype == 0 ? 4 : 2;
+  if (!aligned(q, strides, esize) || !aligned(k, strides + 3, esize) ||
+      !aligned(v, strides + 6, esize) || !aligned(out, strides + 9, esize))
+    return (int)cudaErrorMisalignedAddress;
   Args a;
   a.H = H;
   a.Lq = Lq;
@@ -283,12 +474,22 @@ int fmha_launch(int dtype, int D, const void* q, const void* k, const void* v,
     a.ms[i] = strides[12 + i];
   }
   a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch<float>(D, q, k, v, mask, out, B, a, st);
-    case 1: return dispatch<__nv_bfloat16>(D, q, k, v, mask, out, B, a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(dtype, D, q, k, v, mask, out, B, a,
+                  static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// Occupancy of the launch fmha_launch makes for this dtype, D, Lq and Lk:
+// info[0] = blocks per SM, info[1] = dynamic shared-memory bytes.  Launches
+// nothing; returns a CUDA error code.
+int fmha_occupancy(int dtype, int D, int Lq, int Lk, int* info) {
+  if (Lq < 1 || Lk < 1 || Lk > kMaxKeys || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.H = 1;
+  a.Lq = Lq;
+  a.Lk = Lk;
+  return dispatch(dtype, D, nullptr, nullptr, nullptr, nullptr, nullptr, 1, a,
+                  nullptr, info);
 }
 
 }  // extern "C"

@@ -110,6 +110,9 @@ def beam_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                     ("cache", cache), ("mask", mask)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if cache.data_ptr() % 16:
+        raise ValueError("cache must be 16-byte aligned (the kernel copies "
+                         "its rows in bulk)")
     lib = _library()
     _, n_layers, m, h, k, T, d = cache.shape
     if k > lib.bda_max_beams() or d % 32 or d > lib.bda_max_head_dim():

@@ -100,6 +100,10 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along head_dim")
+        if t.data_ptr() % 16 or any(s * t.element_size() % 16
+                                    for s in t.stride()[:3]):
+            raise ValueError(f"{name} must be 16-byte aligned, its rows too "
+                             f"(the kernel copies 16-byte pieces)")
     out = torch.empty((b, lq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if b * h * lq == 0:

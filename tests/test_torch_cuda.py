@@ -38,35 +38,79 @@ def _bits(x):
         x.element_size()])
 
 
-def _case(dev, m, h, k, T, d, L, cache_dtype, pos, seed):
+def _ancestry(dev, m, k, T, pos, kind, g):
+    """[m, k, T] ancestor lanes: "random" parents at every position;
+    "shared", the decoder's pattern: all beams on one lane up to a divergence
+    step, then each on its own lane; "unattended": lane k-1 is nobody's."""
+    if kind == "random":
+        return torch.randint(0, k, (m, k, T), generator=g, device=dev)
+    if kind == "unattended":
+        return torch.randint(0, k - 1, (m, k, T), generator=g, device=dev)
+    lane = torch.randint(0, k, (m, 1, 1), generator=g, device=dev)
+    div = torch.randint(0, pos + 1, (m, 1, 1), generator=g, device=dev)
+    own = torch.arange(k, device=dev)[None, :, None]
+    t = torch.arange(T, device=dev)[None, None, :]
+    return torch.where(t < div, lane, own).expand(m, k, T).contiguous()
+
+
+def _case(dev, m, h, k, T, d, L, cache_dtype, pos, seed, kind="random"):
     g = torch.Generator(device=dev).manual_seed(seed)
     cdt = compute_dtype(cache_dtype)
     cache = torch.randn((2, L, m, h, k, T, d), generator=g,
                         device=dev).to(cache_dtype)
     q, kn, vn = (torch.randn((m, h, k, d), generator=g, device=dev).to(cdt)
                  for _ in range(3))
-    anc = torch.randint(0, k, (m, k, T), generator=g, device=dev)
+    anc = _ancestry(dev, m, k, T, pos, kind, g)
     valid = (torch.arange(T, device=dev) < pos).expand(m, k, T)
     return q, kn, vn, cache, ancestry_mask(anc, valid).contiguous()
+
+
+def _check_kernel(q, kn, vn, cache, mask, pos, layer):
+    c_kernel, c_plain = cache.clone(), cache.clone()
+    before = beam_decode_attention.launches
+    got = beam_decode_attention(q, kn, vn, c_kernel, mask, pos, layer)
+    want = beam_decode_attention_reference(q, kn, vn, c_plain, mask, pos,
+                                           layer)
+    torch.cuda.synchronize()
+    assert beam_decode_attention.launches == before + 1
+    tol = 1e-5 if cache.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(_bits(c_kernel), _bits(c_plain))
+    assert torch.equal(_bits(c_kernel[:, layer, :, :, :, :pos]),
+                       _bits(cache[:, layer, :, :, :, :pos]))
 
 
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16,
                                          torch.float8_e4m3fn])
 @pytest.mark.parametrize("k,pos", [(1, 0), (2, 1), (2, 17), (5, 23)])
 def test_kernel_matches_plain(dev, cache_dtype, k, pos):
-    q, kn, vn, cache, mask = _case(dev, 6, 3, k, 24, 64, 2, cache_dtype,
-                                   pos, seed=k * 100 + pos)
-    c_kernel, c_plain = cache.clone(), cache.clone()
-    before = beam_decode_attention.launches
-    got = beam_decode_attention(q, kn, vn, c_kernel, mask, pos, 1)
-    want = beam_decode_attention_reference(q, kn, vn, c_plain, mask, pos, 1)
-    torch.cuda.synchronize()
-    assert beam_decode_attention.launches == before + 1
-    tol = 1e-5 if cache_dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
-    assert torch.equal(_bits(c_kernel), _bits(c_plain))
-    assert torch.equal(_bits(c_kernel[:, 1, :, :, :, :pos]),
-                       _bits(cache[:, 1, :, :, :, :pos]))
+    _check_kernel(*_case(dev, 6, 3, k, 24, 64, 2, cache_dtype, pos,
+                         seed=k * 100 + pos), pos, 1)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16,
+                                         torch.float8_e4m3fn])
+@pytest.mark.parametrize("kind", ["shared", "unattended"])
+@pytest.mark.parametrize("pos", [31, 32, 33, 63, 64, 65])
+def test_kernel_matches_plain_across_tile_edges(dev, cache_dtype, kind, pos):
+    """The kernel copies 32-row tiles of live rows: positions on both sides
+    of its tile edges, on the decoder's shared-prefix ancestry and with a
+    lane that no beam attends."""
+    _check_kernel(*_case(dev, 6, 3, 2, 72, 64, 2, cache_dtype, pos,
+                         seed=pos, kind=kind), pos, 1)
+
+
+@pytest.mark.parametrize("d", [32, 96, 128])
+def test_kernel_head_dims(dev, d):
+    _check_kernel(*_case(dev, 4, 2, 3, 40, d, 1, torch.bfloat16, 37, seed=d,
+                         kind="shared"), 37, 0)
+
+
+def test_kernel_long_cache_eight_beams(dev):
+    """T = 300, k = 8, fp32: the largest shared-memory case."""
+    for pos in (0, 150, 299):
+        _check_kernel(*_case(dev, 16, 2, 8, 300, 64, 1, torch.float32, pos,
+                             seed=pos, kind="shared"), pos, 0)
 
 
 def test_cuda_tensor_never_falls_back(dev):
@@ -80,6 +124,9 @@ def test_cuda_tensor_never_falls_back(dev):
     wide = _case(dev, 2, 2, 2, 8, 80, 1, torch.float32, 3, seed=0)
     with pytest.raises(ValueError, match="head_dim"):
         beam_decode_attention(*wide, 3, 0)
+    shifted = torch.empty(cache.numel() + 1, device=dev)[1:].view(cache.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        beam_decode_attention(q, kn, vn, shifted.copy_(cache), mask, 3, 0)
 
 
 def _mha_case(dev, b, h, lq, lk, d, dtype, mask_kind, seed):
@@ -104,6 +151,8 @@ def _mha_case(dev, b, h, lq, lk, d, dtype, mask_kind, seed):
     (8, 12, 54, 100, 64, "padding"),    # the fusion cross-attention
     (8, 12, 54, 54, 64, "causal"),      # the fusion self-attention
     (2, 2, 37, 256, 32, "padding"),     # the longest key row it takes
+    (2, 3, 5, 1, 64, "padding"),        # a single key
+    (2, 3, 70, 256, 64, "causal"),
 ])
 def test_fused_mha_matches_plain(dev, dtype, b, h, lq, lk, d, mask_kind):
     q, k, v, mask = _mha_case(dev, b, h, lq, lk, d, dtype, mask_kind,
@@ -118,6 +167,29 @@ def test_fused_mha_matches_plain(dev, dtype, b, h, lq, lk, d, mask_kind):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
     # merge_heads of the result is a view
     assert got.transpose(1, 2).is_contiguous()
+
+
+def _launch_classes():
+    """Every launch class of SMILES->PV: text 100x100; per segment S the
+    property S x S, the causal fusion S x S and the cross S x 100."""
+    classes = [("text", 100, 100, "padding")]
+    for s in (16, 32, 54):
+        classes += [("property", s, s, "padding"),
+                    ("fusion-self", s, s, "causal"),
+                    ("fusion-cross", s, 100, "padding")]
+    return classes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,lq,lk,mask_kind", _launch_classes())
+def test_fused_mha_launch_classes(dev, dtype, label, lq, lk, mask_kind):
+    q, k, v, mask = _mha_case(dev, 6, 12, lq, lk, 64, dtype, mask_kind,
+                              seed=lq + lk)
+    got = fused_mha(q, k, v, mask)
+    want = fused_mha_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
 def test_fused_mha_fully_masked_row(dev):
@@ -148,3 +220,6 @@ def test_fused_mha_never_falls_back(dev):
                   k, v)
     with pytest.raises(ValueError, match="one device"):
         fused_mha(q, k, v, mask.cpu())
+    shifted = torch.empty(q.numel() + 1, device=dev)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_mha(shifted.copy_(q), k, v, mask)

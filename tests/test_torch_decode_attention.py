@@ -45,25 +45,41 @@ def to_port(x, torch_dtype):
     return t(np.asarray(x.astype(jnp.float32))).to(torch_dtype)
 
 
-def make_case(k, cache_dtype, q_dtype, pos, seed):
+def ancestry(rng, k, t_len, pos, kind):
+    """[M, k, T] ancestor lanes.  "random": a random parent at every
+    position; "shared", the decoder's pattern: all beams on one lane up to a
+    divergence step, then each on its own lane; "unattended": lane k-1 is
+    no beam's ancestor."""
+    if kind == "random":
+        return rng.integers(0, k, size=(M, k, t_len)).astype(np.int32)
+    if kind == "unattended":
+        return rng.integers(0, k - 1, size=(M, k, t_len)).astype(np.int32)
+    lane = rng.integers(0, k, size=(M, 1, 1))
+    div = rng.integers(0, pos + 1, size=(M, 1, 1))
+    t = np.arange(t_len)[None, None, :]
+    own = np.arange(k)[None, :, None]
+    return np.where(t < div, lane, own).astype(np.int32)
+
+
+def make_case(k, cache_dtype, q_dtype, pos, seed, t_len=T, kind="random"):
     rng = np.random.default_rng(seed)
-    unfolded = jnp.asarray(rng.normal(size=(2, L, M, H, k, T, D)),
+    unfolded = jnp.asarray(rng.normal(size=(2, L, M, H, k, t_len, D)),
                            jnp.bfloat16 if cache_dtype != jnp.float32
                            else jnp.float32).astype(cache_dtype)
     q, kn, vn = (jnp.asarray(rng.normal(size=(M, H, k, D)), q_dtype)
                  for _ in range(3))
-    anc = rng.integers(0, k, size=(M, k, T)).astype(np.int32)
-    key_valid = (np.arange(T)[None, None, :]
+    anc = ancestry(rng, k, t_len, pos, kind)
+    key_valid = (np.arange(t_len)[None, None, :]
                  < rng.integers(max(pos - 2, 0), pos + 1, size=(M, k, 1)))
-    prefix_valid = (key_valid & (np.arange(T)[None, None, :] < pos)
+    prefix_valid = (key_valid & (np.arange(t_len)[None, None, :] < pos)
                     ).astype(np.int32)
     return unfolded, q, kn, vn, anc, prefix_valid
 
 
-def run_both(k, cache_dtype, pos, seed=0):
+def run_both(k, cache_dtype, pos, seed=0, t_len=T, kind="random"):
     q_dtype = jnp.float32 if cache_dtype == jnp.float32 else jnp.bfloat16
     unfolded, q, kn, vn, anc, prefix_valid = make_case(
-        k, cache_dtype, q_dtype, pos, seed)
+        k, cache_dtype, q_dtype, pos, seed, t_len, kind)
     mask5 = _ancestry_mask(jnp.asarray(anc), jnp.asarray(prefix_valid))
     xla_ctx = _beam_attention(q, unfolded[0, LAYER].astype(q_dtype),
                               unfolded[1, LAYER].astype(q_dtype), mask5,
@@ -102,6 +118,30 @@ def test_plain_matches_jax_kernel_and_xla(k, dtype):
     expect[0, LAYER, :, :, :, pos] = to_port(kn, tq)
     expect[1, LAYER, :, :, :, pos] = to_port(vn, tq)
     assert torch.equal(cache, expect)
+
+
+@pytest.mark.parametrize("kind", ["shared", "unattended"])
+@pytest.mark.parametrize("pos", [31, 32, 33, 63, 64, 65])
+def test_plain_matches_jax_across_tile_edges(kind, pos):
+    """T = 72: positions on both sides of the CUDA kernel's 32-row tile
+    edges, on the decoder's shared-prefix ancestry and with a lane that no
+    beam attends (its rows are exact zeros of the softmax)."""
+    got, xla, pallas, cache, before, kn, vn, _ = run_both(
+        2, jnp.float32, pos, seed=pos, t_len=72, kind=kind)
+    np.testing.assert_allclose(got, xla, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-5)
+    expect = before.clone()
+    expect[0, LAYER, :, :, :, pos] = to_port(kn, torch.float32)
+    expect[1, LAYER, :, :, :, pos] = to_port(vn, torch.float32)
+    assert torch.equal(cache, expect)
+
+
+def test_plain_unattended_lane_bf16_three_beams():
+    """k = 3 in bf16 with lane 2 attended by no beam."""
+    got, xla, pallas, *_ = run_both(3, jnp.bfloat16, 40, seed=3, t_len=72,
+                                    kind="unattended")
+    np.testing.assert_allclose(got, xla, atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got, pallas, atol=2e-2, rtol=2e-2)
 
 
 def test_plain_empty_prefix_is_self_value():
