@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the full width of the SPMM model (12-layer
+Drives the port's paths at the full width of the SPMM model (12-layer
 768-wide text BERT with fusion from layer 6, 6-layer property BERT, 53
-properties) with random weights made from a seed, and holds every kernel
+properties) and of the reaction model (that decoder plus the 6-layer SMILES
+encoder) with random weights made from a seed, and holds every kernel
 against its plain PyTorch version:
 
   - PV->SMILES k-beam serving, through kernel 1 (beam_decode_attention);
-  - SMILES->PV serving, every attention through kernel 2 (fused_mha).
+  - SMILES->PV serving, every attention through kernel 2 (fused_mha);
+  - reaction prediction: the reactant encoder through kernel 2, greedy
+    (k=1) and k=5 beam decoding through kernel 1, its eval CLI; and the two
+    PV->SMILES file CLIs.
 
 Phases, in order; any failure exits non-zero:
 
@@ -18,21 +22,27 @@ Phases, in order; any failure exits non-zero:
   2. build    builds both kernels from the sources in the checkout, one
               nvcc each, started together; prints each kernel's registers
               and spills (ptxas) and, from the CUDA occupancy API, the
-              blocks per SM and shared memory of its launches on the paths;
+              blocks per SM and shared memory of its launches on the paths
+              (reaction prediction's included: k=1 and k=5, 96x96, 160x160);
   3. kernels  beam_decode_attention vs its plain version at the serving
               shapes (m=128, h=12, k=2, D=64, T=104) for f32/bf16/fp8
               caches on random ancestry, plus k=1 and k=5; on the decoder's
               shared-prefix ancestry at positions on both sides of the
               kernel's 32-row tile edges; at T=300, k=8, m=16 in fp32 (its
-              largest shared memory).  fused_mha vs its plain version at the
-              five shapes of tests/test_pallas_attention.py, its bf16 case
-              and every launch class of SMILES->PV at full width (B=128,
-              h=12, D=64; S in 16/32/54; L=100).  Times each kernel, its
-              plain version and one scaled_dot_product_attention call from
-              the replay of a CUDA graph (device time, without the host's
+              largest shared memory); greedy k=1 bf16 at m=128 on the
+              greedy mask (one lane, holes where a row emitted token 0);
+              k=5 bf16/fp8 at m=32 on random and shared ancestry; the file
+              CLIs' m=16 at k=1, 2 (bf16) and 3 (bf16, fp8).  fused_mha
+              vs its plain version at the five shapes of
+              tests/test_pallas_attention.py, its bf16 case, every launch
+              class of SMILES->PV at full width (B=128, h=12, D=64; S in
+              16/32/54; L=100) and the reactant encoder's (96x96 and
+              160x160, per-row padding).  Times each kernel, its plain
+              version and one scaled_dot_product_attention call from the
+              replay of a CUDA graph (device time, without the host's
               launch overhead) and computes the bound: kernel 1 at m=128 and
-              m=16, kernel 2 at every launch class with its launches per
-              batch;
+              m=16, greedy k=1 (m=128) and beam k=5 (m=32), kernel 2 at
+              every launch class with its launches per batch;
   4. exact    captures the mask that inference/decoding.py passes kernel 1
               at the last step of a full-width bf16 batch of 128 (by
               wrapping the name it calls), holds kernel 1 to its plain
@@ -41,23 +51,44 @@ Phases, in order; any failure exits non-zero:
               plain version: identical seqs, as initialised and with the
               [SEP] logit raised (harvest); and fp32 predict_pv of 128
               SMILES through kernel 2 and through the plain attention:
-              within 1e-4, 960 launches per batch;
+              within 1e-4, 960 launches per batch; full-width fp32 greedy
+              over 8 synthetic reactions and k=5 beam search over 4, both
+              kernels against both plain versions: identical seqs (and
+              steps, n_finished), as initialised and with the [SEP] logit
+              raised above every row's least gap (the stop rule runs);
+              12 kernel-1 launches per step, 6 kernel-2 launches per batch;
   5. serving  HTTP server -> Pv2SmilesService (bf16, k=2, batch 128):
               raw and partially masked requests, /healthz, a timed full
               batch, one kv_fp8 batch; then HTTP -> Smiles2PvService (fp32,
               batch 128): a wave of 128 requests, an empty one (400),
               /healthz.  Each path is a main path: every kernel's launches
               are counted from 0 over it;
-  6. profile  one bf16 PV->SMILES batch and one fp32 SMILES->PV batch of
-              128 under torch.profiler: device busy share and the kernels
-              that take the device time; kernel 2's profiled total beside
-              phase 3's sum of launches x ms.
+  rxn         reaction prediction, each run a main path: bench.py's bf16
+              greedy batch (128 sources of 96 random tokens, 100 steps)
+              timed, predict_beam bf16 k=5 over 32 reactions timed,
+              cli.rxn_prediction --evaluate at n_beam 1 and 3 over a
+              temporary USPTO-480k directory of synthetic reactions
+              (result.json written), and cli.pv2smiles_single / _batched
+              once each on a synthetic full-size reference .ckpt;
+  shapes      over phase 5 and rxn, every call of a kernel wrapper was
+              recorded (KernelCalls); each kernel is held to its plain
+              version at every launch shape those main paths passed it:
+              kernel 1 on the masks they passed at steps 0, 1, 33, 100 and
+              the last, kernel 2 on the inputs of its first call; and each
+              shape is timed as in phase 3 (kernel 1 on the last mask it
+              was passed, bf16 caches; kernel 2 on those inputs);
+  6. profile  one bf16 PV->SMILES batch, one fp32 SMILES->PV batch and one
+              bf16 rxn greedy batch of 128 under torch.profiler: device
+              busy share and the kernels that take the device time;
+              kernel 2's profiled total beside phase 3's sum of launches x
+              ms.
 
 The last two lines are the kernels' JSON record and the device record.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -77,6 +108,13 @@ KERNEL2 = {"name": "fused_mha", "route": "cuda",
 S2P_INPUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "examples", "s2p_input.txt")
 S2P_LAUNCHES = 6 + 53 * 18      # text layers + 53 steps x (6 + 6 x 2)
+RXN_ENC_LAYERS = 6              # kernel-2 launches per reaction batch
+RXN_SRC_LEN = 96                # bench.py's rxn greedy source length
+# (label, Lq, Lk, mask, cross K/V, launches per batch) of the reactant
+# encoder: the 96 bucket, and a source past the 150 bucket (no truncation)
+RXN_ENCODER_CLASSES = [("rxn encoder 96x96", 96, 96, "padding", False, 6),
+                       ("rxn encoder 160x160", 160, 160, "padding", False,
+                        6)]
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -176,10 +214,12 @@ def occupancy() -> dict:
     lib1, lib2 = decode_attention._library(), fused_attention._library()
     for label, code, k, pos in (("bf16 k=2 pos=103", 1, 2, 103),
                                 ("fp8 k=2 pos=103", 2, 2, 103),
-                                ("f32 k=8 pos=299", 0, 8, 299)):
+                                ("f32 k=8 pos=299", 0, 8, 299),
+                                ("bf16 k=1 pos=103 (rxn greedy)", 1, 1, 103),
+                                ("bf16 k=5 pos=103 (rxn beam)", 1, 5, 103)):
         ask(f"beam_decode_attention {label}", lib1.bda_occupancy, code, k, 64,
             pos)
-    for label, lq, lk, *_ in s2p_launch_classes():
+    for label, lq, lk, *_ in s2p_launch_classes() + RXN_ENCODER_CLASSES:
         ask(f"fused_mha f32 {label}", lib2.fmha_occupancy, 0, 64, lq, lk)
     return rows
 
@@ -208,7 +248,9 @@ def ancestry(dev, m, k, T, pos, kind, g):
 def kernel_inputs(dev, m, h, k, T, d, L, cache_dtype, pos, seed,
                   kind="random", mask=None):
     """Random cache / q / k_new / v_new and an ancestry mask of ``kind`` at
-    every written position (t < pos), or the given ``mask``."""
+    every written position (t < pos), or the given ``mask``.  "greedy"
+    (k=1) is the mask greedy decoding passes: one lane, and key_valid
+    holes where a row emitted token 0."""
     import torch
 
     from spmm_tpu_torch.ops.decode_attention import ancestry_mask, compute_dtype
@@ -220,8 +262,13 @@ def kernel_inputs(dev, m, h, k, T, d, L, cache_dtype, pos, seed,
     q, kn, vn = (torch.randn((m, h, k, d), generator=g, device=dev).to(cdt)
                  for _ in range(3))
     if mask is None:
-        anc = ancestry(dev, m, k, T, pos, kind, g)
         valid = (torch.arange(T, device=dev) < pos).expand(m, k, T)
+        if kind == "greedy":
+            anc = torch.zeros((m, k, T), dtype=torch.int64, device=dev)
+            valid = valid & (torch.rand((m, k, T), generator=g,
+                                        device=dev) > 0.1)
+        else:
+            anc = ancestry(dev, m, k, T, pos, kind, g)
         mask = ancestry_mask(anc, valid).contiguous()
     return q, kn, vn, cache, mask
 
@@ -258,12 +305,15 @@ def check_kernel(dev, label, inputs, pos, worst) -> None:
         fail(f"kernel disagrees with its plain version ({label}, m={m}, "
              f"k={k}, {name}, pos={pos})")
     worst[name] = max(worst.get(name, 0.0), err)
+    return err
 
 
 def compare_kernel(dev) -> dict:
     """Random ancestry at the serving shapes, the decoder's shared-prefix
-    ancestry on both sides of the kernel's 32-row tile edges, and the
-    largest shared-memory case (T=300, k=8, fp32)."""
+    ancestry on both sides of the kernel's 32-row tile edges, the largest
+    shared-memory case (T=300, k=8, fp32), and reaction prediction's
+    launches: greedy k=1 at m=128 on the greedy mask, beam k=5 at m=32, and
+    the file CLIs' batch of 16 at k=1, 2 (bf16) and 3 (bf16, fp8)."""
     import torch
 
     h, d, T, L = 12, 64, 104, 2
@@ -272,6 +322,13 @@ def compare_kernel(dev) -> dict:
              for pos in (1, 33, 103)]
     cases += [("random", 64, 1, T, f32, pos) for pos in (1, 33, 103)]
     cases += [("random", 16, 5, T, f32, pos) for pos in (1, 33, 103)]
+    cases += [("greedy", 128, 1, T, bf16, pos) for pos in (1, 33, 100, 103)]
+    cases += [(kind, 32, 5, T, dt, pos) for kind in ("random", "shared")
+              for dt in (bf16, fp8) for pos in (1, 33, 100)]
+    cases += [("random", 16, k, T, bf16, pos) for k in (1, 2)
+              for pos in (1, 33, 100)]
+    cases += [(kind, 16, 3, T, dt, pos) for kind in ("random", "shared")
+              for dt in (bf16, fp8) for pos in (1, 33, 100)]
     cases += [("shared", 128, 2, T, dt, pos) for dt in (f32, bf16, fp8)
               for pos in (31, 32, 33, 63, 64, 65, 103)]
     cases += [(kind, 16, 8, 300, f32, pos) for kind in ("random", "shared")
@@ -284,41 +341,94 @@ def compare_kernel(dev) -> dict:
     return worst
 
 
+class KernelCalls:
+    """What the port passes its two kernel wrappers while ``recording``: the
+    names it calls them through (inference/decoding's beam_decode_attention,
+    ops/attention's fused_mha) are wrapped, and the wrappers launch as
+    before, so their launch counts are untouched.  Per launch shape, kernel
+    1's mask at layer 0 of the steps at POS_SAMPLES and of the last step,
+    and kernel 2's inputs at its first call."""
+
+    POS_SAMPLES = (0, 1, 33, 100)
+
+    def __init__(self) -> None:
+        self.bda: dict = {}     # (m, h, k, T, D, cache dtype) -> {pos: mask}
+        self.last: dict = {}    # the same key -> (pos, mask) of the last step
+        self.mha: dict = {}     # shapes, strides, dtype -> (q, k, v, mask)
+        self.paths: dict = {}   # either key -> the path that passed it first
+
+    @contextlib.contextmanager
+    def recording(self, path: str):
+        import torch
+
+        from spmm_tpu_torch.inference import decoding
+        from spmm_tpu_torch.ops import attention
+
+        bda, mha = decoding.beam_decode_attention, attention.fused_mha
+
+        def strided_copy(t):
+            return None if t is None else torch.empty_strided(
+                t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+
+        def bda_seen(q, k_new, v_new, cache, mask, pos, layer):
+            if layer == 0:              # the mask is the same in every layer
+                m, h, k, d = q.shape
+                key = (m, h, k, cache.shape[5], d, cache.dtype)
+                self.paths.setdefault(key, path)
+                if pos in self.POS_SAMPLES:
+                    self.bda.setdefault(key, {}).setdefault(pos, mask)
+                self.last[key] = (pos, mask)
+            return bda(q, k_new, v_new, cache, mask, pos, layer)
+
+        def mha_seen(q, k, v, mask=None):
+            key = (tuple(q.shape), tuple(k.shape), q.stride(), k.stride(),
+                   v.stride(), q.dtype, None if mask is None else
+                   tuple(mask.shape))
+            if key not in self.mha:
+                self.paths[key] = path
+                self.mha[key] = tuple(map(strided_copy, (q, k, v, mask)))
+            return mha(q, k, v, mask)
+
+        decoding.beam_decode_attention, attention.fused_mha = bda_seen, mha_seen
+        try:
+            yield self
+        finally:
+            decoding.beam_decode_attention, attention.fused_mha = bda, mha
+
+    def kernel1_masks(self) -> dict:
+        """key -> {pos: mask} at the sampled steps and the last step."""
+        out = {}
+        for key, (pos, mask) in self.last.items():
+            out[key] = dict(self.bda.get(key, {}))
+            out[key][pos] = mask
+        return out
+
+
 def capture_decoder_mask(dev, model, batch: int = 128) -> dict:
-    """One full-width bf16 PV->SMILES batch of ``batch`` with the name that
-    inference/decoding.py calls wrapped: keeps the mask and pos of its last
-    call (the last step)."""
+    """One full-width bf16 PV->SMILES batch of ``batch``, recorded: the mask
+    and pos of kernel 1's last call (the last step)."""
     import numpy as np
     import torch
 
-    from spmm_tpu_torch.inference import decoding
     from spmm_tpu_torch.inference.decoding import BeamSpec
     from spmm_tpu_torch.inference.pv2smiles import _beam_batch, decoder_for
 
-    seen: dict = {}
-    inner = decoding.beam_decode_attention
-
-    def wrapped(q, k_new, v_new, cache, mask, pos, layer):
-        seen.update(mask=mask, pos=pos)
-        return inner(q, k_new, v_new, cache, mask, pos, layer)
-
     pv = torch.as_tensor(np.random.default_rng(SEED + 3).normal(
         size=(batch, 53)).astype(np.float32), device=dev)
-    decoding.beam_decode_attention = wrapped
-    try:
+    calls = KernelCalls()
+    with calls.recording("PV->SMILES bf16 batch"):
         res = _beam_batch(model, decoder_for(model, bf16=True), pv,
                           torch.zeros_like(pv), BeamSpec(k=2, stop_count=2))
-    finally:
-        decoding.beam_decode_attention = inner
     sync(dev)
-    return dict(seen, steps=res["steps"])
+    (pos, mask), = calls.last.values()
+    return {"mask": mask, "pos": pos, "steps": res["steps"]}
 
 
-def time_kernel(dev, m=128, pos=103, mask=None) -> dict:
-    """bf16 at h=12, k=2, D=64, T=104: kernel, plain version, one SDPA call,
-    and the bound, on random ancestry or on the given mask.  Launches walk
-    the 12 layers, so at m=128 each reads a layer's prefix (81 MB > the
-    50 MB L2) cold, as the decoder does."""
+def time_kernel(dev, m=128, pos=103, mask=None, k=2, kind="random") -> dict:
+    """bf16 at h=12, D=64, T=104: kernel, plain version, one SDPA call, and
+    the bound, on an ancestry mask of ``kind`` or on the given mask.
+    Launches walk the 12 layers, so at m=128, k=2 each reads a layer's
+    prefix (81 MB > the 50 MB L2) cold, as the decoder does."""
     import torch
     import torch.nn.functional as F
 
@@ -326,10 +436,10 @@ def time_kernel(dev, m=128, pos=103, mask=None) -> dict:
         beam_decode_attention, beam_decode_attention_reference)
     from spmm_tpu_torch.ops.masks import MASK_VALUE
 
-    h, k, d, T, L = 12, 2, 64, 104, 12
+    h, d, T, L = 12, 64, 104, 12
     dt = torch.bfloat16
     q, kn, vn, cache, mask = kernel_inputs(dev, m, h, k, T, d, L, dt, pos,
-                                           seed=1, mask=mask)
+                                           seed=1, kind=kind, mask=mask)
     kernel_ms = cuda_ms(lambda i: beam_decode_attention(
         q, kn, vn, cache, mask, pos, i % L), iters=60)
     plain_ms = cuda_ms(lambda i: beam_decode_attention_reference(
@@ -352,20 +462,24 @@ def time_kernel(dev, m=128, pos=103, mask=None) -> dict:
     sdpa_err = (sdpa.float() - ref.float()).abs().max().item()
 
     # bytes the function must move: the prefix rows some beam attends
-    # (K and V), the mask prefix, q/k_new/v_new, ctx and the appended rows
+    # (K and V), the mask prefix, q/k_new/v_new, ctx and the appended rows;
+    # operations: q.k and p.v over the (beam, key) pairs the mask lets
+    # through, plus each beam's self term
     esize = cache.element_size()
-    live_rows = int((mask[..., :pos] > MASK_VALUE).any(dim=1).sum().item())
+    live = mask[..., :pos] > MASK_VALUE
+    live_rows = int(live.any(dim=1).sum().item())
+    pairs = int(live.sum().item()) + m * k
     small = m * h * k * d * esize
     nbytes = (2 * live_rows * h * d * esize + m * k * k * pos * 4
               + 3 * small + small + 2 * small)
     all_lane_bytes = 2 * m * h * k * pos * d * esize
-    flops = 4 * m * h * k * (k * pos + 1) * d
+    flops = 4 * h * d * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return {
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "m": m, "pos": pos,
+        "m": m, "k": k, "pos": pos,
         "bytes": nbytes, "flops": flops, "live_rows": live_rows,
         "all_rows": m * k * pos,
         "bound_ms_all_lanes": all_lane_bytes / HBM_BYTES_PER_S * 1e3,
@@ -409,8 +523,6 @@ def compare_mha(dev) -> dict:
     launch class of SMILES->PV at full width.  Bars 2e-5 (f32), 3e-2 (bf16)."""
     import torch
 
-    from spmm_tpu_torch.ops.fused_attention import fused_mha, fused_mha_reference
-
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("pallas-test", 3, 4, lq, lk, f32, kind, False)
              for lq, lk, kind in ((16, 16, "none"), (24, 24, "padding"),
@@ -423,24 +535,39 @@ def compare_mha(dev) -> dict:
             cases += [("property", 128, 12, S, S, dt, "padding", False),
                       ("fusion-self", 128, 12, S, S, dt, "causal", False),
                       ("fusion-cross", 128, 12, S, 100, dt, "padding", True)]
+    cases += [("rxn-encoder", 128, 12, lq, lk, f32, kind, False)
+              for _, lq, lk, kind, *_ in RXN_ENCODER_CLASSES]
     worst: dict[str, float] = {}
     for n, (label, b, h, lq, lk, dt, kind, kv_contig) in enumerate(cases):
         q, k, v, mask = mha_inputs(dev, b, h, lq, lk, 64, dt, kind, seed=n,
                                    kv_contiguous=kv_contig)
-        got = fused_mha(q, k, v, mask)
-        want = fused_mha_reference(q, k, v, mask)
-        sync(dev)
-        tol = 2e-5 if dt == f32 else 3e-2
-        err = (got.float() - want.float()).abs().max().item()
-        name = str(dt).replace("torch.", "")
-        log(f"  {label:12s} B={b:3d} h={h:2d} {lq:3d}x{lk:<3d} {kind:7s} "
-            f"{name:8s} max|err|={err:.3e} (tol {tol:g})")
-        if not (err <= tol and got.dtype == dt
-                and tuple(got.shape) == (b, h, lq, 64)):
-            fail(f"fused_mha disagrees with its plain version ({label}, "
-                 f"{lq}x{lk}, {kind}, {name})")
-        worst[name] = max(worst.get(name, 0.0), err)
+        check_mha(dev, label, kind, (q, k, v, mask), worst)
     return worst
+
+
+def check_mha(dev, label, kind, inputs, worst) -> float:
+    """fused_mha vs fused_mha_reference on one case: within 2e-5 (f32) or
+    3e-2 (bf16), in q's dtype and shape."""
+    import torch
+
+    from spmm_tpu_torch.ops.fused_attention import fused_mha, fused_mha_reference
+
+    q, k, v, mask = inputs
+    (b, h, lq, d), lk, dt = q.shape, k.shape[2], q.dtype
+    got = fused_mha(q, k, v, mask)
+    want = fused_mha_reference(q, k, v, mask)
+    sync(dev)
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    err = (got.float() - want.float()).abs().max().item()
+    name = str(dt).replace("torch.", "")
+    log(f"  {label:12s} B={b:3d} h={h:2d} {lq:3d}x{lk:<3d} {kind:7s} "
+        f"{name:8s} max|err|={err:.3e} (tol {tol:g})")
+    if not (err <= tol and got.dtype == dt
+            and tuple(got.shape) == (b, h, lq, d)):
+        fail(f"fused_mha disagrees with its plain version ({label}, "
+             f"{lq}x{lk}, {kind}, {name})")
+    worst[name] = max(worst.get(name, 0.0), err)
+    return err
 
 
 def s2p_launch_classes() -> list:
@@ -458,49 +585,87 @@ def s2p_launch_classes() -> list:
     return classes
 
 
-def time_mha(dev) -> list:
-    """fp32, B=128, h=12, D=64, at every launch class of SMILES->PV (the
-    54x100 cross-attention first).  Kernel, plain version, one SDPA call
-    with the same float mask, and the bound.  Launches per batch beside
-    each, so that sum(launches x ms) can be held against the profile."""
+def time_mha(dev, classes) -> list:
+    """fp32, B=128, h=12, D=64, at each of the given launch classes (label,
+    Lq, Lk, mask, cross K/V, launches per batch), on inputs from
+    ``mha_inputs``.  Launches per batch beside each, so that sum(launches x
+    ms) can be held against the profile."""
+    import torch
+
+    rows = []
+    for label, lq, lk, kind, kv_contig, launches in classes:
+        inputs = mha_inputs(dev, 128, 12, lq, lk, 64, torch.float32, kind,
+                            seed=lq + lk, kv_contiguous=kv_contig)
+        rows.append({"shape": label, "launches_per_batch": launches,
+                     **time_mha_on(dev, inputs)})
+    return rows
+
+
+def time_mha_on(dev, inputs) -> dict:
+    """Kernel 2, its plain version and one SDPA call with the same float
+    mask on the given (q, k, v, mask), and the bound."""
     import torch
     import torch.nn.functional as F
 
     from spmm_tpu_torch.ops.fused_attention import fused_mha, fused_mha_reference
+    from spmm_tpu_torch.ops.masks import MASK_VALUE
 
-    b, h, d = 128, 12, 64
-    rows = []
-    classes = sorted(s2p_launch_classes(),
-                     key=lambda c: c[0] != "fusion-cross 54x100")
-    for label, lq, lk, kind, kv_contig, launches in classes:
-        q, k, v, mask = mha_inputs(dev, b, h, lq, lk, d, torch.float32, kind,
-                                   seed=lq + lk, kv_contiguous=kv_contig)
-        kernel_ms = cuda_ms(lambda i: fused_mha(q, k, v, mask), iters=50)
-        plain_ms = cuda_ms(lambda i: fused_mha_reference(q, k, v, mask),
-                           iters=20)
-        library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), iters=50)
-        sdpa_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-                    - fused_mha(q, k, v, mask)).abs().max().item()
-        # each input read once, the output written once
-        nbytes = 4 * (2 * b * h * lq * d + 2 * b * h * lk * d
-                      + mask.numel())
-        flops = 4 * b * h * lq * lk * d
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
-        rows.append({
-            "shape": label, "launches_per_batch": launches,
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+    q, k, v, mask = inputs
+    (b, h, lq, d), lk = q.shape, k.shape[2]
+    kernel_ms = cuda_ms(lambda i: fused_mha(q, k, v, mask), iters=50)
+    plain_ms = cuda_ms(lambda i: fused_mha_reference(q, k, v, mask), iters=20)
+    library_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters=50)
+    sdpa_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                - fused_mha(q, k, v, mask)).float().abs().max().item()
+    # each input read once, the output written once, but only the K/V rows
+    # some query attends; operations over the (query, key) pairs the mask
+    # lets through
+    valid = (torch.ones((b, lq, lk), dtype=torch.bool, device=dev)
+             if mask is None else
+             (mask > MASK_VALUE / 2).expand(b, 1, lq, lk)[:, 0])
+    kv_rows = int(valid.any(dim=1).sum().item())
+    nbytes = (q.element_size() * (2 * b * h * lq * d + 2 * h * kv_rows * d)
+              + (0 if mask is None else mask.numel() * mask.element_size()))
+    flops = 4 * h * d * int(valid.sum().item())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
-            "sdpa_vs_kernel_max_abs": sdpa_err})
-    return rows
+            "sdpa_vs_kernel_max_abs": sdpa_err}
 
 
 # --------------------------------------------------------------------------- #
 # phase 4: full-width fp32 exactness, kernel vs plain
 # --------------------------------------------------------------------------- #
+
+
+def launch_counts() -> tuple:
+    from spmm_tpu_torch.ops.decode_attention import beam_decode_attention
+    from spmm_tpu_torch.ops.fused_attention import fused_mha
+
+    return beam_decode_attention.launches, fused_mha.launches
+
+
+def reset_launch_counts() -> None:
+    from spmm_tpu_torch.ops.decode_attention import beam_decode_attention
+    from spmm_tpu_torch.ops.fused_attention import fused_mha
+
+    beam_decode_attention.launches = 0
+    fused_mha.launches = 0
+
+
+def run_counted(dev, fn):
+    """(fn(), seconds, kernel-1 launches, kernel-2 launches) of one call."""
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    after = launch_counts()
+    return out, time.perf_counter() - t0, after[0] - before[0], \
+        after[1] - before[1]
 
 
 def exactness(dev, model, decoder, n_pv: int = 8, max_steps: int = 100) -> dict:
@@ -509,7 +674,6 @@ def exactness(dev, model, decoder, n_pv: int = 8, max_steps: int = 100) -> dict:
 
     from spmm_tpu_torch.inference.decoding import BeamSpec, beam_search_batched
     from spmm_tpu_torch.inference.pv2smiles import encode_pv
-    from spmm_tpu_torch.ops.decode_attention import beam_decode_attention
 
     cfg = model.text_cfg
     pv = np.random.default_rng(SEED).normal(size=(n_pv, 53)).astype(np.float32)
@@ -520,13 +684,9 @@ def exactness(dev, model, decoder, n_pv: int = 8, max_steps: int = 100) -> dict:
     for attention in ("kernel", "plain"):
         spec = BeamSpec(k=2, stop_count=2, max_steps=max_steps,
                         attention=attention)
-        before = beam_decode_attention.launches
-        t0 = time.perf_counter()
-        res = beam_search_batched(decoder, cfg, enc, cross_mask, spec)
-        sync(dev)
-        out[attention] = (res, time.perf_counter() - t0,
-                          beam_decode_attention.launches - before)
-    (rk, tk, lk), (rp, tp, lp) = out["kernel"], out["plain"]
+        out[attention] = run_counted(dev, lambda: beam_search_batched(
+            decoder, cfg, enc, cross_mask, spec))
+    (rk, tk, lk, _), (rp, tp, lp, _) = out["kernel"], out["plain"]
     if rk["seqs"].shape != (n_pv, 2, spec.max_len):
         fail(f"seqs shape {tuple(rk['seqs'].shape)}")
     if torch.isnan(rk["logp"]).any():
@@ -565,18 +725,13 @@ def exactness_s2p(dev, model) -> tuple[dict, dict]:
     import torch
 
     from spmm_tpu_torch.inference.smiles2pv import predict_pv
-    from spmm_tpu_torch.ops.fused_attention import fused_mha
 
     smiles, ids, mask = s2p_batch()
     out = {}
     for impl in ("kernel", "plain"):
-        before = fused_mha.launches
-        t0 = time.perf_counter()
-        preds = predict_pv(model, ids, mask, attention_impl=impl, device=dev)
-        sync(dev)
-        out[impl] = (preds, time.perf_counter() - t0,
-                     fused_mha.launches - before)
-    (pk, tk, lk), (pp, tp, lp) = out["kernel"], out["plain"]
+        out[impl] = run_counted(dev, lambda: predict_pv(
+            model, ids, mask, attention_impl=impl, device=dev))
+    (pk, tk, _, lk), (pp, tp, _, lp) = out["kernel"], out["plain"]
     if pk.shape != (128, 53) or pk.dtype != torch.float32:
         fail(f"predict_pv gave {pk.dtype} {tuple(pk.shape)}")
     if not torch.isfinite(pk).all():
@@ -592,6 +747,124 @@ def exactness_s2p(dev, model) -> tuple[dict, dict]:
     return {"max_abs_diff": err, "kernel_s": tk, "plain_s": tp,
             "launches": lk, "pred_abs_max": float(np.abs(
                 pk.cpu().numpy()).max())}, ref
+
+
+def rxn_sources(n: int, parts: int = 2) -> list:
+    """n synthetic reactant strings: ``parts`` SMILES of the example file
+    joined by '.'."""
+    with open(S2P_INPUT) as f:
+        smiles = [line.strip() for line in f if line.strip()]
+    return [".".join(smiles[(i + j) % len(smiles)] for j in range(parts))
+            for i in range(n)]
+
+
+def rxn_batch(dev, n: int) -> tuple:
+    """n synthetic reactions tokenized as predict_greedy does."""
+    from spmm_tpu_torch.cli._common import make_tokenizer
+    from spmm_tpu_torch.inference.rxn import _encode_sources
+
+    return _encode_sources(make_tokenizer(), rxn_sources(n), 150, dev)
+
+
+def rxn_bench_batch(dev, batch: int, seed: int) -> tuple:
+    """bench.py's rxn greedy workload: random ids in [4, 300) of length 96,
+    [CLS] first, no padding."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(4, 300, (batch, RXN_SRC_LEN), generator=g, device=dev)
+    ids[:, 0] = 2
+    return ids, torch.ones_like(ids, dtype=torch.int32)
+
+
+def check_rxn_launches(what: str, steps: int, n1: int, n2: int,
+                       batches: int = 1) -> None:
+    """Kernel 1 once per decoder layer per step, kernel 2 once per encoder
+    layer per batch."""
+    if n1 != 12 * steps or n2 != RXN_ENC_LAYERS * batches:
+        fail(f"{what}: {n1} kernel-1 launches for {steps} steps and {n2} "
+             f"kernel-2 launches for {batches} batch(es)")
+
+
+def sep_gap(dev, rxn, ids, mask) -> float:
+    """The [SEP] bias that makes every row of an fp32 greedy decode emit
+    [SEP]: per row, the least gap over the steps between the top logit and
+    [SEP]'s; the largest of those over the rows.  A row decodes as before
+    until its first [SEP], so with a bias above its gap it emits [SEP] at
+    the latest where the gap was least, and the stop rule ends the run."""
+    import torch
+
+    from spmm_tpu_torch.inference import decoding
+    from spmm_tpu_torch.inference.rxn import _greedy_batch
+
+    gaps = []
+    inner = decoding.decode_step
+
+    def wrapped(*args):
+        logits = inner(*args)
+        gaps.append(logits.amax(dim=-1) - logits[:, 3])
+        return logits
+
+    decoding.decode_step = wrapped
+    try:
+        _greedy_batch(rxn, rxn.text_encoder, ids, mask, attention="plain")
+    finally:
+        decoding.decode_step = inner
+    return float(torch.stack(gaps).amin(dim=0).amax())
+
+
+def exactness_rxn(dev, rxn, decoder, n_greedy: int = 8,
+                  n_beam: int = 4) -> dict:
+    """Full-width fp32 greedy over ``n_greedy`` synthetic reactions and k=5
+    beam search (stop_count 25) over ``n_beam``, each through both kernels
+    and through both plain versions: identical seqs and steps (greedy),
+    seqs and n_finished (beam); 12 kernel-1 launches per step and 6 kernel-2
+    launches per batch."""
+    import torch
+
+    from spmm_tpu_torch.inference.decoding import BeamSpec
+    from spmm_tpu_torch.inference.rxn import _beam_batch, _greedy_batch
+
+    ids, mask = rxn_batch(dev, n_greedy)
+    out = {}
+    for attention in ("kernel", "plain"):
+        out[attention] = run_counted(dev, lambda: _greedy_batch(
+            rxn, decoder, ids, mask, attention=attention))
+    (rk, tk, k1, k2), (rp, tp, p1, p2) = out["kernel"], out["plain"]
+    if rk["seqs"].shape != (n_greedy, 104):
+        fail(f"greedy seqs shape {tuple(rk['seqs'].shape)}")
+    if not (torch.equal(rk["seqs"], rp["seqs"])
+            and rk["steps"] == rp["steps"]):
+        fail("fp32 greedy seqs / steps differ between the kernel and plain "
+             "paths")
+    check_rxn_launches("fp32 greedy", rk["steps"], k1, k2)
+    if p1 or p2:
+        fail(f"the plain greedy run launched kernels ({p1}, {p2})")
+    sep = (rk["seqs"] == 3).int()
+    first_sep = torch.where(sep.any(dim=1), sep.argmax(dim=1), -1).tolist()
+    res = {"greedy_steps": rk["steps"], "first_sep": first_sep,
+           "greedy_kernel_s": tk, "greedy_plain_s": tp,
+           "greedy_launches": [k1, k2]}
+
+    ids, mask = rxn_batch(dev, n_beam)
+    out = {}
+    for attention in ("kernel", "plain"):
+        spec = BeamSpec(k=5, stop_count=25, attention=attention)
+        out[attention] = run_counted(dev, lambda: _beam_batch(
+            rxn, decoder, ids, mask, spec))
+    (bk, tk, k1, k2), (bp, tp, p1, p2) = out["kernel"], out["plain"]
+    if bk["seqs"].shape != (n_beam, 5, 104):
+        fail(f"beam seqs shape {tuple(bk['seqs'].shape)}")
+    if not (torch.equal(bk["seqs"], bp["seqs"])
+            and torch.equal(bk["n_finished"], bp["n_finished"])):
+        fail("fp32 k=5 beam seqs / n_finished differ between the kernel and "
+             "plain paths")
+    check_rxn_launches("fp32 k=5 beam", bk["steps"], k1, k2)
+    if p1 or p2:
+        fail(f"the plain beam run launched kernels ({p1}, {p2})")
+    return dict(res, beam_steps=bk["steps"],
+                n_finished=bk["n_finished"].tolist(), beam_kernel_s=tk,
+                beam_plain_s=tp, beam_launches=[k1, k2])
 
 
 # --------------------------------------------------------------------------- #
@@ -638,8 +911,6 @@ def serving(dev, model, batch: int = 128) -> dict:
 
     from spmm_tpu_torch.cli._common import load_stats, make_tokenizer
     from spmm_tpu_torch.cli.serve import make_server
-    from spmm_tpu_torch.ops.decode_attention import beam_decode_attention
-    from spmm_tpu_torch.ops.fused_attention import fused_mha
     from spmm_tpu_torch.serving import Pv2SmilesService
 
     tok, stats = make_tokenizer(), load_stats()
@@ -666,8 +937,7 @@ def serving(dev, model, batch: int = 128) -> dict:
         wave1.append({"pv": partial})
         wave2 = [{"pv": raw_pv()} for _ in range(batch)]
 
-        beam_decode_attention.launches = 0      # the main path starts here
-        fused_mha.launches = 0
+        reset_launch_counts()                   # the main path starts here
         t0 = time.perf_counter()
         first = _concurrent(url, wave1)
         t1 = time.perf_counter()
@@ -675,10 +945,9 @@ def serving(dev, model, batch: int = 128) -> dict:
         batches_before = svc.stats["batches"]
         full = _concurrent(url, wave2)
         t2 = time.perf_counter()
-        launches = beam_decode_attention.launches   # ... and ends here
-        if fused_mha.launches:
-            fail(f"PV->SMILES serving launched fused_mha "
-                 f"{fused_mha.launches} times")
+        launches, other = launch_counts()       # ... and ends here
+        if other:
+            fail(f"PV->SMILES serving launched fused_mha {other} times")
         wave2_batches = svc.stats["batches"] - batches_before
         per_batch_s = ((svc.stats["batch_seconds"] - secs_before)
                        / wave2_batches)
@@ -727,8 +996,6 @@ def serving_s2p(dev, model, ref: dict, batch: int = 128) -> dict:
 
     from spmm_tpu_torch.cli._common import load_stats, make_tokenizer
     from spmm_tpu_torch.cli.serve import make_server
-    from spmm_tpu_torch.ops.decode_attention import beam_decode_attention
-    from spmm_tpu_torch.ops.fused_attention import fused_mha
     from spmm_tpu_torch.serving import Smiles2PvService
 
     tok, stats = make_tokenizer(), load_stats()
@@ -740,14 +1007,12 @@ def serving_s2p(dev, model, ref: dict, batch: int = 128) -> dict:
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
     try:
-        beam_decode_attention.launches = 0      # the main path starts here
-        fused_mha.launches = 0
+        reset_launch_counts()                   # the main path starts here
         t0 = time.perf_counter()
         pvs = _concurrent(url, [{"smiles": s} for s in smiles], "/smiles2pv",
                           "pv")
         wall = time.perf_counter() - t0
-        launches = fused_mha.launches           # ... and ends here
-        other = beam_decode_attention.launches
+        other, launches = launch_counts()       # ... and ends here
         try:
             status = _post(url, {"smiles": ""}, "/smiles2pv")[0]
         except urllib.error.HTTPError as exc:
@@ -781,6 +1046,205 @@ def serving_s2p(dev, model, ref: dict, batch: int = 128) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase rxn: reaction prediction and the file CLIs, each a main path
+# --------------------------------------------------------------------------- #
+
+
+def rxn_decoding(dev, rxn, calls, batch: int = 128,
+                 beam_batch: int = 32) -> dict:
+    """bench.py's rxn greedy workload (bf16, batch 128, sources of 96
+    tokens, 100 steps) through ``_greedy_batch``, the call predict_greedy
+    makes per batch, and predict_beam (bf16, k=5, stop_count 25) over
+    ``beam_batch`` synthetic reactions; each timed after one warm-up call
+    of its shapes, with the launches counted from 0 over it and its kernel
+    calls recorded in ``calls``."""
+    from spmm_tpu_torch.cli._common import make_tokenizer
+    from spmm_tpu_torch.inference.rxn import (
+        _greedy_batch, decoder_for, predict_beam)
+
+    decoder = decoder_for(rxn, bf16=True)
+    _greedy_batch(rxn, decoder, *rxn_bench_batch(dev, batch, SEED + 5))
+    ids, mask = rxn_bench_batch(dev, batch, SEED + 4)
+    reset_launch_counts()                       # the main path starts here
+    with calls.recording("rxn greedy batch"):   # ... and ends here
+        res, greedy_s, g1, g2 = run_counted(
+            dev, lambda: _greedy_batch(rxn, decoder, ids, mask))
+    check_rxn_launches("bf16 greedy batch", res["steps"], g1, g2)
+    seqs = res["seqs"]
+    if seqs.shape != (batch, 104) or not (seqs[:, 0] == 2).all() \
+            or ((seqs < 0) | (seqs >= rxn.decoder_cfg.vocab_size)).any():
+        fail(f"greedy batch gave seqs {tuple(seqs.shape)}")
+
+    tok = make_tokenizer()
+    sources = rxn_sources(beam_batch)
+    predict_beam(rxn, tok, sources, k=5, batch_size=beam_batch, device=dev)
+    reset_launch_counts()                       # the main path starts here
+    with calls.recording("rxn predict_beam k=5"):   # ... and ends here
+        cands, beam_s, b1, b2 = run_counted(dev, lambda: predict_beam(
+            rxn, tok, sources, k=5, batch_size=beam_batch, device=dev))
+    if b1 <= 0 or b1 % 12 or b2 != RXN_ENC_LAYERS:
+        fail(f"predict_beam: {b1} kernel-1 and {b2} kernel-2 launches")
+    if len(cands) != beam_batch or not all(
+            1 <= len(c) <= 5 and all(isinstance(s, str) for s in c)
+            for c in cands):
+        fail("predict_beam returned malformed candidates")
+    return {"greedy_batch_s": greedy_s, "greedy_mol_per_s": batch / greedy_s,
+            "greedy_steps": res["steps"], "greedy_launches": [g1, g2],
+            "beam_call_s": beam_s, "beam_mol_per_s": beam_batch / beam_s,
+            "beam_steps": b1 // 12, "beam_launches": [b1, b2],
+            "beam_example": cands[0][:2]}
+
+
+def rxn_cli(dev, workdir: str, calls, n_lines: int = 16) -> dict:
+    """``cli.rxn_prediction.main(["--evaluate", ...])`` at n_beam 1 and 3
+    over a forward-mode USPTO-480k directory of synthetic reactions (two
+    example SMILES -> the first), random weights from the seed: the run
+    ends and writes result.json.  Kernel calls recorded in ``calls``."""
+    from spmm_tpu_torch.cli import rxn_prediction
+
+    data = os.path.join(workdir, "rxn_data")
+    os.makedirs(os.path.join(data, "USPTO-480k"))
+    lines = [f"{src}\t{src.split('.')[0]}\n" for src in rxn_sources(n_lines)]
+    for split in ("valid", "test"):
+        with open(os.path.join(data, "USPTO-480k", f"{split}_parsed.txt"),
+                  "w") as f:
+            f.writelines(lines)
+    out = {}
+    for n_beam in (1, 3):
+        result_dir = os.path.join(workdir, f"rxn_out_{n_beam}")
+        reset_launch_counts()                   # the main path starts here
+        with calls.recording(f"rxn_prediction n_beam {n_beam}"):
+            _, secs, n1, n2 = run_counted(dev, lambda: rxn_prediction.main([
+                "--evaluate", "--n_beam", str(n_beam), "--data_dir", data,
+                "--output_dir", result_dir, "--seed", str(SEED),
+                "--device", dev.type]))           # ... and ends here
+        # one batch of each split: 6 encoder launches each
+        if n1 <= 0 or n1 % 12 or n2 != 2 * RXN_ENC_LAYERS:
+            fail(f"rxn_prediction n_beam {n_beam}: {n1} kernel-1 and {n2} "
+                 f"kernel-2 launches")
+        with open(os.path.join(result_dir, "result.json")) as f:
+            result = json.load(f)
+        accs = (result["best_valid_acc"], result["best_test_acc"])
+        if result["n_beam"] != n_beam or not all(0 <= a <= 1 for a in accs):
+            fail(f"rxn_prediction result.json: {result}")
+        out[f"n_beam_{n_beam}"] = {"wall_s": secs, "launches": [n1, n2],
+                                   "valid_acc": accs[0], "test_acc": accs[1]}
+    return out
+
+
+def pv2smiles_clis(dev, model, workdir: str, calls,
+                   n_lines: int = 16) -> dict:
+    """Both PV->SMILES file CLIs once, on a full-size synthetic
+    reference-style ``.ckpt`` of ``model``'s random weights:
+    pv2smiles_single on examples/p2s_input.csv with --n_generate 16, and
+    pv2smiles_batched on a 16-line input with a property cache made from
+    the seed.  Kernel 1 only; its calls recorded in ``calls``."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.cli import pv2smiles_batched, pv2smiles_single
+    from spmm_tpu_torch.cli._common import load_stats
+
+    ckpt = os.path.join(workdir, "synthetic_reference.ckpt")
+    torch.save({"state_dict": {k: v.detach().cpu()
+                               for k, v in model.state_dict().items()}}, ckpt)
+    with open(S2P_INPUT) as f:
+        smiles = [line.strip() for line in f if line.strip()]
+    inputs = os.path.join(workdir, "pv2smiles_inputs.txt")
+    with open(inputs, "w") as f:
+        f.writelines(smiles[i % len(smiles)] + "\n" for i in range(n_lines))
+    stats = load_stats()
+    raw = stats.mean + stats.std * np.random.default_rng(SEED + 6).normal(
+        size=(n_lines, 53))
+    cache = os.path.join(workdir, "pv2smiles_inputs.npz")
+    np.savez(cache, pv=raw.astype(np.float32))
+    csv_path = os.path.join(os.path.dirname(S2P_INPUT), "p2s_input.csv")
+    runs = {
+        "single": (pv2smiles_single, [
+            "--checkpoint", ckpt, "--input_csv", csv_path,
+            "--n_generate", "16"]),
+        "batched": (pv2smiles_batched, [
+            "--checkpoint", ckpt, "--input_file", inputs,
+            "--property_cache", cache])}
+    out = {}
+    for name, (cli, argv) in runs.items():
+        gen = os.path.join(workdir, f"generated_{name}.txt")
+        reset_launch_counts()                   # the main path starts here
+        with calls.recording(f"pv2smiles_{name}"):
+            _, secs, n1, n2 = run_counted(dev, lambda: cli.main(argv + [
+                "--seed", str(SEED), "--output_file", gen,
+                "--device", dev.type]))           # ... and ends here
+        if n1 <= 0 or n1 % 12 or n2:
+            fail(f"pv2smiles_{name}: {n1} kernel-1 and {n2} kernel-2 "
+                 f"launches")
+        with open(gen) as f:
+            n_valid = sum(1 for line in f if line.strip())
+        out[name] = {"wall_s": secs, "launches": n1, "valid_written": n_valid}
+    os.remove(ckpt)
+    return out
+
+
+def main_path_shapes(dev, calls, worst, worst2) -> list:
+    """Each kernel against its plain version, and timed, at every launch
+    shape the main paths passed it: kernel 1 on the masks they passed (held
+    at the sampled steps and the last, with random q, k_new, v_new and
+    cache; timed on the last, bf16 caches only: SDPA takes no fp8), kernel 2
+    on the very inputs of its first call."""
+    import torch
+
+    rows = []
+    for key, masks in calls.kernel1_masks().items():
+        m, h, k, T, d, dtype = key
+        path = calls.paths[key]
+        log(f"  {KERNEL['name']} from {path}:")
+        errs = [check_kernel(dev, "main", kernel_inputs(
+            dev, m, h, k, T, d, 2, dtype, pos, seed=pos + m + 7 * k,
+            mask=mask), pos, worst) for pos, mask in sorted(masks.items())]
+        row = {"kernel": KERNEL["name"], "path": path, "m": m, "k": k,
+               "T": T, "dtype": str(dtype).replace("torch.", ""),
+               "positions": sorted(masks), "max_abs_err": max(errs)}
+        if dtype == torch.bfloat16 and (h, T, d) == (12, 104, 64):
+            pos, mask = calls.last[key]
+            row.update(time_kernel(dev, m=m, pos=pos, mask=mask, k=k))
+            log_bda_timing(f"{path}, its mask", row)
+        rows.append(row)
+    for key, inputs in calls.mha.items():
+        q, kv, mask = inputs[0], inputs[1], inputs[3]
+        kind = ("none" if mask is None else "causal" if mask.shape[-2] > 1
+                else "padding")
+        path = calls.paths[key]
+        log(f"  {KERNEL2['name']} from {path}:")
+        row = {"kernel": KERNEL2["name"], "path": path, "B": q.shape[0],
+               "Lq": q.shape[2], "Lk": kv.shape[2],
+               "dtype": str(q.dtype).replace("torch.", ""), "mask": kind,
+               "max_abs_err": check_mha(dev, "main", kind, inputs, worst2),
+               **time_mha_on(dev, inputs)}
+        log_mha_timing(f"{path}, B={q.shape[0]} {q.shape[2]}x{kv.shape[2]}",
+                       row)
+        rows.append(row)
+    return rows
+
+
+def log_bda_timing(label: str, tm: dict) -> None:
+    log(f"  {label} bf16 m={tm['m']} k={tm['k']} pos={tm['pos']}: kernel "
+        f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, sdpa "
+        f"{tm['library_ms']:.4f} ms (kernel/sdpa "
+        f"{tm['ms'] / tm['library_ms']:.3f}), bound {tm['bound_ms']:.4f} "
+        f"ms ({tm['bound_by']}) = {100 * tm['bound_ms'] / tm['ms']:.1f}% of "
+        f"the kernel ({tm['live_rows']}/{tm['all_rows']} prefix rows "
+        f"attended; all-lane bound {tm['bound_ms_all_lanes']:.4f} ms)")
+
+
+def log_mha_timing(label: str, row: dict) -> None:
+    log(f"  {label:26s} f32: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+        f"(kernel/sdpa {row['ms'] / row['library_ms']:.3f}), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) = "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel; sdpa vs "
+        f"kernel {row['sdpa_vs_kernel_max_abs']:.2e}")
+
+
+# --------------------------------------------------------------------------- #
 # phase 6: where one serving batch spends its time
 # --------------------------------------------------------------------------- #
 
@@ -804,6 +1268,28 @@ def profile_batch(dev, model, batch: int = 128) -> dict:
         out["res"] = _beam_batch(model, decoder, pv, mask, spec)
 
     sync(dev)                     # warm: phase 5 ran this shape
+    t0 = time.perf_counter()
+    run()
+    sync(dev)
+    unprofiled = time.perf_counter() - t0
+    prof = device_breakdown(run)
+    return dict(prof, steps=out["res"]["steps"], unprofiled_wall_s=unprofiled)
+
+
+def profile_rxn(dev, rxn, batch: int = 128) -> dict:
+    """One bf16 rxn greedy batch of bench.py's workload under
+    torch.profiler."""
+    from spmm_tpu_torch.inference.rxn import _greedy_batch, decoder_for
+    from spmm_tpu_torch.utils.profiling import device_breakdown
+
+    decoder = decoder_for(rxn, bf16=True)
+    ids, mask = rxn_bench_batch(dev, batch, SEED + 7)
+    out = {}
+
+    def run():
+        out["res"] = _greedy_batch(rxn, decoder, ids, mask)
+
+    sync(dev)                     # warm: the rxn phase ran this shape
     t0 = time.perf_counter()
     run()
     sync(dev)
@@ -842,6 +1328,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
+        from spmm_tpu_torch.models.rxn import Rxn
         from spmm_tpu_torch.models.spmm import SPMM
         from spmm_tpu_torch.ops import decode_attention, fused_attention
         from spmm_tpu_torch.utils.device import resolve_device
@@ -898,30 +1385,21 @@ def main() -> int:
     log("[kernels] beam_decode_attention vs plain version")
     worst = compare_kernel(dev)
 
-    def log_timing(label: str, tm: dict) -> None:
-        log(f"  {label} bf16 m={tm['m']} pos={tm['pos']}: kernel "
-            f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, sdpa "
-            f"{tm['library_ms']:.4f} ms (kernel/sdpa "
-            f"{tm['ms'] / tm['library_ms']:.3f}), bound {tm['bound_ms']:.4f} "
-            f"ms = {100 * tm['bound_ms'] / tm['ms']:.1f}% of the kernel "
-            f"({tm['live_rows']}/{tm['all_rows']} prefix rows attended; "
-            f"all-lane bound {tm['bound_ms_all_lanes']:.4f} ms)")
-
     timing = time_kernel(dev)
-    log_timing("random mask", timing)
+    log_bda_timing("random mask", timing)
     timing_small = time_kernel(dev, m=16)
-    log_timing("random mask", timing_small)
+    log_bda_timing("random mask", timing_small)
+    timing_greedy = time_kernel(dev, m=128, pos=100, k=1, kind="greedy")
+    log_bda_timing("rxn greedy mask", timing_greedy)
+    timing_k5 = time_kernel(dev, m=32, pos=100, k=5)
+    log_bda_timing("rxn beam, random mask", timing_k5)
     log("[kernels] fused_mha vs plain version")
     worst2 = compare_mha(dev)
-    timing2 = time_mha(dev)
-    for row in timing2:
-        log(f"  {row['shape']:26s} f32 x{row['launches_per_batch']:3d}: "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"sdpa {row['library_ms']:.4f} ms (kernel/sdpa "
-            f"{row['ms'] / row['library_ms']:.3f}), bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) = "
-            f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel; sdpa "
-            f"vs kernel {row['sdpa_vs_kernel_max_abs']:.2e}")
+    timing2 = time_mha(dev, sorted(s2p_launch_classes(),
+                                   key=lambda c: c[0] != "fusion-cross 54x100"))
+    timing_enc = time_mha(dev, RXN_ENCODER_CLASSES)
+    for row in timing2 + timing_enc:
+        log_mha_timing(f"{row['shape']} x{row['launches_per_batch']}", row)
     mha_batch_ms = sum(r["launches_per_batch"] * r["ms"] for r in timing2)
     log(f"  sum over classes of launches x ms: {mha_batch_ms:.2f} ms of "
         f"kernel 2 per SMILES->PV batch")
@@ -944,7 +1422,7 @@ def main() -> int:
         mask=captured["mask"]), captured["pos"], worst)
     timing_decoder = time_kernel(dev, pos=captured["pos"],
                                  mask=captured["mask"])
-    log_timing("decoder mask", timing_decoder)
+    log_bda_timing("decoder mask", timing_decoder)
     # as initialised no beam emits [SEP] (the live-beam fallback after 100
     # steps); a copy with the [SEP] logit raised exercises the harvest
     sep_biased = copy.deepcopy(model.text_encoder)
@@ -965,11 +1443,37 @@ def main() -> int:
         f"diff| {res['max_abs_diff']:.2e} (max |pred| "
         f"{res['pred_abs_max']:.3f}), {res['launches']} fused_mha launches; "
         f"kernel path {res['kernel_s']:.2f} s, plain {res['plain_s']:.2f} s")
+    t0 = time.perf_counter()
+    rxn = Rxn.random_init(SEED, device=dev)
+    log(f"[exact] full-width reaction model random init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # as initialised few rows emit [SEP] (all 100 steps run); a copy with
+    # the [SEP] logit raised above every row's least gap runs the stop rule
+    bias = sep_gap(dev, rxn, *rxn_batch(dev, 8)) + 1e-3
+    sep_biased = copy.deepcopy(rxn.text_encoder)
+    with torch.no_grad():
+        sep_biased.cls.predictions.bias[3] += bias
+    for name, decoder in (("rxn_as_init", rxn.text_encoder),
+                          ("rxn_sep_biased", sep_biased)):
+        res = exact[name] = exactness_rxn(dev, rxn, decoder)
+        log(f"  {name}: fp32 greedy x 8 reactions, {res['greedy_steps']} "
+            f"steps, seqs identical, first [SEP] at {res['first_sep']}, "
+            f"launches {res['greedy_launches']}; kernel path "
+            f"{res['greedy_kernel_s']:.2f} s, plain "
+            f"{res['greedy_plain_s']:.2f} s.  fp32 k=5 beam x 4 reactions, "
+            f"{res['beam_steps']} steps, seqs identical, n_finished "
+            f"{res['n_finished']}, launches {res['beam_launches']}; kernel "
+            f"path {res['beam_kernel_s']:.2f} s, plain "
+            f"{res['beam_plain_s']:.2f} s")
+    exact["rxn_sep_bias"] = bias
+    del sep_biased
 
     # ---- 5. serving: each path is a main path ----
     mark("serving")
+    calls = KernelCalls()         # what the main paths pass the kernels
     log("[serving] HTTP -> Pv2SmilesService (bf16, k=2, batch 128)")
-    serve = serving(dev, model)
+    with calls.recording("PV->SMILES serving"):
+        serve = serving(dev, model)
     log(f"  {serve['requests']} requests in {serve['batches']} batches, "
         f"{serve['launches']} kernel launches; batch of {128}: "
         f"{serve['batch_call_s']:.3f} s = {serve['mol_per_s']:.1f} mol/s "
@@ -979,7 +1483,8 @@ def main() -> int:
         f"mol/s ({serve['kv_fp8_same_as_bf16']}/128 same as bf16)")
     log(f"  examples: {serve['examples']}")
     log("[serving] HTTP -> Smiles2PvService (fp32, batch 128)")
-    serve2 = serving_s2p(dev, model, s2p_ref)
+    with calls.recording("SMILES->PV serving"):
+        serve2 = serving_s2p(dev, model, s2p_ref)
     log(f"  {serve2['requests']} requests in {serve2['batches']} batch(es), "
         f"{serve2['launches']} fused_mha launches; batch call "
         f"{serve2['batch_call_s']:.3f} s = {serve2['mol_per_s']:.1f} mol/s; "
@@ -987,10 +1492,45 @@ def main() -> int:
         f"offline {serve2['served_vs_offline_max_abs']:.2e}; empty SMILES "
         f"-> 400")
 
+    # ---- rxn: reaction prediction and the file CLIs, each a main path ----
+    import tempfile
+
+    mark("rxn")
+    rxn_run = rxn_decoding(dev, rxn, calls)
+    log(f"[rxn] bf16 greedy, batch 128, sources of {RXN_SRC_LEN} tokens: "
+        f"{rxn_run['greedy_steps']} steps in {rxn_run['greedy_batch_s']:.3f} "
+        f"s = {rxn_run['greedy_mol_per_s']:.1f} mol/s, launches "
+        f"{rxn_run['greedy_launches']}; predict_beam bf16 k=5 over 32 "
+        f"reactions: {rxn_run['beam_call_s']:.3f} s = "
+        f"{rxn_run['beam_mol_per_s']:.1f} mol/s, {rxn_run['beam_steps']} "
+        f"steps, launches {rxn_run['beam_launches']}; e.g. "
+        f"{rxn_run['beam_example']}")
+    with tempfile.TemporaryDirectory() as workdir:
+        rxn_run["cli"] = rxn_cli(dev, workdir, calls)
+        for name, row in rxn_run["cli"].items():
+            log(f"[rxn] cli.rxn_prediction --evaluate ({name}): "
+                f"{row['wall_s']:.1f} s, accuracy valid {row['valid_acc']} "
+                f"test {row['test_acc']}, launches {row['launches']}, "
+                f"result.json written")
+        rxn_run["pv2smiles_cli"] = pv2smiles_clis(dev, model, workdir,
+                                                  calls)
+        for name, row in rxn_run["pv2smiles_cli"].items():
+            log(f"[rxn] cli.pv2smiles_{name}: {row['wall_s']:.1f} s, "
+                f"{row['launches']} kernel-1 launches, "
+                f"{row['valid_written']} valid molecules written")
+
+    # ---- shapes: every launch shape of the main paths vs plain ----
+    mark("shapes")
+    log("[shapes] each kernel against its plain version, and timed, at every "
+        "launch shape the main paths passed it")
+    main_shapes = main_path_shapes(dev, calls, worst, worst2)
+    del calls
+
     # ---- 6. profile ----
     mark("profile")
     profiles = {"pv2smiles_bf16": profile_batch(dev, model),
-                "smiles2pv_fp32": profile_s2p(dev, model)}
+                "smiles2pv_fp32": profile_s2p(dev, model),
+                "rxn_greedy_bf16": profile_rxn(dev, rxn)}
     for name, prof in profiles.items():
         busy = prof["busy_share"]
         log(f"[profile] {name}, one batch of 128: wall "
@@ -1009,11 +1549,15 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
-                      "exact": exact, "profile": profiles}))
+                      "exact": exact, "rxn": rxn_run, "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
+                  rxn_launches=rxn_run["greedy_launches"][0],
                   max_abs_err=worst["bfloat16"],
                   max_abs_err_by_cache_dtype=worst, **timing,
                   decoder_mask=timing_decoder, small_batch=timing_small,
+                  rxn_greedy_k1=timing_greedy, rxn_beam_k5=timing_k5,
+                  main_path_shapes=[row for row in main_shapes
+                                    if row["kernel"] == KERNEL["name"]],
                   occupancy={key: row for key, row in occ.items()
                              if key.startswith(KERNEL["name"])})
     head = timing2[0]
@@ -1023,7 +1567,11 @@ def main() -> int:
                    **{key: head[key] for key in (
                        "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
-                   per_shape=timing2, sum_launches_x_ms=mha_batch_ms,
+                   rxn_launches=rxn_run["greedy_launches"][1],
+                   per_shape=timing2 + timing_enc,
+                   main_path_shapes=[row for row in main_shapes
+                                     if row["kernel"] == KERNEL2["name"]],
+                   sum_launches_x_ms=mha_batch_ms,
                    profile_ms=in_profile,
                    occupancy={key: row for key, row in occ.items()
                               if key.startswith(KERNEL2["name"])})

@@ -1,7 +1,7 @@
 """The weight bridge: reference-named state dicts for the port's modules.
 
-Two sources, one naming (the reference SPMM state dict, which the port's
-``nn.Module`` tree reproduces, so both load with ``strict=True``):
+Two sources, one naming (the reference SPMM / SPMM_rxn state dicts, which
+the port's ``nn.Module`` trees reproduce, so both load with ``strict=True``):
 
   - ``state_dict_from_jax_tree``: a ``spmm_tpu`` params tree (numpy leaves)
     -> tensors.  The port's own copy of the mapping of
@@ -10,6 +10,7 @@ Two sources, one naming (the reference SPMM state dict, which the port's
     table; the decoder bias appears under both of the reference's aliased
     names (xbert.py:686-691); ``property_mtr_head`` flattens to the
     Sequential indices ``.0/.2/.3``; the pretrain heads only if present.
+    ``rxn_state_dict_from_jax_tree`` does the same for a reaction tree.
   - ``load_reference_checkpoint``: a reference ``{"state_dict": ...}``
     ``.ckpt`` with the ``_unk`` -> ``_mask`` rename (reference
     d_regression.py:157-161).
@@ -22,7 +23,8 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from spmm_tpu_torch.configs import BertArchConfig, property_config, text_config
+from spmm_tpu_torch.configs import (
+    BertArchConfig, property_config, smiles_config, text_config)
 
 Params = dict[str, Any]
 
@@ -109,6 +111,29 @@ def state_dict_from_jax_tree(
     for name in ("property_proj", "text_proj", "itm_head"):
         if name in tree:
             _put_linear(out, name, tree[name])
+    return out
+
+
+def rxn_state_dict_from_jax_tree(
+    tree: Params,
+    decoder_cfg: Optional[BertArchConfig] = None,
+    encoder_cfg: Optional[BertArchConfig] = None,
+) -> dict[str, torch.Tensor]:
+    """A ``spmm_tpu`` reaction tree (``init_rxn_params``) with numpy leaves
+    -> the reference ``SPMM_rxn`` names for ``Rxn.load_state_dict(
+    strict=True)``: ``decoder`` is ``text_encoder``, ``smiles_encoder`` is
+    ``text_encoder2`` (spmm_tpu/models/rxn.py:4-8)."""
+    stacks = (("decoder", "text_encoder", decoder_cfg or text_config()),
+              ("smiles_encoder", "text_encoder2",
+               encoder_cfg or smiles_config()))
+    for key, _, cfg in stacks:
+        n = len(tree[key]["bert"]["layers"])
+        if n != cfg.num_hidden_layers:
+            raise ValueError(f"{key} has {n} layers, the config "
+                             f"{cfg.num_hidden_layers}")
+    out: dict[str, torch.Tensor] = {}
+    for key, prefix, _ in stacks:
+        _put_bert_mlm(out, tree[key], prefix)
     return out
 
 

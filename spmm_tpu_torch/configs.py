@@ -1,7 +1,7 @@
 """Architecture configuration (copy of ``spmm_tpu.configs``' BERT part).
 
-The two architectures on the PV->SMILES path, with the values of the
-reference config_bert.json / config_bert_property.json.
+The three architectures, with the values of the reference
+config_bert.json / config_bert_property.json / config_bert_smiles.json.
 """
 
 from __future__ import annotations
@@ -57,6 +57,17 @@ def property_config() -> BertArchConfig:
     one-entry word table exists but is bypassed via inputs_embeds)."""
     return BertArchConfig(
         vocab_size=1,
+        num_hidden_layers=6,
+        fusion_layer=6,
+        add_cross_attention=False,
+    )
+
+
+def smiles_config() -> BertArchConfig:
+    """6-layer unimodal SMILES encoder of reaction prediction (reference
+    config_bert_smiles.json)."""
+    return BertArchConfig(
+        vocab_size=300,
         num_hidden_layers=6,
         fusion_layer=6,
         add_cross_attention=False,

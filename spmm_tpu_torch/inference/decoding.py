@@ -1,4 +1,6 @@
-"""KV-cached k-beam search (counterpart of ``spmm_tpu.inference.decoding``).
+"""KV-cached k-beam search and greedy decoding (counterpart of
+``spmm_tpu.inference.decoding``).  Greedy decoding is a k=1 beam of the
+same cache layout and kernel (``greedy_decode``).
 
 Beam semantics replicate the reference exactly (d_pv2smiles_single.py:79-110):
   - step 0 seeds k beams from the [CLS] distribution (no SEP harvesting);
@@ -42,7 +44,8 @@ from spmm_tpu_torch.ops.decode_attention import (
 from spmm_tpu_torch.ops.masks import MASK_VALUE
 
 Tensor = torch.Tensor
-# step -> uniforms in [1e-20, 1): [m, V] at step 0, [m, k, V] after it
+# step -> uniforms in (0, 1): beam search [m, V] at step 0 and [m, k, V]
+# after it; greedy decoding [B, V] at every step
 UniformFn = Callable[[int], Tensor]
 
 
@@ -161,6 +164,11 @@ def _log_softmax(x: Tensor) -> Tensor:
     return shifted - torch.log(total.to(x.dtype))
 
 
+def _gumbel(uniforms: Tensor) -> Tensor:
+    """Gumbel noise from uniforms, as ``jax.random.gumbel`` makes it."""
+    return -torch.log(-torch.log(uniforms))
+
+
 def _sample_topk(logits: Tensor, k: int, stochastic: bool,
                  uniforms: Optional[Tensor]) -> tuple[Tensor, Tensor]:
     """(log softmax p of the selected, indices); stochastic = Gumbel top-k
@@ -172,8 +180,7 @@ def _sample_topk(logits: Tensor, k: int, stochastic: bool,
     beam scores are bf16, while the harvested ones are fp32."""
     logp = _log_softmax(logits)
     if stochastic:
-        g = -torch.log(-torch.log(uniforms))
-        _, idx = _top_k(logp + g, k)
+        _, idx = _top_k(logp + _gumbel(uniforms), k)
         vals = torch.gather(logp, -1, idx)
     else:
         vals, idx = _top_k(logp, k)
@@ -331,3 +338,58 @@ def beam_search(
     out = beam_search_batched(model, cfg, cross_hidden[None], cross_mask[None],
                               spec, uniforms, generator, cache_dtype)
     return {key: v if key == "steps" else v[0] for key, v in out.items()}
+
+
+@torch.no_grad()
+def greedy_decode(
+    model: BertForMaskedLM,
+    cfg: BertArchConfig,
+    cross_hidden: Tensor,        # [B, Le, H]
+    cross_mask: Tensor,          # [B, Le] binary
+    max_steps: int = 100,
+    stochastic: bool = False,
+    uniforms: Optional[UniformFn] = None,
+    cls_id: int = 2,
+    sep_id: int = 3,
+    cache_dtype: torch.dtype = torch.float32,
+    attention: str = "kernel",
+) -> dict:
+    """Batch greedy / stochastic decode (``greedy_decode`` of the JAX
+    package, spmm_tpu/inference/decoding.py:632-693; reference
+    d_rxn_prediction.py:55-81), run as its kernel path runs it: a k=1 beam
+    through ``decode_step``, with a single-lane cache [2, L, B, h, 1, T, D],
+    an all-zero ancestry [B, 1, T] and T = max_steps + 2 rounded up to a
+    multiple of 8.  Every layer of every step goes through
+    ``beam_decode_attention`` (``attention="kernel"``) or its plain version
+    (``"plain"``).
+
+    Each row decodes until it has emitted [SEP] or for ``max_steps`` steps;
+    the stop test runs after the append, and rows keep appending after
+    their [SEP].  Keys are valid where ``seqs != 0``.  Stochastic mode
+    takes argmax(logits + Gumbel noise), which is what
+    ``jax.random.categorical`` computes, with the noise of step s made from
+    ``uniforms(s)`` [B, V] as ``_sample_topk`` makes it (e.g. from JAX's
+    own draws in a parity test).  Returns ``seqs`` [B, T] and ``steps``,
+    the number of decoder steps run."""
+    if stochastic and uniforms is None:
+        raise ValueError("stochastic greedy decoding needs uniforms")
+    dev = cross_hidden.device
+    b = cross_hidden.shape[0]
+    T = -8 * (-(max_steps + 2) // 8)
+    cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
+    cache = init_beam_cache_kv(cfg, b, 1, T, cache_dtype, dev)
+    anc = torch.zeros((b, 1, T), dtype=torch.int64, device=dev)
+    seqs = torch.zeros((b, T), dtype=torch.int64, device=dev)
+    seqs[:, 0] = cls_id
+    step = 0
+    ended_all = False
+    while step < max_steps and not ended_all:
+        key_valid = (seqs != 0).to(torch.int32)
+        logits = decode_step(model, cfg, seqs[:, step], step, cache,
+                             key_valid, cross_kv, cross_mask, anc, attention)
+        if stochastic:
+            logits = logits + _gumbel(uniforms(step)).to(logits.dtype)
+        seqs[:, step + 1] = logits.argmax(dim=-1)
+        ended_all = bool((seqs == sep_id).any(dim=1).all())
+        step += 1
+    return {"seqs": seqs, "steps": step}

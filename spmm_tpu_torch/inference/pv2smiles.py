@@ -35,10 +35,11 @@ def encode_pv(model: SPMM, pv_normalized: Tensor,
                                                           prop_mask))
 
 
-def decoder_for(model: SPMM, bf16: bool) -> BertForMaskedLM:
-    """The text encoder the beam search runs: the model's own in fp32, a
-    bf16 copy with ``bf16`` (fp32 LayerNorm, scores and softmax are kept).
-    Make it once per service or call, not per batch."""
+def decoder_for(model, bf16: bool) -> BertForMaskedLM:
+    """The decoder a search runs, ``model.text_encoder`` of an SPMM or a
+    reaction model: the model's own in fp32, a bf16 copy with ``bf16``
+    (fp32 LayerNorm, scores and softmax are kept).  Make it once per
+    service or call, not per batch."""
     if not bf16:
         return model.text_encoder
     return copy.deepcopy(model.text_encoder).to(torch.bfloat16)

@@ -100,6 +100,35 @@ def test_kernel_matches_plain_across_tile_edges(dev, cache_dtype, kind, pos):
                          seed=pos, kind=kind), pos, 1)
 
 
+def _greedy_case(dev, m, T, pos, seed):
+    """Kernel 1 as greedy decoding calls it: k=1, a single lane, and
+    key_valid holes where a row emitted token 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, kn, vn, cache, _ = _case(dev, m, 12, 1, T, 64, 2, torch.bfloat16, pos,
+                                seed)
+    valid = ((torch.arange(T, device=dev) < pos)
+             & (torch.rand((m, 1, T), generator=g, device=dev) > 0.1))
+    anc = torch.zeros((m, 1, T), dtype=torch.int64, device=dev)
+    return q, kn, vn, cache, ancestry_mask(anc, valid).contiguous()
+
+
+@pytest.mark.parametrize("pos", [1, 33, 100, 103])
+def test_kernel_greedy_k1_bf16(dev, pos):
+    """k=1 runs the KB=2 instantiation with half its beam registers idle."""
+    _check_kernel(*_greedy_case(dev, 128, 104, pos, seed=pos), pos, 1)
+
+
+@pytest.mark.parametrize("m,k", [(32, 5), (16, 3)], ids=["k5_m32", "k3_m16"])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("kind", ["random", "shared"])
+def test_kernel_rxn_beams(dev, cache_dtype, kind, m, k):
+    """k=5 (the reaction beam search, m=32) and k=3 (the eval CLI at
+    --n_beam 3, a batch of 16) run KB=8 with idle beam slots."""
+    for pos in (1, 33, 100):
+        _check_kernel(*_case(dev, m, 12, k, 104, 64, 2, cache_dtype, pos,
+                             seed=pos, kind=kind), pos, 1)
+
+
 @pytest.mark.parametrize("d", [32, 96, 128])
 def test_kernel_head_dims(dev, d):
     _check_kernel(*_case(dev, 4, 2, 3, 40, d, 1, torch.bfloat16, 37, seed=d,
@@ -190,6 +219,49 @@ def test_fused_mha_launch_classes(dev, dtype, label, lq, lk, mask_kind):
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("length", [96, 160])
+def test_fused_mha_rxn_encoder_class(dev, length):
+    """The reactant encoder's self-attention over padded sources: the 96
+    bucket, and a source past the 150 bucket (truncation is off)."""
+    q, k, v, mask = _mha_case(dev, 16, 12, length, length, 64,
+                              torch.float32, "padding", seed=length)
+    got = fused_mha(q, k, v, mask)
+    want = fused_mha_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+def test_greedy_decode_kernel_matches_plain(dev):
+    """A tiny reaction model decoded greedily in fp32 through kernel 1 and
+    through its plain version: identical seqs, 1 launch per layer per step,
+    and the encoder's attentions through kernel 2."""
+    from spmm_tpu_torch.configs import BertArchConfig
+    from spmm_tpu_torch.inference.rxn import _greedy_batch
+    from spmm_tpu_torch.models.rxn import Rxn
+
+    dc = BertArchConfig(hidden_size=128, num_hidden_layers=3,
+                        num_attention_heads=2, intermediate_size=256,
+                        fusion_layer=1, encoder_width=128)
+    ec = BertArchConfig(hidden_size=128, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=256,
+                        fusion_layer=2, add_cross_attention=False)
+    model = Rxn.random_init(0, dc, ec, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(4, 300, (6, 40), generator=g, device=dev)
+    ids[:, 0] = 2
+    mask = (torch.arange(40, device=dev)[None]
+            < torch.tensor([40, 31, 20, 9, 40, 25], device=dev)[:, None]).int()
+    before = (beam_decode_attention.launches, fused_mha.launches)
+    got = _greedy_batch(model, model.text_encoder, ids, mask, max_steps=30)
+    launches = (beam_decode_attention.launches - before[0],
+                fused_mha.launches - before[1])
+    want = _greedy_batch(model, model.text_encoder, ids, mask, max_steps=30,
+                         attention="plain")
+    assert torch.equal(got["seqs"], want["seqs"])
+    assert got["steps"] == want["steps"]
+    assert launches == (3 * got["steps"], 2)
 
 
 def test_fused_mha_fully_masked_row(dev):

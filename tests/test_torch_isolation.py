@@ -33,6 +33,9 @@ def test_importing_every_module_loads_no_jax():
     assert "spmm_tpu_torch.ops.decode_attention" in mods
     assert "spmm_tpu_torch.ops.fused_attention" in mods
     assert "spmm_tpu_torch.cli.smiles2pv" in mods
+    for new in ("models.rxn", "inference.rxn", "cli.rxn_prediction",
+                "cli.pv2smiles_single", "cli.pv2smiles_batched"):
+        assert f"spmm_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -112,3 +115,41 @@ def test_entry_points_need_a_gpu_unless_told_otherwise():
         generate_batched(model, tok, pvs, device="meta")
     with pytest.raises(ValueError, match="is on"):
         predict_pv(model, ids, mask, device="meta")
+
+
+def test_rxn_entry_points_need_a_gpu_unless_told_otherwise(tmp_path):
+    """Reaction prediction and the three file CLIs: cuda by default,
+    raising without a GPU before they read any file."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from spmm_tpu_torch.cli import (
+        pv2smiles_batched, pv2smiles_single, rxn_prediction)
+    from spmm_tpu_torch.configs import BertArchConfig
+    from spmm_tpu_torch.inference.rxn import predict_beam, predict_greedy
+    from spmm_tpu_torch.models.rxn import Rxn
+    from spmm_tpu_torch.tokenizer import SmilesTokenizer
+
+    dc = BertArchConfig(hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=1, intermediate_size=32,
+                        fusion_layer=1, encoder_width=32)
+    ec = BertArchConfig(hidden_size=32, num_hidden_layers=1,
+                        num_attention_heads=1, intermediate_size=32,
+                        fusion_layer=1, add_cross_attention=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Rxn.random_init(0, dc, ec)
+    model = Rxn.random_init(0, dc, ec, device="cpu")
+    tok = SmilesTokenizer()
+    for fn in (predict_greedy, predict_beam):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(model, tok, ["CCO"])
+        with pytest.raises(ValueError, match="is on"):
+            fn(model, tok, ["CCO"], device="meta")
+        assert len(fn(model, tok, ["CCO"], device="cpu")) == 1
+    missing = str(tmp_path / "missing")
+    for argv, cli in (
+            (["--evaluate", "--data_dir", missing], rxn_prediction),
+            (["--checkpoint", missing], pv2smiles_single),
+            (["--checkpoint", missing, "--input_file", missing,
+              "--property_cache", missing], pv2smiles_batched)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv)
