@@ -13,7 +13,10 @@ against its plain PyTorch version:
   - SMILES->PV serving, every attention through kernel 2 (fused_mha);
   - reaction prediction: the reactant encoder through kernel 2, greedy
     (k=1) and k=5 beam decoding through kernel 1, its eval CLI; and the two
-    PV->SMILES file CLIs.
+    PV->SMILES file CLIs;
+  - MoleculeNet fine-tunes and reaction training: train steps on the plain
+    attention with dropout, evaluation through kernel 2 (any Lk: past 256
+    keys its tiled kernel), and the four training CLIs.
 
 Phases, in order; any failure exits non-zero:
 
@@ -37,7 +40,9 @@ Phases, in order; any failure exits non-zero:
               tests/test_pallas_attention.py, its bf16 case, every launch
               class of SMILES->PV at full width (B=128, h=12, D=64; S in
               16/32/54; L=100) and the reactant encoder's (96x96 and
-              160x160, per-row padding).  Times each kernel, its plain
+              160x160, per-row padding), and past 256 keys (Lk 257, 288,
+              512, 1000; padding, causal, none; f32 within 1e-5, bf16
+              within 2e-2).  Times each kernel, its plain
               version and one scaled_dot_product_attention call from the
               replay of a CUDA graph (device time, without the host's
               launch overhead) and computes the bound: kernel 1 at m=128 and
@@ -70,8 +75,25 @@ Phases, in order; any failure exits non-zero:
               temporary USPTO-480k directory of synthetic reactions
               (result.json written), and cli.pv2smiles_single / _batched
               once each on a synthetic full-size reference .ckpt;
-  shapes      over phase 5 and rxn, every call of a kernel wrapper was
-              recorded (KernelCalls); each kernel is held to its plain
+  finetune    MoleculeNet fine-tunes and reaction training at full width
+              (text_config()'s 6-layer truncated encoder with the
+              classification, 27-label multilabel and regression heads at
+              batch 16 / 16 / 8; a copy of the reaction model at batch 16,
+              96-token sources, 64-token targets): per model one fp32 step,
+              dropout off, on the card against the same step on the CPU
+              (loss, every gradient, every parameter after AdamW), then 3
+              warm-up and 20 timed steps with dropout on (samples/s, peak
+              memory, first and last loss) and one step under
+              torch.profiler; the fine-tune evaluate_scores through kernel 2
+              against the plain attention (64 SMILES and a 505-token text,
+              Lk 512; within 1e-5) and its mol/s; then cli.classification
+              (bbbp), cli.classification_multilabel (clintox) and
+              cli.regression (esol) for 2 epochs and cli.rxn_prediction
+              training for one (a 275-token source among its eval lines,
+              Lk 288; checkpoint_best.pt read back), each a main path over
+              synthetic files in a temporary directory;
+  shapes      over phases 5, rxn and finetune, every call of a kernel
+              wrapper was recorded (KernelCalls); each kernel is held to its plain
               version at every launch shape those main paths passed it:
               kernel 1 on the masks they passed at steps 0, 1, 33, 100 and
               the last, kernel 2 on the inputs of its first call; and each
@@ -115,6 +137,19 @@ RXN_SRC_LEN = 96                # bench.py's rxn greedy source length
 RXN_ENCODER_CLASSES = [("rxn encoder 96x96", 96, 96, "padding", False, 6),
                        ("rxn encoder 160x160", 160, 160, "padding", False,
                         6)]
+# (task, outputs, train batch) of the MoleculeNet heads at their CLIs'
+# batches, multilabel with SIDER's 27 labels; (batch, source tokens, target
+# tokens) of reaction training; warm-up and timed steps of each
+FT_TASKS = (("classification", 2, 16), ("multilabel", 27, 16),
+            ("regression", 1, 8))
+RXN_TRAIN = (16, RXN_SRC_LEN, 64)
+FT_WARMUP, FT_TIMED = 3, 20
+# (Lq, Lk, mask) past kernel 2's 256 keys, its tiled kernel: one key past,
+# a 257-token source in a bucket grown by 32, 512, 1000
+LONG_KEY_CASES = ((37, 257, "padding"), (288, 288, "padding"),
+                  (288, 288, "causal"), (64, 512, "padding"),
+                  (512, 512, "causal"), (16, 1000, "padding"),
+                  (70, 1000, "none"))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -221,6 +256,10 @@ def occupancy() -> dict:
             pos)
     for label, lq, lk, *_ in s2p_launch_classes() + RXN_ENCODER_CLASSES:
         ask(f"fused_mha f32 {label}", lib2.fmha_occupancy, 0, 64, lq, lk)
+    for lq, lk in ((288, 288), (512, 512)):     # the tiled kernel
+        for code, name in ((0, "f32"), (1, "bf16")):
+            ask(f"fused_mha {name} {lq}x{lk} (tiled)", lib2.fmha_occupancy,
+                code, 64, lq, lk)
     return rows
 
 
@@ -346,14 +385,15 @@ class KernelCalls:
     names it calls them through (inference/decoding's beam_decode_attention,
     ops/attention's fused_mha) are wrapped, and the wrappers launch as
     before, so their launch counts are untouched.  Per launch shape, kernel
-    1's mask at layer 0 of the steps at POS_SAMPLES and of the last step,
-    and kernel 2's inputs at its first call."""
+    1's mask at layer 0 of the steps at POS_SAMPLES and of the deepest step
+    (a later decode of the same shape that stops sooner does not replace
+    it), and kernel 2's inputs at its first call."""
 
     POS_SAMPLES = (0, 1, 33, 100)
 
     def __init__(self) -> None:
         self.bda: dict = {}     # (m, h, k, T, D, cache dtype) -> {pos: mask}
-        self.last: dict = {}    # the same key -> (pos, mask) of the last step
+        self.last: dict = {}    # the same key -> (pos, mask) of the deepest step
         self.mha: dict = {}     # shapes, strides, dtype -> (q, k, v, mask)
         self.paths: dict = {}   # either key -> the path that passed it first
 
@@ -377,7 +417,8 @@ class KernelCalls:
                 self.paths.setdefault(key, path)
                 if pos in self.POS_SAMPLES:
                     self.bda.setdefault(key, {}).setdefault(pos, mask)
-                self.last[key] = (pos, mask)
+                if pos >= self.last.get(key, (-1,))[0]:
+                    self.last[key] = (pos, mask)
             return bda(q, k_new, v_new, cache, mask, pos, layer)
 
         def mha_seen(q, k, v, mask=None):
@@ -537,6 +578,8 @@ def compare_mha(dev) -> dict:
                       ("fusion-cross", 128, 12, S, 100, dt, "padding", True)]
     cases += [("rxn-encoder", 128, 12, lq, lk, f32, kind, False)
               for _, lq, lk, kind, *_ in RXN_ENCODER_CLASSES]
+    cases += [("long-keys", 8, 12, lq, lk, dt, kind, False)
+              for dt in (f32, bf16) for lq, lk, kind in LONG_KEY_CASES]
     worst: dict[str, float] = {}
     for n, (label, b, h, lq, lk, dt, kind, kv_contig) in enumerate(cases):
         q, k, v, mask = mha_inputs(dev, b, h, lq, lk, 64, dt, kind, seed=n,
@@ -547,7 +590,8 @@ def compare_mha(dev) -> dict:
 
 def check_mha(dev, label, kind, inputs, worst) -> float:
     """fused_mha vs fused_mha_reference on one case: within 2e-5 (f32) or
-    3e-2 (bf16), in q's dtype and shape."""
+    3e-2 (bf16), in q's dtype and shape; past 256 keys (the tiled kernel,
+    whose tile order changes the sums) within kernel 1's 1e-5 and 2e-2."""
     import torch
 
     from spmm_tpu_torch.ops.fused_attention import fused_mha, fused_mha_reference
@@ -557,7 +601,8 @@ def check_mha(dev, label, kind, inputs, worst) -> float:
     got = fused_mha(q, k, v, mask)
     want = fused_mha_reference(q, k, v, mask)
     sync(dev)
-    tol = 2e-5 if dt == torch.float32 else 3e-2
+    tol = {(True, False): 2e-5, (False, False): 3e-2, (True, True): 1e-5,
+           (False, True): 2e-2}[dt == torch.float32, lk > 256]
     err = (got.float() - want.float()).abs().max().item()
     name = str(dt).replace("torch.", "")
     log(f"  {label:12s} B={b:3d} h={h:2d} {lq:3d}x{lk:<3d} {kind:7s} "
@@ -705,14 +750,19 @@ def exactness(dev, model, decoder, n_pv: int = 8, max_steps: int = 100) -> dict:
             "launches": lk}
 
 
+def example_smiles(n: int) -> list:
+    """n SMILES of the example file, cycled."""
+    with open(S2P_INPUT) as f:
+        examples = [line.strip() for line in f if line.strip()]
+    return [examples[i % len(examples)] for i in range(n)]
+
+
 def s2p_batch(n: int = 128) -> tuple:
     """n SMILES (the example file, cycled) tokenized into the service's one
     bucket, L=100."""
     from spmm_tpu_torch.cli._common import make_tokenizer
 
-    with open(S2P_INPUT) as f:
-        examples = [line.strip() for line in f if line.strip()]
-    smiles = [examples[i % len(examples)] for i in range(n)]
+    smiles = example_smiles(n)
     ids, mask = make_tokenizer().encode_batch(
         ["[CLS]" + s for s in smiles], max_len=100, buckets=(100,))
     return smiles, ids, mask
@@ -752,10 +802,8 @@ def exactness_s2p(dev, model) -> tuple[dict, dict]:
 def rxn_sources(n: int, parts: int = 2) -> list:
     """n synthetic reactant strings: ``parts`` SMILES of the example file
     joined by '.'."""
-    with open(S2P_INPUT) as f:
-        smiles = [line.strip() for line in f if line.strip()]
-    return [".".join(smiles[(i + j) % len(smiles)] for j in range(parts))
-            for i in range(n)]
+    smiles = example_smiles(n + parts)
+    return [".".join(smiles[i + j] for j in range(parts)) for i in range(n)]
 
 
 def rxn_batch(dev, n: int) -> tuple:
@@ -1184,6 +1232,306 @@ def pv2smiles_clis(dev, model, workdir: str, calls,
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase finetune: MoleculeNet fine-tunes and reaction training
+# --------------------------------------------------------------------------- #
+
+
+def long_text(n_words: int) -> str:
+    """An example SMILES and ``n_words`` one-atom words after it, one token
+    each: about n_words + 15 tokens.  A single word past 250 characters is
+    one [UNK] token (the reference tokenizer's word limit), so only many
+    words make a text this long."""
+    return example_smiles(1)[0] + " C" * n_words
+
+
+def ft_batch(dev, task: str, n_out: int, batch: int, seed: int) -> dict:
+    """A fine-tune train batch: ``batch`` example SMILES bucket-padded as
+    the fine-tune loop's batch_supervised pads them, synthetic targets from
+    ``seed``, on the card."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.cli._common import make_tokenizer
+    from spmm_tpu_torch.data.pipeline import batch_supervised
+
+    rng = np.random.default_rng(seed)
+    targets = {"classification": rng.integers(0, 2, batch),
+               "multilabel": rng.integers(0, 2, (batch, n_out)).astype(
+                   np.float32),
+               "regression": rng.normal(size=batch).astype(np.float32)}[task]
+    b = next(batch_supervised(make_tokenizer(),
+                              ["[CLS]" + s for s in example_smiles(batch)],
+                              targets, batch))
+    dtype = torch.int64 if task == "classification" else torch.float32
+    return {"ids": torch.as_tensor(b["ids"], device=dev),
+            "mask": torch.as_tensor(b["mask"], device=dev),
+            "target": torch.as_tensor(b["target"], device=dev, dtype=dtype)}
+
+
+def rxn_train_batch(dev, seed: int) -> dict:
+    """A reaction train batch of RXN_TRAIN: random ids in [4, 300), [CLS]
+    first, no padding."""
+    import torch
+
+    batch, _, tgt_len = RXN_TRAIN
+    src_ids, src_mask = rxn_bench_batch(dev, batch, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    tgt_ids = torch.randint(4, 300, (batch, tgt_len), generator=g, device=dev)
+    tgt_ids[:, 0] = 2
+    return {"src_ids": src_ids, "src_mask": src_mask, "tgt_ids": tgt_ids,
+            "tgt_mask": torch.ones_like(tgt_ids, dtype=torch.int32)}
+
+
+def step_gate(dev, model, make_step, batch: dict) -> dict:
+    """One step, dropout off, of ``model`` on the card and of its copy on
+    the CPU, from the same weights and batch: loss within 1e-5 relative;
+    each gradient within 1e-4 of its norm plus a floor of 1e-6 of the
+    largest gradient norm (a gradient that is zero in exact arithmetic, as
+    the key biases' is, since softmax ignores a shift, is rounding noise on
+    both sides); each parameter after the step within 1e-6 plus what the
+    first AdamW step makes of its gradient's difference.  That step moves an
+    element by lr * g / (|g| + eps), whose slope in g is at most 1 / eps, so
+    where |g| is near eps = 1e-8 a rounding difference in g moves the
+    parameter by up to lr * |dg| / eps.  TF32 is off: the sums differ only
+    in their order."""
+    import torch
+
+    from spmm_tpu_torch.configs import FinetuneConfig
+
+    cpu = copy.deepcopy(model).cpu()
+    loss = {}
+    for where, m, d in (("card", model, dev), ("cpu", cpu, torch.device("cpu"))):
+        _, step = make_step(m, FinetuneConfig(), 10)
+        res = step(0, {k: v.to(d) for k, v in batch.items()})
+        loss[where], lr = res["loss"].item(), res["lr"]
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for the card's fp32 matmuls")
+    loss_rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    if not loss_rel <= 1e-5:
+        fail(f"card loss {loss['card']} vs CPU {loss['cpu']}")
+    floor = 1e-6 * max(p.grad.norm().item() for p in cpu.parameters())
+    grad_share, param_err, excess, n_loose = 0.0, 0.0, -1.0, 0
+    for (name, pc), pd in zip(cpu.named_parameters(), model.parameters()):
+        dg = pd.grad.cpu() - pc.grad
+        grad_share = max(grad_share, dg.norm().item()
+                         / (1e-4 * pc.grad.norm().item() + floor))
+        dp = (pd.detach().cpu() - pc.detach()).abs()
+        param_err = max(param_err, dp.max().item())
+        n_loose += int((dp > 1e-6).sum().item())
+        excess = max(excess, (dp - 1e-6 - lr * dg.abs() / 1e-8).max().item())
+        if grad_share > 1 or excess > 0:
+            fail(f"card step differs from the CPU step at {name}: gradient "
+                 f"at {grad_share:.2f} of its bar, parameter by "
+                 f"{dp.max().item():.2e}")
+    del cpu
+    return {"loss": loss["cpu"], "loss_rel_diff": loss_rel, "lr": lr,
+            "grad_worst_share_of_bar": grad_share, "grad_floor": floor,
+            "param_max_abs_diff": param_err,
+            "params_past_1e-6": n_loose}
+
+
+def train_throughput(dev, step, batch: dict, n: int) -> dict:
+    """FT_WARMUP steps, then FT_TIMED timed between synchronizations, then
+    one under torch.profiler; dropout on (a generator from the seed).  No
+    kernel launches: training runs the plain attention."""
+    import torch
+
+    from spmm_tpu_torch.utils.profiling import device_breakdown
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    before = launch_counts()
+    losses = [step(i, batch, gen)["loss"] for i in range(FT_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(FT_TIMED):
+        losses.append(step(FT_WARMUP + i, batch, gen)["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_breakdown(lambda: step(FT_WARMUP + FT_TIMED, batch, gen),
+                            top=6)
+    losses = [x.item() for x in losses]
+    if launch_counts() != before:
+        fail("a train step launched a kernel")
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        fail(f"non-finite train loss: {losses}")
+    return {"samples_per_s": FT_TIMED * n / secs,
+            "step_ms": 1e3 * secs / FT_TIMED, "batch": n,
+            "max_memory_gib": peak / 2 ** 30, "first_loss": losses[0],
+            "last_loss": losses[-1], "profile": prof}
+
+
+def finetune_training(dev, rxn) -> dict:
+    """Per model (the three MoleculeNet heads on text_config()'s 6-layer
+    truncated encoder, and a copy of the full-width reaction model): the
+    card-vs-CPU step gate, then the throughput run with dropout on."""
+    from spmm_tpu_torch.configs import FinetuneConfig
+    from spmm_tpu_torch.models.downstream import Downstream
+    from spmm_tpu_torch.training.finetune import (
+        make_downstream_step, make_rxn_step)
+
+    out = {}
+    for n, (task, n_out, batch) in enumerate(FT_TASKS):
+        model = Downstream.random_init(SEED, task, n_output=n_out, device=dev)
+        b = ft_batch(dev, task, n_out, batch, SEED + n)
+        gate = step_gate(dev, model, make_downstream_step, b)
+        _, step = make_downstream_step(model, FinetuneConfig(), 100)
+        out[task] = dict(train_throughput(dev, step, b, batch), gate=gate)
+        del model, step
+    model = copy.deepcopy(rxn)
+    b = rxn_train_batch(dev, SEED + 8)
+    gate = step_gate(dev, model, make_rxn_step, b)
+    _, step = make_rxn_step(model, FinetuneConfig(), 100)
+    out["rxn"] = dict(train_throughput(dev, step, b, RXN_TRAIN[0]), gate=gate)
+    return out
+
+
+def finetune_eval(dev, calls) -> dict:
+    """The fine-tune evaluate_scores on a full-width classification model:
+    64 example SMILES and one text of 505 tokens (its own batch, bucket
+    512), through kernel 2 (the fine-tune path, recorded) and through the
+    plain attention: fp32 within 1e-5, 6 kernel-2 launches per batch.  Then
+    eval mol/s over 512 example SMILES (8 batches of 64)."""
+    import numpy as np
+
+    from spmm_tpu_torch.cli._common import make_tokenizer
+    from spmm_tpu_torch.cli._finetune_driver import evaluate_scores
+    from spmm_tpu_torch.data.datasets import SupervisedDataset
+    from spmm_tpu_torch.models.downstream import Downstream
+
+    model = Downstream.random_init(SEED, "classification", device=dev)
+    tok = make_tokenizer()
+    texts = ["[CLS]" + s for s in example_smiles(64)] + [
+        "[CLS]" + long_text(490)]
+    ds = SupervisedDataset(texts, np.arange(65) % 2)
+    reset_launch_counts()                       # the main path starts here
+    with calls.recording("fine-tune eval"):     # ... and ends here
+        (kp, _), k_s, k1, k2 = run_counted(dev, lambda: evaluate_scores(
+            model, tok, ds, batch_size=64))
+    (pp, _), p_s, p1, p2 = run_counted(dev, lambda: evaluate_scores(
+        model, tok, ds, batch_size=64, attention_impl="plain"))
+    err = float(np.abs(kp - pp).max())
+    if kp.shape != (65, 2) or not np.isfinite(kp).all():
+        fail(f"eval predictions {kp.shape}")
+    if not err <= 1e-5:
+        fail(f"eval through kernel 2 differs from the plain attention by "
+             f"{err:.3e} > 1e-5")
+    if k1 or k2 != 2 * 6 or p1 or p2:
+        fail(f"eval launches: kernel path ({k1}, {k2}), plain ({p1}, {p2})")
+    if not any(key[1][2] == 512 for key in calls.mha):
+        fail("the long text did not reach kernel 2 at Lk = 512")
+    big = SupervisedDataset(["[CLS]" + s for s in example_smiles(512)],
+                            np.arange(512) % 2)
+    evaluate_scores(model, tok, big, batch_size=64)
+    _, secs, _, n2 = run_counted(dev, lambda: evaluate_scores(
+        model, tok, big, batch_size=64))
+    return {"max_abs_diff": err, "launches": k2, "kernel_s": k_s,
+            "plain_s": p_s, "eval_mol_per_s": 512 / secs,
+            "eval_launches_512": n2}
+
+
+def _write_csv(path: str, header: list, rows: list) -> None:
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows(rows)
+
+
+def finetune_clis(dev, workdir: str, calls) -> dict:
+    """cli.classification --name bbbp, cli.classification_multilabel --name
+    clintox and cli.regression --name esol, each --epoch 2 at full width
+    over synthetic CSVs (32 train rows, 16 valid and test rows); then
+    cli.rxn_prediction without --evaluate, one epoch of 3 steps over 48
+    synthetic reactions, greedy eval of 16 per split, one source of 275
+    tokens among them (Lk 288), and checkpoint_best.pt read back strictly.
+    Each run is a main path, its kernel calls recorded."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.cli import (
+        classification, classification_multilabel, regression,
+        rxn_prediction)
+    from spmm_tpu_torch.models.rxn import Rxn
+
+    runs = (
+        ("classification", classification, "bbbp",
+         ["num", "name", "p_np", "smiles"],
+         lambda i, s: [i, f"m{i}", i % 2, s], 4),
+        ("classification_multilabel", classification_multilabel, "clintox",
+         ["smiles", "FDA_APPROVED", "CT_TOX"],
+         lambda i, s: [s, i % 2, (i // 2) % 2], 4),
+        ("regression", regression, "esol",
+         ["smiles", "ESOL predicted log solubility in mols per litre"],
+         lambda i, s: [s, -3.0 + 0.25 * (i % 9)], 8),
+    )
+    out = {}
+    for name, cli, dataset, header, row, steps in runs:
+        data = os.path.join(workdir, f"{name}_data")
+        os.makedirs(data)
+        for f, n in zip(cli.DATASETS[dataset][1], (32, 16, 16)):
+            _write_csv(os.path.join(data, f), header,
+                       [row(i, s) for i, s in enumerate(example_smiles(n))])
+        result_dir = os.path.join(workdir, f"{name}_out")
+        reset_launch_counts()                   # the main path starts here
+        with calls.recording(f"cli.{name}"):
+            _, secs, n1, n2 = run_counted(dev, lambda: cli.main([
+                "--name", dataset, "--data_dir", data, "--epoch", "2",
+                "--output_dir", result_dir,
+                "--device", dev.type]))           # ... and ends here
+        with open(os.path.join(result_dir, "result.json")) as f:
+            result = json.load(f)
+        # per epoch one eval batch of valid and of test, 6 launches each
+        if n1 or n2 != 2 * 2 * 6 or result["steps"] != steps or \
+                not np.isfinite(result["best_test"]):
+            fail(f"cli.{name}: launches ({n1}, {n2}), result {result}")
+        out[name] = {"wall_s": secs, "launches": n2, "steps": steps,
+                     "best_valid": result["best_valid"],
+                     "best_test": result["best_test"]}
+
+    data = os.path.join(workdir, "rxn_train_data")
+    os.makedirs(os.path.join(data, "USPTO-480k"))
+    train = rxn_sources(48)
+    evals = rxn_sources(16)
+    evals[5] = long_text(260)
+    for split, sources in (("train", train), ("valid", evals),
+                           ("test", evals)):
+        with open(os.path.join(data, "USPTO-480k", f"{split}_parsed.txt"),
+                  "w") as f:
+            f.writelines(f"{s}\t{s.split('.')[0].split()[0]}\n"
+                         for s in sources)
+    result_dir = os.path.join(workdir, "rxn_train_out")
+    reset_launch_counts()                       # the main path starts here
+    with calls.recording("cli.rxn_prediction training"):
+        _, secs, n1, n2 = run_counted(dev, lambda: rxn_prediction.main([
+            "--n_beam", "1", "--epoch", "1", "--data_dir", data,
+            "--output_dir", result_dir, "--seed", str(SEED),
+            "--device", dev.type]))               # ... and ends here
+    with open(os.path.join(result_dir, "result.json")) as f:
+        result = json.load(f)
+    if n1 <= 0 or n1 % 12 or n2 != 2 * RXN_ENC_LAYERS or result["steps"] != 3:
+        fail(f"cli.rxn_prediction training: launches ({n1}, {n2}), result "
+             f"{result}")
+    if not any(key[1][2] == 288 for key in calls.mha):
+        fail("the long source did not reach kernel 2 at Lk = 288")
+    saved = torch.load(os.path.join(result_dir, "checkpoint_best.pt"),
+                       map_location="cpu")["state_dict"]
+    model = Rxn.random_init(SEED + 1, device=dev)
+    rxn_prediction.load_rxn_checkpoint(
+        model, os.path.join(result_dir, "checkpoint_best.pt"))
+    if not all(torch.equal(v.cpu(), saved[k])
+               for k, v in model.state_dict().items()):
+        fail("checkpoint_best.pt did not load back as saved")
+    out["rxn_prediction"] = {"wall_s": secs, "launches": [n1, n2],
+                             "steps": result["steps"],
+                             "valid_acc": result["best_valid_acc"],
+                             "test_acc": result["best_test_acc"]}
+    return out
+
+
 def main_path_shapes(dev, calls, worst, worst2) -> list:
     """Each kernel against its plain version, and timed, at every launch
     shape the main paths passed it: kernel 1 on the masks they passed (held
@@ -1519,6 +1867,41 @@ def main() -> int:
                 f"{row['launches']} kernel-1 launches, "
                 f"{row['valid_written']} valid molecules written")
 
+    # ---- finetune: MoleculeNet fine-tunes and reaction training ----
+    mark("finetune")
+    ft = {"train": finetune_training(dev, rxn)}
+    for name, row in ft["train"].items():
+        gate, prof = row["gate"], row["profile"]
+        log(f"[finetune] {name} train, batch {row['batch']}, dropout on: "
+            f"{row['samples_per_s']:.1f} samples/s ({row['step_ms']:.2f} ms "
+            f"a step), peak {row['max_memory_gib']:.2f} GiB, loss "
+            f"{row['first_loss']:.4f} -> {row['last_loss']:.4f}")
+        log(f"  step gate (card vs CPU, dropout off): loss rel diff "
+            f"{gate['loss_rel_diff']:.2e} (bar 1e-5), worst gradient at "
+            f"{gate['grad_worst_share_of_bar']:.3f} of its bar, parameters "
+            f"within {gate['param_max_abs_diff']:.2e} ({gate['params_past_1e-6']} "
+            f"elements past 1e-6, each within lr * |dg| / eps of it)")
+        log(f"  profile of one step: wall {prof['wall_s'] * 1e3:.2f} ms, "
+            + ("device busy not measured (no device events)"
+               if prof["busy_share"] is None else
+               f"device busy {100 * prof['busy_share']:.1f}%, "
+               f"{prof['device_events']} device events"))
+        for top in prof["top"]:
+            log(f"  {top['ms']:9.3f} ms {top['count']:6d}x  {top['name']}")
+    ft["eval"] = finetune_eval(dev, calls)
+    row = ft["eval"]
+    log(f"[finetune] eval (evaluate_scores, B=64, 64 SMILES + a 505-token "
+        f"text): kernel 2 vs plain attention max |diff| "
+        f"{row['max_abs_diff']:.2e} (bar 1e-5), {row['launches']} kernel-2 "
+        f"launches; {row['eval_mol_per_s']:.1f} mol/s over 512 SMILES")
+    with tempfile.TemporaryDirectory() as workdir:
+        ft["cli"] = finetune_clis(dev, workdir, calls)
+    for name, row in ft["cli"].items():
+        log(f"[finetune] cli.{name}: {row['wall_s']:.1f} s, {row['steps']} "
+            f"steps, launches {row['launches']}, result.json written"
+            + (", checkpoint_best.pt read back" if name == "rxn_prediction"
+               else ""))
+
     # ---- shapes: every launch shape of the main paths vs plain ----
     mark("shapes")
     log("[shapes] each kernel against its plain version, and timed, at every "
@@ -1549,7 +1932,8 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
-                      "exact": exact, "rxn": rxn_run, "profile": profiles}))
+                      "exact": exact, "rxn": rxn_run, "finetune": ft,
+                      "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   rxn_launches=rxn_run["greedy_launches"][0],
                   max_abs_err=worst["bfloat16"],
@@ -1568,6 +1952,7 @@ def main() -> int:
                        "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
                    rxn_launches=rxn_run["greedy_launches"][1],
+                   finetune_eval_launches=ft["eval"]["launches"],
                    per_shape=timing2 + timing_enc,
                    main_path_shapes=[row for row in main_shapes
                                      if row["kernel"] == KERNEL2["name"]],

@@ -10,7 +10,8 @@ the port's ``nn.Module`` trees reproduce, so both load with ``strict=True``):
     table; the decoder bias appears under both of the reference's aliased
     names (xbert.py:686-691); ``property_mtr_head`` flattens to the
     Sequential indices ``.0/.2/.3``; the pretrain heads only if present.
-    ``rxn_state_dict_from_jax_tree`` does the same for a reaction tree.
+    ``rxn_state_dict_from_jax_tree`` does the same for a reaction tree,
+    ``downstream_state_dict_from_jax_tree`` for a MoleculeNet one.
   - ``load_reference_checkpoint``: a reference ``{"state_dict": ...}``
     ``.ckpt`` with the ``_unk`` -> ``_mask`` rename (reference
     d_regression.py:157-161).
@@ -134,6 +135,25 @@ def rxn_state_dict_from_jax_tree(
     out: dict[str, torch.Tensor] = {}
     for key, prefix, _ in stacks:
         _put_bert_mlm(out, tree[key], prefix)
+    return out
+
+
+def downstream_state_dict_from_jax_tree(
+    tree: Params, cfg: Optional[BertArchConfig] = None,
+) -> dict[str, torch.Tensor]:
+    """A ``spmm_tpu`` downstream tree (``init_downstream_params``) with numpy
+    leaves -> the names of ``models.downstream.Downstream``: the truncated
+    encoder under ``text_encoder.bert``, the heads as ``l1`` / ``l2`` with
+    ``w`` transposed.  ``cfg`` is the full text config; the encoder must
+    have its ``fusion_layer`` layers."""
+    n_layers = (cfg or text_config()).fusion_layer
+    if len(tree["encoder"]["layers"]) != n_layers:
+        raise ValueError(f"encoder has {len(tree['encoder']['layers'])} "
+                         f"layers, the truncated config {n_layers}")
+    out: dict[str, torch.Tensor] = {}
+    _put_bert(out, tree["encoder"], "text_encoder.bert")
+    _put_linear(out, "l1", tree["head"]["l1"])
+    _put_linear(out, "l2", tree["head"]["l2"])
     return out
 
 

@@ -1,12 +1,14 @@
-"""Architecture configuration (copy of ``spmm_tpu.configs``' BERT part).
+"""Configuration (copy of the BERT and fine-tune parts of ``spmm_tpu.configs``).
 
 The three architectures, with the values of the reference
-config_bert.json / config_bert_property.json / config_bert_smiles.json.
+config_bert.json / config_bert_property.json / config_bert_smiles.json, and
+the fine-tune hyperparameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,3 +74,20 @@ def smiles_config() -> BertArchConfig:
         fusion_layer=6,
         add_cross_attention=False,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class FinetuneConfig:
+    """Downstream fine-tune hyperparameters (reference d_classification.py:198-207 etc.)."""
+
+    lr: float = 3e-5
+    min_lr: float = 5e-6
+    warmup_lr: float = 0.5e-5
+    weight_decay: float = 0.02
+    epochs: int = 10
+    warmup_epochs: int = 1
+    batch_size_train: int = 16
+    batch_size_test: int = 64
+    max_text_len: int = 100
+    step_size: int = 50           # warmup chunk size (50 for cls, 100 for reg/rxn)
+    seed: Optional[int] = None

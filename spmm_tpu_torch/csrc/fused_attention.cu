@@ -58,6 +58,29 @@
 //   - The mask: a padding mask's one row is copied in with the item; a mask
 //     with a row per query is read where the scores are written.
 //
+// Past 256 keys (kMaxKeys; fmha_max_keys() tells the wrapper) the item's
+// scores no longer fit beside its K and V, so a second kernel,
+// fused_mha_long_kernel, streams K and V through shared memory in tiles of
+// kTileKeys = 128 keys, for any Lk.  Its softmax is the exact two-pass one
+// over the tiles: pass 1 walks the K tiles for each row's max and sum (the
+// sum rescaled when a tile raises the max), pass 2 walks the K and V tiles
+// again, recomputes the scores, and multiplies V by exp(s - max) / sum
+// rounded to v's dtype.  So the probabilities are the normalized values the
+// plain version rounds, at the same rounding point, which an online softmax
+// (unnormalized probabilities rounded, the sum divided out at the end) would
+// not give in bf16; the price is computing q.k twice.  Sums run in the same
+// orders as the short path (d ascending; keys ascending across the tiles).
+// Shared memory is 87 KB at fp32, D=64: two blocks per SM.  Sources and
+// molecules this long are rare on the paths, so the long kernel is simple:
+// one tile in flight per block, no double buffering.  One saving: a
+// padding mask (one row for every query) hides the keys past each item's
+// length, and a batch padded to one long member is mostly such keys.  The
+// tiles past the last key whose mask lies within kSkipGap of the row's
+// largest are skipped: each of their keys would add exp(s + m - max) with
+// m at least 1000 below the mask of the key that sets max, which is 0 in
+// fp32 (expf is 0 below -104) unless two scaled scores differ by more
+// than 896.  A fully masked row keeps every tile (all its masks are equal).
+//
 // Left for later work: padding waste (an item computes 16 * TM query rows
 // and 16 * TN keys, so 54 x 100 does 26% more FMAs than it needs, Lq = 16
 // twice), and the bf16 path on tensor cores (mma.sync / wgmma).
@@ -75,7 +98,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxKeys = 256;           // Lk <= 256
+constexpr int kMaxKeys = 256;           // Lk <= 256: fused_mha_kernel
+constexpr int kTileKeys = 128;          // keys per tile of the long kernel
+constexpr float kSkipGap = 1000.f;      // masks this far below the row's max add 0
 
 // probabilities take v's dtype before the V product
 template <typename T> __device__ __forceinline__ float round_prob(float p);
@@ -353,13 +378,266 @@ fused_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Shared memory of the long kernel, in order: the K tile [kTileKeys][D+pad]
+// in T, which the tile's fp32 scores S / P [16*TM][kTileKeys] overwrite once
+// the products are done; the V tile [kTileKeys][D+pad] in T; the item's Q
+// rows [16*TM][D+pad] in T, kept over both passes; the tile's mask row
+// [kTileKeys] fp32 that a padding mask gives every query row; the warps'
+// mask maxima [kWarps] fp32 and the item's last live key (an int).  All of
+// it is dynamic: the launch opts in to the whole of shared memory.
+template <typename T, int D, int TM>
+struct LongLayout {
+  static constexpr int kRow = D + 16 / (int)sizeof(T);
+  static constexpr int kRows = 16 * TM;
+  static constexpr size_t kTile = (size_t)kTileKeys * kRow * sizeof(T);
+  static constexpr size_t kScores = sizeof(float) * kRows * kTileKeys;
+  static constexpr size_t kKS = kTile > kScores ? kTile : kScores;
+  static constexpr size_t kQ = (size_t)kRows * kRow * sizeof(T);
+  static size_t bytes(int) {
+    return kKS + kTile + kQ + sizeof(float) * (kTileKeys + kWarps) + sizeof(int);
+  }
+};
+
+// Any Lk (the wrapper sends Lk > kMaxKeys here).  Threads own rows and keys
+// of a tile as in fused_mha_kernel; each warp keeps the running max and sum
+// of its rows over the tiles in registers, each thread its output micro-tile.
+template <typename T, int D, int TM>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_mha_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ mask,
+                      T* __restrict__ out, const Args a) {
+  using Lay = LongLayout<T, D, TM>;
+  constexpr int ROW = Lay::kRow;
+  constexpr int KEYS = kTileKeys;
+  constexpr int ROWS = Lay::kRows;
+  constexpr int TN = KEYS / 16;                        // keys per thread
+  constexpr int NT = KEYS / 32;                        // keys per lane
+  constexpr int RPW = ROWS / kWarps;                   // rows per warp
+  constexpr int CPT = D / 16;
+  constexpr int PIECES = D * (int)sizeof(T) / 16;
+  constexpr int PER_PIECE = 16 / (int)sizeof(T);
+  extern __shared__ float4 smem4[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  T* kb = reinterpret_cast<T*>(base);
+  float* s_p = reinterpret_cast<float*>(base);                      // [ROWS][KEYS]
+  T* vb = reinterpret_cast<T*>(base + Lay::kKS);
+  T* qb = reinterpret_cast<T*>(base + Lay::kKS + Lay::kTile);
+  float* mrow = reinterpret_cast<float*>(base + Lay::kKS + Lay::kTile + Lay::kQ);
+  float* warp_max = mrow + KEYS;                                    // [kWarps]
+  int& last_live = *reinterpret_cast<int*>(warp_max + kWarps);
+  const bool shared_mask_row = a.ms[1] == 0;
+  const int Lk = a.Lk;
+  const int n_tiles = (Lk + KEYS - 1) / KEYS;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tr = tid >> 4, tc = tid & 15;
+
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+    const int slice = it / a.row_blocks;
+    const int b = slice / a.H, h = slice % a.H;
+    const int row0 = (it - slice * a.row_blocks) * ROWS;
+    const int rows = min(ROWS, a.Lq - row0);
+    const T* kg = k + b * a.ks[0] + h * a.ks[1];
+    const T* vg = v + b * a.vs[0] + h * a.vs[1];
+    const T* qg = q + b * a.qs[0] + h * a.qs[1] + row0 * a.qs[2];
+    const float* mg = mask == nullptr ? nullptr
+        : mask + b * a.ms[0] + (shared_mask_row ? 0 : row0 * a.ms[1]);
+    // (the last tile of the previous item ended on a barrier: Q is free)
+    for (int x = tid; x < rows * PIECES; x += kThreads) {
+      const int i = x / PIECES, e = (x - i * PIECES) * PER_PIECE;
+      cp_async16(qb + i * ROW + e, qg + i * a.qs[2] + e);
+    }
+    cp_async_commit();
+
+    // a padding mask's row: the tiles up to its last key within kSkipGap of
+    // the row's largest mask (the source note says why the rest add 0)
+    int n_live = n_tiles;
+    if (mg != nullptr && shared_mask_row) {
+      float mm = -INFINITY;
+      for (int j = tid; j < Lk; j += kThreads) mm = fmaxf(mm, mg[j * a.ms[2]]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
+      if (lane == 0) warp_max[warp] = mm;
+      if (tid == 0) last_live = 0;
+      __syncthreads();
+      mm = warp_max[0];
+      for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, warp_max[w]);
+      int mine = 0;
+      for (int j = tid; j < Lk; j += kThreads)
+        if (mg[j * a.ms[2]] >= mm - kSkipGap) mine = j;
+      atomicMax(&last_live, mine);
+      __syncthreads();
+      n_live = last_live / KEYS + 1;
+    }
+
+    float mx[RPW], sum[RPW], o[TM][CPT];
+#pragma unroll
+    for (int u = 0; u < RPW; ++u) { mx[u] = -INFINITY; sum[u] = 0.f; }
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) o[r][c] = 0.f;
+
+    // pass 0: each row's max and sum over the tiles; pass 1: P . V
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int t = 0; t < n_live; ++t) {
+        const int j0 = t * KEYS;
+        const int nk = min(KEYS, Lk - j0), nk4 = (nk + 3) & ~3;
+        for (int x = tid; x < nk * PIECES; x += kThreads) {
+          const int j = x / PIECES, e = (x - j * PIECES) * PER_PIECE;
+          cp_async16(kb + j * ROW + e, kg + (j0 + j) * a.ks[2] + e);
+          if (pass == 1) cp_async16(vb + j * ROW + e, vg + (j0 + j) * a.vs[2] + e);
+        }
+        if (pass == 1)           // V rows nk..nk4-1 are zeros, as P is there
+          for (int x = tid; x < (nk4 - nk) * D; x += kThreads)
+            vb[(nk + x / D) * ROW + x % D] = T(0.f);
+        if (mg != nullptr && shared_mask_row)
+          for (int j = tid; j < nk; j += kThreads)
+            cp_async4(mrow + j, mg + (j0 + j) * a.ms[2]);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+
+        // ---- the tile's scores, d ascending (keys past nk repeat row nk-1) ----
+        float acc[TM][TN];
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+#pragma unroll
+          for (int n = 0; n < TN; ++n) acc[r][n] = 0.f;
+#pragma unroll 2
+        for (int d = 0; d < D; d += 4) {
+          float qv[TM][4];
+#pragma unroll
+          for (int r = 0; r < TM; ++r) load_f(qb + (tr + 16 * r) * ROW + d, qv[r]);
+#pragma unroll
+          for (int n = 0; n < TN; ++n) {
+            float kv[4];
+            load_f(kb + min(tc + 16 * n, nk - 1) * ROW + d, kv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+#pragma unroll
+              for (int r = 0; r < TM; ++r) acc[r][n] = fmaf(qv[r][e], kv[e], acc[r][n]);
+          }
+        }
+        __syncthreads();                 // K is read: S overwrites it
+#pragma unroll
+        for (int r = 0; r < TM; ++r)
+#pragma unroll
+          for (int n = 0; n < TN; ++n) {
+            const int i = tr + 16 * r, j = tc + 16 * n;
+            float m = 0.f;
+            if (mg != nullptr)
+              m = shared_mask_row ? mrow[j]
+                  : (i < rows && j < nk) ? mg[i * a.ms[1] + (j0 + j) * a.ms[2]] : 0.f;
+            s_p[i * KEYS + j] = acc[r][n] * a.scale + m;
+          }
+        __syncthreads();
+
+        if (pass == 0) {
+          // ---- one warp per row: the tile's max, then the running sum
+          // rescaled to the new max ----
+          float sv[RPW][NT], tmax[RPW], part[RPW];
+#pragma unroll
+          for (int u = 0; u < RPW; ++u) {
+            const int i = warp + kWarps * u;
+            tmax[u] = -INFINITY;
+#pragma unroll
+            for (int tt = 0; tt < NT; ++tt) {
+              const int j = lane + 32 * tt;
+              sv[u][tt] = (i < rows && j < nk) ? s_p[i * KEYS + j] : -INFINITY;
+              tmax[u] = fmaxf(tmax[u], sv[u][tt]);
+            }
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+            for (int u = 0; u < RPW; ++u)
+              tmax[u] = fmaxf(tmax[u], __shfl_xor_sync(0xffffffffu, tmax[u], off));
+#pragma unroll
+          for (int u = 0; u < RPW; ++u) {
+            tmax[u] = fmaxf(mx[u], tmax[u]);
+            part[u] = 0.f;
+#pragma unroll
+            for (int tt = 0; tt < NT; ++tt)
+              if (lane + 32 * tt < nk && warp + kWarps * u < rows)
+                part[u] += expf(sv[u][tt] - tmax[u]);
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+            for (int u = 0; u < RPW; ++u)
+              part[u] += __shfl_xor_sync(0xffffffffu, part[u], off);
+#pragma unroll
+          for (int u = 0; u < RPW; ++u)
+            if (warp + kWarps * u < rows) {
+              sum[u] = sum[u] * expf(mx[u] - tmax[u]) + part[u];
+              mx[u] = tmax[u];
+            }
+        } else {
+          // ---- probabilities exp(s - max) / sum in v's dtype, then
+          // o += P . V over the tile, keys ascending ----
+#pragma unroll
+          for (int u = 0; u < RPW; ++u) {
+            const int i = warp + kWarps * u;
+            if (i >= rows) break;
+#pragma unroll
+            for (int tt = 0; tt < NT; ++tt) {
+              const int j = lane + 32 * tt;
+              if (j < nk4)
+                s_p[i * KEYS + j] =
+                    j < nk ? round_prob<T>(expf(s_p[i * KEYS + j] - mx[u]) / sum[u]) : 0.f;
+            }
+          }
+          __syncthreads();
+          for (int j = 0; j < nk4; j += 4) {
+            float p[TM][4];
+#pragma unroll
+            for (int r = 0; r < TM; ++r) load_f(s_p + (tr + 16 * r) * KEYS + j, p[r]);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              float vv[CPT];
+              load_f(vb + (j + jj) * ROW + tc * CPT, vv);
+#pragma unroll
+              for (int r = 0; r < TM; ++r)
+#pragma unroll
+                for (int c = 0; c < CPT; ++c) o[r][c] = fmaf(p[r][jj], vv[c], o[r][c]);
+            }
+          }
+        }
+        __syncthreads();                 // S and V are read: the next tile loads
+      }
+    }
+    T* ob = out + b * a.os[0] + h * a.os[1];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int i = tr + 16 * r;
+      if (i < rows) store_f(ob + (row0 + i) * a.os[2] + tc * CPT, o[r]);
+    }
+  }
+}
+
+// The kernel and shared memory of a launch: fused_mha_kernel where TN > 0,
+// fused_mha_long_kernel where TN = 0.
+template <typename T, int D, int TN, int TM>
+struct Path {
+  static auto kernel() { return fused_mha_kernel<T, D, TN, TM>; }
+  static size_t bytes(int lk) { return Layout<T, D, TN, TM>::bytes(lk); }
+};
+template <typename T, int D, int TM>
+struct Path<T, D, 0, TM> {
+  static auto kernel() { return fused_mha_long_kernel<T, D, TM>; }
+  static size_t bytes(int lk) { return LongLayout<T, D, TM>::bytes(lk); }
+};
+
 // With `info` set, nothing is launched: info[0] gets the blocks per SM and
 // info[1] the dynamic shared-memory bytes of the launch.
 template <typename T, int D, int TN, int TM>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            void* out, int B, Args a, cudaStream_t stream, int* info) {
-  using Lay = Layout<T, D, TN, TM>;
-  auto kernel = fused_mha_kernel<T, D, TN, TM>;
+  using P = Path<T, D, TN, TM>;
+  auto kernel = P::kernel();
   static bool configured[64] = {};
   static int optin[64] = {}, sms[64] = {};
   int dev = 0;
@@ -376,9 +654,9 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
-  a.row_blocks = (a.Lq + Lay::kRows - 1) / Lay::kRows;
+  a.row_blocks = (a.Lq + 16 * TM - 1) / (16 * TM);
   a.n_items = B * a.H * a.row_blocks;
-  const size_t smem = Lay::bytes(a.Lk);
+  const size_t smem = P::bytes(a.Lk);
   if (smem > (size_t)optin[dev]) return (int)cudaErrorInvalidValue;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
@@ -409,6 +687,7 @@ int dispatch_keys(const void* q, const void* k, const void* v,
                   const float* mask, void* out, int B, const Args& a,
                   cudaStream_t st, int* info) {
   const int tn = (a.Lk + 15) / 16;
+  if (a.Lk > kMaxKeys) return dispatch_rows<T, D, 0>(q, k, v, mask, out, B, a, st, info);
   if (tn <= 1) return dispatch_rows<T, D, 1>(q, k, v, mask, out, B, a, st, info);
   if (tn <= 2) return dispatch_rows<T, D, 2>(q, k, v, mask, out, B, a, st, info);
   if (tn <= 4) return dispatch_rows<T, D, 4>(q, k, v, mask, out, B, a, st, info);
@@ -445,7 +724,8 @@ bool aligned(const void* p, const long long* strides, int esize) {
 
 extern "C" {
 
-// Largest key length the kernel takes (the wrapper checks it).
+// Largest key length of fused_mha_kernel; longer keys go to
+// fused_mha_long_kernel.
 int fmha_max_keys() { return kMaxKeys; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); D is 32 or 64.
@@ -456,7 +736,7 @@ int fmha_max_keys() { return kMaxKeys; }
 int fmha_launch(int dtype, int D, const void* q, const void* k, const void* v,
                 const float* mask, void* out, int B, int H, int Lq, int Lk,
                 const long long* strides, float scale, void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || Lk > kMaxKeys || dtype < 0 || dtype > 1)
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const int esize = dtype == 0 ? 4 : 2;
   if (!aligned(q, strides, esize) || !aligned(k, strides + 3, esize) ||
@@ -482,7 +762,7 @@ int fmha_launch(int dtype, int D, const void* q, const void* k, const void* v,
 // info[0] = blocks per SM, info[1] = dynamic shared-memory bytes.  Launches
 // nothing; returns a CUDA error code.
 int fmha_occupancy(int dtype, int D, int Lq, int Lk, int* info) {
-  if (Lq < 1 || Lk < 1 || Lk > kMaxKeys || dtype < 0 || dtype > 1)
+  if (Lq < 1 || Lk < 1 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.H = 1;

@@ -4,6 +4,17 @@ CLIs need).
 Every loader yields texts as ``'[CLS]' + smiles``: the literal prefix is
 what anchors wordpiece tokenization.
 
+  - ``SupervisedDataset`` and the ten MoleculeNet / DILI loaders of
+    ``DOWNSTREAM_LOADERS`` (reference dataset.py:43-241), reading CSVs with
+    the standard library's ``csv`` (the card's machine has no pandas) with
+    pandas' semantics where the JAX loaders rely on them: blank lines
+    skipped, empty and NA cells NaN, columns in file order (SIDER's labels
+    are every column after the first).  The reference's quirks are kept:
+    hard-coded label mean/std per dataset (``LABEL_STATS``); only Freesolv
+    normalizes its targets in the dataset (dataset.py:181) while eval
+    de-normalizes every regression set; BBBP drops unparseable SMILES
+    (dataset.py:128), every other loader raises on one.
+
   - ``PretrainDataset`` reads SMILES lines and their raw property vectors
     from a precomputed ``.npz`` property cache.  Without a cache the JAX
     package featurizes with RDKit; the port has no featurizer there, so an
@@ -16,6 +27,8 @@ what anchors wordpiece tokenization.
 
 from __future__ import annotations
 
+import csv
+import dataclasses
 import pickle
 import random
 from typing import Optional
@@ -62,6 +75,152 @@ class PretrainDataset:
         s = self.smiles[i]
         text = "[CLS]" + (canonicalize(s) or s)
         return self.stats.normalize(self._pv_cache[i]), text
+
+
+# (mean, std) label stats hard-coded by the reference (dataset.py)
+LABEL_STATS = {
+    "bace_r": (6.420878294545455, 1.345219669175284),
+    "lipo": (2.162904761904762, 1.210992810122257),
+    "clearance": (51.503692077727955, 53.50834365711207),
+    "esol": (-2.8668758314855878, 2.066724108076815),
+    "freesolv": (-3.2594736842105267, 3.2775297233608893),
+}
+
+# cells pandas.read_csv reads as NaN by default
+_NA = {"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+       "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None",
+       "n/a", "nan", "null"}
+
+
+@dataclasses.dataclass
+class SupervisedDataset:
+    """texts: '[CLS]'-prefixed SMILES; targets: scalar or vector labels."""
+
+    texts: list[str]
+    targets: np.ndarray
+    value_mean: float = 0.0
+    value_std: float = 1.0
+    n_output: int = 1
+
+    def __len__(self):
+        return len(self.texts)
+
+
+class _Table:
+    """A CSV file's header and rows, blank lines skipped."""
+
+    def __init__(self, path: str):
+        with open(path, newline="") as f:
+            rows = [row for row in csv.reader(f) if row]
+        self.header, self.rows = rows[0], rows[1:]
+
+    def column(self, col) -> list[str]:
+        """The cells of a column, by name or by position."""
+        j = col if isinstance(col, int) else self.header.index(col)
+        return [row[j] for row in self.rows]
+
+    def floats(self, *cols) -> np.ndarray:
+        """The columns as float64, [N] for one column, else [N, k]."""
+        vals = [[np.nan if v.strip() in _NA else float(v)
+                 for v in self.column(c)] for c in cols]
+        out = np.asarray(vals, np.float64).reshape(len(cols), -1).T
+        return out[:, 0] if len(cols) == 1 else out
+
+
+def _canon(smiles: str) -> str:
+    out = canonicalize(smiles, isomeric=False)
+    if out is None:
+        raise ValueError(f"unparseable SMILES: {smiles!r}")
+    return out
+
+
+def load_bace_c(path: str) -> SupervisedDataset:
+    t = _Table(path)
+    texts = ["[CLS]" + _canon(r) for r in t.column("mol")]
+    return SupervisedDataset(texts, t.floats("Class").astype(np.int32),
+                             n_output=2)
+
+
+def load_bbbp(path: str) -> SupervisedDataset:
+    t = _Table(path)
+    texts, ys = [], []
+    for smiles, y in zip(t.column("smiles"), t.floats("p_np")):
+        try:
+            texts.append("[CLS]" + _canon(smiles))
+        except ValueError:
+            continue  # reference filters unparseable rows (dataset.py:128)
+        ys.append(int(y))
+    return SupervisedDataset(texts, np.asarray(ys, np.int32), n_output=2)
+
+
+def load_dili(path: str) -> SupervisedDataset:
+    t = _Table(path)
+    texts = ["[CLS]" + _canon(r) for r in t.column("Smiles")]
+    return SupervisedDataset(texts, t.floats("Liver").astype(np.int32),
+                             n_output=2)
+
+
+def _regression(path: str, smiles_col: str, target_col: str, stats_key: str,
+                normalize_targets: bool = False) -> SupervisedDataset:
+    t = _Table(path)
+    mean, std = LABEL_STATS[stats_key]
+    texts = ["[CLS]" + _canon(r) for r in t.column(smiles_col)]
+    y = t.floats(target_col).astype(np.float32)
+    if normalize_targets:       # ONLY freesolv (reference dataset.py:181)
+        y = (y - mean) / std
+    return SupervisedDataset(texts, y, value_mean=mean, value_std=std)
+
+
+def load_bace_r(path):
+    return _regression(path, "smiles", "target", "bace_r")
+
+
+def load_lipo(path):
+    return _regression(path, "smiles", "exp", "lipo")
+
+
+def load_clearance(path):
+    return _regression(path, "smiles", "target", "clearance")
+
+
+def load_esol(path):
+    return _regression(
+        path, "smiles", "ESOL predicted log solubility in mols per litre",
+        "esol")
+
+
+def load_freesolv(path):
+    return _regression(path, "smiles", "target", "freesolv",
+                       normalize_targets=True)
+
+
+def load_clintox(path: str) -> SupervisedDataset:
+    t = _Table(path)
+    texts = ["[CLS]" + _canon(r) for r in t.column("smiles")]
+    y = t.floats("FDA_APPROVED", "CT_TOX").astype(np.float32)
+    return SupervisedDataset(texts, y, n_output=2)
+
+
+def load_sider(path: str) -> SupervisedDataset:
+    t = _Table(path)
+    texts = ["[CLS]" + _canon(r) for r in t.column("smiles")]
+    y = t.floats(*range(1, len(t.header))).astype(np.float32)
+    y = y.reshape(len(texts), -1)
+    return SupervisedDataset(texts, y, n_output=y.shape[1])
+
+
+DOWNSTREAM_LOADERS = {
+    "bace": load_bace_c,
+    "bbbp": load_bbbp,
+    "lidi": load_dili,
+    "bace_r": load_bace_r,
+    "lipo": load_lipo,
+    "clearance": load_clearance,
+    "esol": load_esol,
+    "freesolv": load_freesolv,
+    "clintox": load_clintox,
+    "sider": load_sider,
+}
 
 
 class USPTODataset:

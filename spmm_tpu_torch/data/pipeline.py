@@ -1,0 +1,113 @@
+"""Batching + prefetch (counterpart of ``spmm_tpu.data.pipeline``): the host
+pipeline that tokenizes and pads into a small set of static buckets, with a
+background-thread prefetcher so host batching overlaps device compute
+(SURVEY §7.1).  Batches are numpy; the train loops move them to the card.
+``batch_pretrain`` comes with pretraining.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+
+from spmm_tpu_torch.tokenizer import SmilesTokenizer, default_buckets
+
+
+def batch_supervised(
+    tok: SmilesTokenizer,
+    texts: Sequence[str],
+    targets: np.ndarray,
+    batch_size: int,
+    max_len: int = 100,
+    buckets: Optional[Sequence[int]] = None,
+    shuffle: bool = False,
+    seed: int = 0,
+    drop_last: bool = False,
+    pad_batch: bool = False,
+    truncation: bool = True,
+) -> Iterator[dict]:
+    """Yield {'ids','mask','target'} batches; optionally pad the final batch
+    up to batch_size (repeating row 0) with 'n_real' recording true rows."""
+    buckets = buckets if buckets is not None else default_buckets(max_len)
+    order = np.arange(len(texts))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    for start in range(0, len(order), batch_size):
+        idx = order[start: start + batch_size]
+        if len(idx) < batch_size and drop_last:
+            return
+        n_real = len(idx)
+        if len(idx) < batch_size and pad_batch:
+            idx = np.concatenate([idx, np.repeat(idx[:1],
+                                                 batch_size - len(idx))])
+        ids, mask = tok.encode_batch([texts[i] for i in idx],
+                                     max_len=max_len, buckets=buckets,
+                                     truncation=truncation)
+        yield {"ids": ids, "mask": mask,
+               "target": np.asarray(targets)[idx], "n_real": n_real}
+
+
+def batch_pairs(
+    tok: SmilesTokenizer,
+    dataset,
+    batch_size: int,
+    max_src_len: int = 150,
+    max_tgt_len: int = 100,
+    src_buckets: Optional[Sequence[int]] = None,
+    tgt_buckets: Optional[Sequence[int]] = None,
+    shuffle: bool = False,
+    seed: int = 0,
+    drop_last: bool = True,
+) -> Iterator[dict]:
+    """(src, tgt) text-pair batches for reaction prediction.  NOTE: like the
+    reference rxn driver, sources are NOT truncated (max_length without
+    truncation, d_rxn_prediction.py:39)."""
+    src_buckets = src_buckets or (32, 64, 96, 128, 192, 256)
+    tgt_buckets = tgt_buckets or (32, 64, 96, 128)
+    order = np.arange(len(dataset))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    for start in range(0, len(order), batch_size):
+        idx = order[start: start + batch_size]
+        if len(idx) < batch_size and drop_last:
+            return
+        pairs = [dataset[int(i)] for i in idx]
+        src_ids, src_mask = tok.encode_batch(
+            [p[0] for p in pairs], max_len=max_src_len, truncation=False,
+            buckets=src_buckets)
+        tgt_ids, tgt_mask = tok.encode_batch(
+            [p[1] for p in pairs], max_len=max_tgt_len, truncation=False,
+            buckets=tgt_buckets)
+        yield {"src_ids": src_ids, "src_mask": src_mask,
+               "tgt_ids": tgt_ids, "tgt_mask": tgt_mask,
+               "n_real": len(pairs)}
+
+
+def prefetch(it: Iterable, depth: int = 2) -> Iterator:
+    """Background-thread prefetch so host batching overlaps device compute.
+
+    Exceptions raised by the wrapped iterator propagate to the consumer
+    (a swallowed error would silently truncate every epoch at the bad item).
+    """
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+            q.put(done)
+        except BaseException as e:  # noqa: BLE001 - re-raised in consumer
+            q.put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is done:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item

@@ -11,8 +11,8 @@ cache are bf16.
 
 Sources are padded to the smallest of the buckets (32, 64, 96, 128,
 max_src_len) that holds them and never truncated, so a source longer than
-``max_src_len`` grows its bucket in steps of 32.  Kernel 2 takes at most
-256 keys: on the GPU a batch whose bucket is longer raises its ValueError.
+``max_src_len`` grows its bucket in steps of 32; kernel 2 takes any number
+of keys (past 256 its tiled kernel runs).
 """
 
 from __future__ import annotations
@@ -80,8 +80,7 @@ def predict_greedy(model: Rxn, tok: SmilesTokenizer, sources: list[str],
                    device: DeviceLike = None) -> list[str]:
     """Batch greedy decode of raw reactant strings (no [CLS]) into product
     strings, each cut at its first [SEP].  Sources are padded, never
-    truncated (module docstring): on the GPU a batch whose bucket is longer
-    than 256 tokens raises kernel 2's ValueError."""
+    truncated (module docstring)."""
     dev = resolve_device(device)
     check_on(model, dev)
     decoder = decoder_for(model, bf16)
@@ -102,8 +101,7 @@ def predict_beam(model: Rxn, tok: SmilesTokenizer, sources: list[str],
     """Per-source deterministic k-beam decode (stop_count k**2); the top-k
     candidate strings of each source, the finished ones, or all k live
     beams if none finished.  Sources are padded, never truncated (module
-    docstring): on the GPU a batch whose bucket is longer than 256 tokens
-    raises kernel 2's ValueError."""
+    docstring)."""
     dev = resolve_device(device)
     check_on(model, dev)
     decoder = decoder_for(model, bf16)

@@ -16,8 +16,17 @@ tree — loads with ``strict=True``.  Function counterparts: ``BertEmbeddings``
 ``BertLayer.mlp`` = ``mlp_block``, ``BertLayer`` = ``layer_forward``,
 ``BertEncoder`` = ``encoder_forward``, ``BertModel`` = ``bert_forward``,
 ``BertLMPredictionHead`` = ``mlm_head_forward``, ``BertForMaskedLM`` =
-``mlm_forward``.  Dropout, remat and the sequence-parallel hooks belong to
-training and are not here.
+``mlm_forward``.
+
+Dropout sits at JAX's points (spmm_tpu/models/bert.py:72-76, 117, 150-158,
+174): after the embedding LayerNorm, on the attention probabilities, on
+the attention output dense and on the MLP output before their residuals,
+at ``cfg.hidden_dropout_prob`` / ``cfg.attention_probs_dropout_prob``.  It
+is on only when the caller passes a ``torch.Generator`` (``generator=``,
+the counterpart of JAX's ``rng`` with ``deterministic=False``), whatever
+``train()`` / ``eval()`` say: without one every forward is the inference
+forward, bit for bit.  Remat and the sequence-parallel hooks wait for
+pretraining.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spmm_tpu_torch.configs import BertArchConfig
-from spmm_tpu_torch.ops.attention import multi_head_attention
+from spmm_tpu_torch.ops.attention import dropout, multi_head_attention
 from spmm_tpu_torch.ops.masks import (
     extend_attention_mask,
     extend_causal_mask,
@@ -78,10 +87,12 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, h)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
         self.LayerNorm = LayerNorm(h, cfg.layer_norm_eps)
+        self.dropout_rate = cfg.hidden_dropout_prob
 
     def forward(self, input_ids: Optional[Tensor] = None,
                 inputs_embeds: Optional[Tensor] = None,
-                position_offset: int = 0) -> Tensor:
+                position_offset: int = 0,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         if inputs_embeds is None:
             inputs_embeds = self.word_embeddings(input_ids)
         seq_len = inputs_embeds.shape[1]
@@ -93,7 +104,7 @@ class BertEmbeddings(nn.Module):
                 self.position_embeddings.num_embeddings - 1)
         x = (inputs_embeds + self.position_embeddings(positions)
              + self.token_type_embeddings.weight[0])
-        return self.LayerNorm(x)
+        return dropout(self.LayerNorm(x), self.dropout_rate, generator)
 
 
 class BertSelfAttention(nn.Module):
@@ -122,13 +133,16 @@ class BertAttention(nn.Module):
     def __init__(self, cfg: BertArchConfig, kv_width: int):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
+        self.probs_dropout = cfg.attention_probs_dropout_prob
+        self.hidden_dropout = cfg.hidden_dropout_prob
         self.self = BertSelfAttention(cfg, kv_width)
         self.output = BertSelfOutput(cfg)
 
     def forward(self, hidden: Tensor, kv_source: Optional[Tensor],
                 additive_mask: Optional[Tensor],
                 kv: Optional[tuple[Tensor, Tensor]] = None,
-                attention_impl: str = "plain") -> Tensor:
+                attention_impl: str = "plain",
+                generator: Optional[torch.Generator] = None) -> Tensor:
         h = self.num_heads
         q = split_heads(self.self.query(hidden), h)
         if kv is not None:
@@ -136,8 +150,10 @@ class BertAttention(nn.Module):
         else:
             k = split_heads(self.self.key(kv_source), h)
             v = split_heads(self.self.value(kv_source), h)
-        ctx = multi_head_attention(q, k, v, additive_mask, attention_impl)
+        ctx = multi_head_attention(q, k, v, additive_mask, attention_impl,
+                                   self.probs_dropout, generator)
         out = self.output.dense(merge_heads(ctx))
+        out = dropout(out, self.hidden_dropout, generator)
         return self.output.LayerNorm(out + hidden)
 
 
@@ -164,32 +180,38 @@ class BertLayer(nn.Module):
             self.crossattention = BertAttention(cfg, cfg.encoder_width)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
+        self.hidden_dropout = cfg.hidden_dropout_prob
 
     @property
     def has_cross(self) -> bool:
         return hasattr(self, "crossattention")
 
-    def mlp(self, hidden: Tensor) -> Tensor:
-        """Intermediate erf-GELU + output dense + residual LN (``mlp_block``)."""
+    def mlp(self, hidden: Tensor,
+            generator: Optional[torch.Generator] = None) -> Tensor:
+        """Intermediate erf-GELU + output dense + dropout + residual LN
+        (``mlp_block``)."""
         up = F.gelu(self.intermediate.dense(hidden))
-        down = self.output.dense(up)
+        down = dropout(self.output.dense(up), self.hidden_dropout, generator)
         return self.output.LayerNorm(down + hidden)
 
     def forward(self, hidden: Tensor, self_mask: Optional[Tensor],
                 encoder_hidden: Optional[Tensor] = None,
                 cross_mask: Optional[Tensor] = None,
                 cross_kv: Optional[tuple[Tensor, Tensor]] = None,
-                attention_impl: str = "plain") -> Tensor:
+                attention_impl: str = "plain",
+                generator: Optional[torch.Generator] = None) -> Tensor:
         hidden = self.attention(hidden, hidden, self_mask,
-                                attention_impl=attention_impl)
+                                attention_impl=attention_impl,
+                                generator=generator)
         if self.has_cross:
             if encoder_hidden is None and cross_kv is None:
                 raise ValueError(
                     "encoder_hidden_states required for cross-attention layers")
             hidden = self.crossattention(hidden, encoder_hidden, cross_mask,
                                          kv=cross_kv,
-                                         attention_impl=attention_impl)
-        return self.mlp(hidden)
+                                         attention_impl=attention_impl,
+                                         generator=generator)
+        return self.mlp(hidden, generator)
 
 
 def _layer_range(cfg: BertArchConfig, mode: str) -> range:
@@ -213,7 +235,8 @@ class BertEncoder(nn.Module):
     def forward(self, hidden: Tensor, self_mask: Optional[Tensor],
                 encoder_hidden=None, cross_mask=None, mode: str = "multi_modal",
                 cross_kv: Optional[dict] = None,
-                attention_impl: str = "plain") -> Tensor:
+                attention_impl: str = "plain",
+                generator: Optional[torch.Generator] = None) -> Tensor:
         """Run the section selected by ``mode``.  ``encoder_hidden`` /
         ``cross_mask`` may be lists, assigned round-robin over the fusion
         layers; ``cross_kv`` ({"k": [L, B, h, Le, D], "v": ...}) supplies
@@ -230,7 +253,7 @@ class BertEncoder(nn.Module):
             if cross_kv is not None and layer.has_cross:
                 ckv = (cross_kv["k"][i], cross_kv["v"][i])
             hidden = layer(hidden, self_mask, enc, xmask, cross_kv=ckv,
-                           attention_impl=attention_impl)
+                           attention_impl=attention_impl, generator=generator)
         return hidden
 
 
@@ -255,16 +278,18 @@ class BertModel(nn.Module):
         mode: str = "multi_modal",
         cross_kv: Optional[dict] = None,
         attention_impl: str = "plain",
+        generator: Optional[torch.Generator] = None,
     ) -> Tensor:
         """Returns the last hidden state [B, L, H].  ``encoder_embeds``
         bypasses the embedding layer; ``cross_kv`` replaces
         ``encoder_hidden_states`` with precomputed per-layer cross K/V;
         ``attention_impl`` ("plain" or "kernel") runs every attention of the
-        section through that core."""
+        section through that core; ``generator`` turns dropout on."""
         if encoder_embeds is not None:
             hidden = encoder_embeds
         else:
-            hidden = self.embeddings(input_ids, inputs_embeds)
+            hidden = self.embeddings(input_ids, inputs_embeds,
+                                     generator=generator)
         b, l = hidden.shape[:2]
         dev = hidden.device
         if attention_mask is None:
@@ -297,7 +322,7 @@ class BertModel(nn.Module):
 
         return self.encoder(hidden, self_mask, encoder_hidden_states,
                             cross_mask, mode, cross_kv=cross_kv,
-                            attention_impl=attention_impl)
+                            attention_impl=attention_impl, generator=generator)
 
 
 class BertPredictionTransform(nn.Module):

@@ -10,9 +10,10 @@ stacks.
 
 The submodules carry the reference names, so a reference-named state dict
 (``checkpoint.convert.rxn_state_dict_from_jax_tree`` of a JAX tree) loads
-with ``strict=True``.  ``rxn_loss`` is the forward of the fine-tune loss:
-teacher-forced next-token cross-entropy that ignores pads (id 0), unlike
-the pretrain MLM loss (reference SPMM_models_rxn.py:44).
+with ``strict=True``.  ``rxn_loss`` is the fine-tune loss: teacher-forced
+next-token cross-entropy that ignores pads (id 0), unlike the pretrain MLM
+loss (reference SPMM_models_rxn.py:44), with dropout in both stacks when
+given a generator.
 """
 
 from __future__ import annotations
@@ -88,29 +89,35 @@ def load_encoder_from_pretrain(model: Rxn,
 
 
 def encode_reactants(model: Rxn, input_ids: Tensor, attention_mask: Tensor,
-                     attention_impl: str = "kernel") -> Tensor:
+                     attention_impl: str = "kernel",
+                     generator: Optional[torch.Generator] = None) -> Tensor:
     """The reactant encoder, ``mode="text"`` over all of its layers
     (fusion_layer = num_hidden_layers; reference SPMM_models_rxn.py:34).
     With ``attention_impl="kernel"`` every attention goes through
-    ``ops.fused_attention.fused_mha``."""
+    ``ops.fused_attention.fused_mha``; a ``generator`` turns dropout on."""
     return model.text_encoder2.bert(input_ids=input_ids,
                                     attention_mask=attention_mask,
                                     mode="text",
-                                    attention_impl=attention_impl)
+                                    attention_impl=attention_impl,
+                                    generator=generator)
 
 
 def rxn_loss(model: Rxn, src_ids: Tensor, src_mask: Tensor, tgt_ids: Tensor,
-             tgt_mask: Tensor) -> Tensor:
+             tgt_mask: Tensor,
+             generator: Optional[torch.Generator] = None) -> Tensor:
     """Teacher-forced next-token cross-entropy over the product tokens,
     ignore_index 0, mean over the kept labels (spmm_tpu/models/rxn.py:99-124;
-    reference SPMM_models_rxn.py:31-46).  The forward of the fine-tune
-    loss, on the plain attention: the fused kernel has no backward."""
-    enc = encode_reactants(model, src_ids, src_mask, attention_impl="plain")
+    reference SPMM_models_rxn.py:31-46), on the plain attention: the fused
+    kernel has no backward.  With a ``generator`` dropout runs in both
+    stacks, the encoder drawing from it first, then the decoder (JAX splits
+    its rng between the two)."""
+    enc = encode_reactants(model, src_ids, src_mask, attention_impl="plain",
+                           generator=generator)
     logits = model.text_encoder(
         input_ids=tgt_ids, attention_mask=tgt_mask,
         encoder_hidden_states=enc, encoder_attention_mask=src_mask,
-        is_decoder=True)[:, :-1]
-    labels = tgt_ids[:, 1:]
+        is_decoder=True, generator=generator)[:, :-1]
+    labels = tgt_ids[:, 1:].long()
     nll = F.cross_entropy(logits.float().transpose(1, 2), labels,
                           ignore_index=0, reduction="sum")
     return nll / (labels != 0).sum().clamp_min(1)

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "spmm_tpu_torch"
@@ -64,6 +66,18 @@ def build(name: str) -> Path:
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
+
+
+def check_no_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would want a gradient through ``kernel``: grad mode
+    is on and an input requires one.  The kernels have no backward, and a
+    result written through ctypes carries no ``grad_fn``, so the gradient
+    would otherwise be lost without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: run it under torch.no_grad(), or "
+            f"train with attention_impl='plain'")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,11 +2,12 @@
 
 Two implementations behind one interface (reference xbert.py:304-350
 semantics: fp32 scores scaled by 1/sqrt(head_dim), the additive mask before
-an fp32 softmax, probabilities cast to ``v``'s dtype before the product
-with V):
+an fp32 softmax, dropout on the probabilities, probabilities cast to
+``v``'s dtype before the product with V):
 
-  - impl="plain"   matmul -> fp32 softmax -> matmul (default, as "xla" is in
-                   the JAX package);
+  - impl="plain"   matmul -> fp32 softmax -> dropout -> matmul (default, as
+                   "xla" is in the JAX package, and the only path with
+                   dropout, i.e. training);
   - impl="kernel"  ``ops.fused_attention.fused_mha``, the counterpart of the
                    JAX package's impl="pallas": the hand-written CUDA kernel
                    on a CUDA tensor, its plain version on a CPU one.  The
@@ -23,15 +24,36 @@ import torch
 from spmm_tpu_torch.ops.fused_attention import fused_mha
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as ``_dropout`` of spmm_tpu/models/bert.py:72-76:
+    keep with p = 1 - rate, scale the kept values by 1/(1 - rate).  On only
+    with a ``generator`` (the JAX functions' ``rng``), whose stream alone
+    draws the mask: the global RNG is never touched.  The generator lives on
+    ``x``'s device."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
 def multi_head_attention(
     q: torch.Tensor,  # [B, h, Lq, D]
     k: torch.Tensor,  # [B, h, Lk, D]
     v: torch.Tensor,  # [B, h, Lk, D]
     additive_mask: Optional[torch.Tensor] = None,  # broadcastable to [B, h, Lq, Lk]
     impl: str = "plain",
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Scaled dot-product attention; returns [B, h, Lq, D] in v's dtype."""
+    """Scaled dot-product attention; returns [B, h, Lq, D] in v's dtype.
+    With a ``generator``, the probabilities go through ``dropout`` at
+    ``dropout_rate`` (spmm_tpu/ops/attention.py:50-52)."""
     if impl == "kernel":
+        if generator is not None and dropout_rate > 0.0:
+            raise ValueError("the kernel has no dropout: train with "
+                             "attention_impl='plain'")
         return fused_mha(q, k, v, additive_mask)
     if impl != "plain":
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -41,5 +63,5 @@ def multi_head_attention(
         q.shape[-1])
     if additive_mask is not None:
         scores = scores + additive_mask.float()
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(probs, v)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)
+    return torch.matmul(probs.to(v.dtype), v)

@@ -19,7 +19,8 @@ the XLA-path layout of spmm_tpu/inference/decoding.py:69-87):
   pos, layer       Python ints
 
 A CUDA tensor goes to the hand-written kernel (csrc/beam_decode_attention.cu)
-and only there; a CPU tensor goes to the plain PyTorch version
+and only there (a call that would need a gradient raises: the kernel has no
+backward); a CPU tensor goes to the plain PyTorch version
 ``beam_decode_attention_reference``.  ``beam_decode_attention.launches``
 counts kernel launches.
 """
@@ -30,6 +31,7 @@ import ctypes
 
 import torch
 
+from spmm_tpu_torch.ops._build import check_no_grad
 from spmm_tpu_torch.ops.masks import MASK_VALUE
 
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
@@ -106,6 +108,7 @@ def beam_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                                                pos, layer)
     if cache.device.type != "cuda":
         raise ValueError(f"no kernel for device {cache.device}")
+    check_no_grad("beam_decode_attention", q, k_new, v_new, cache, mask)
     for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
                     ("cache", cache), ("mask", mask)):
         if not t.is_contiguous():

@@ -11,8 +11,11 @@ head-uniform: like ``pallas_mha`` this takes ``additive_mask[:, 0]``,
 broadcast to [B, Lq, Lk]; no mask adds zeros.
 
 Shapes and types: q [B, h, Lq, D], k / v [B, h, Lk, D], all float32 or all
-bfloat16; additive_mask None or 4-D, broadcastable to [B, *, Lq, Lk].  No
-dropout and no gradient.
+bfloat16, any Lk >= 1 (past ``fmha_max_keys()`` = 256 keys the source's
+second kernel streams K/V in tiles); additive_mask None or 4-D, broadcastable
+to [B, *, Lq, Lk].  No dropout and no gradient: a CUDA call that would need
+one (grad enabled and an input requiring it) raises, as the kernel has no
+backward; training runs the plain attention, as JAX's training runs XLA's.
 
 A CUDA tensor goes to the hand-written kernel (csrc/fused_attention.cu) and
 only there; a CPU tensor goes to the plain PyTorch version
@@ -25,6 +28,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from spmm_tpu_torch.ops._build import check_no_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -90,13 +95,13 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return fused_mha_reference(q, k, v, additive_mask)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    check_no_grad("fused_mha", q, k, v, additive_mask)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     lib = _library()
-    if d not in _HEAD_DIMS or not 1 <= lk <= lib.fmha_max_keys():
-        raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS} and "
-                         f"1 <= Lk <= {lib.fmha_max_keys()}, got D={d}, "
-                         f"Lk={lk}")
+    if d not in _HEAD_DIMS or lk < 1:
+        raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS} and Lk >= 1, "
+                         f"got D={d}, Lk={lk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along head_dim")

@@ -19,6 +19,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def fp32_matmuls() -> None:
+    """Keep the card's fp32 products in fp32: TF32 (10-bit mantissas) off
+    for matmuls and cuDNN.  The fine-tune and reaction paths set it before
+    they train or evaluate, so that their numbers are the JAX package's fp32
+    numbers, not TF32 approximations of them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def module_device(module: torch.nn.Module) -> torch.device:
     return next(module.parameters()).device
 

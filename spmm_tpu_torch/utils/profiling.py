@@ -19,8 +19,10 @@ def device_breakdown(fn: Callable[[], object], top: int = 8) -> dict:
 
     Returns the wall time, the summed duration of the device's kernels,
     memcpys and memsets (one stream, so they do not overlap), their share
-    of the wall time, and the ``top`` kernels by device time.  With no
-    device events in the trace the device numbers are None."""
+    of the wall time, and the ``top`` kernels by device time.  Annotated
+    ranges on the device's timeline (``Optimizer.step``'s, around the
+    optimizer's kernels) are not counted.  With no device events in the
+    trace the device numbers are None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -33,7 +35,8 @@ def device_breakdown(fn: Callable[[], object], top: int = 8) -> dict:
         wall = time.perf_counter() - t0
     per_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False):
             continue
         entry = per_name[ev.name]
         entry[0] += ev.time_range.elapsed_us()

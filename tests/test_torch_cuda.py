@@ -7,7 +7,10 @@ on a machine without it run it as
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 Bars: kernel 1's ctx within 1e-5 (f32) and 2e-2 (bf16, fp8), and the cache
 after the call equals the plain version's bit for bit; kernel 2 within 2e-5
-(f32) and 3e-2 (bf16), the Pallas kernel's bars.
+(f32) and 3e-2 (bf16), the Pallas kernel's bars, and past 256 keys (its
+tiled kernel, whose tile order changes the sums) within kernel 1's bars.
+Also: both wrappers refuse a call that would need a gradient, and one
+fine-tune step on the card equals the same step on the CPU.
 """
 
 import pytest
@@ -284,9 +287,6 @@ def test_fused_mha_never_falls_back(dev):
         fused_mha(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head_dim"):
         fused_mha(q[..., :48], k[..., :48], v[..., :48])
-    long = _mha_case(dev, 1, 2, 4, 257, 64, torch.float32, "none", 0)
-    with pytest.raises(ValueError, match="Lk"):
-        fused_mha(*long)
     with pytest.raises(ValueError, match="contiguous along head_dim"):
         fused_mha(q.transpose(2, 3).contiguous().transpose(2, 3)[..., :4, :],
                   k, v)
@@ -295,3 +295,117 @@ def test_fused_mha_never_falls_back(dev):
     shifted = torch.empty(q.numel() + 1, device=dev)[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_mha(shifted.copy_(q), k, v, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk,mask_kind", [
+    (37, 257, "padding"),               # one key past the short kernel
+    (288, 288, "padding"),              # a 257-token source, bucket of 32s
+    (288, 288, "causal"),
+    (64, 512, "padding"),
+    (512, 512, "causal"),
+    (16, 1000, "padding"),
+    (70, 1000, "none"),
+])
+def test_fused_mha_long_keys(dev, dtype, lq, lk, mask_kind):
+    """Past 256 keys: K/V streamed in tiles, the exact two-pass softmax."""
+    q, k, v, mask = _mha_case(dev, 2, 3, lq, lk, 64, dtype, mask_kind,
+                              seed=lq + lk)
+    before = fused_mha.launches
+    got = fused_mha(q, k, v, mask)
+    want = fused_mha_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fused_mha.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, 3, lq, 64)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mha_long_keys_skip_hidden_tiles(dev, dtype):
+    """A padding mask's hidden tiles are skipped: rows of 1, 127, 128, 129
+    and 300 keys, and a fully masked row (uniform softmax over all 300)."""
+    from spmm_tpu_torch.ops.masks import extend_attention_mask
+
+    q, k, v, _ = _mha_case(dev, 6, 2, 40, 300, 64, dtype, "none", seed=11)
+    lens = torch.tensor([1, 127, 128, 129, 300, 0], device=dev)
+    mask = extend_attention_mask(
+        (torch.arange(300, device=dev)[None] < lens[:, None]).int())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(fused_mha(q, k, v, mask).float(),
+                               fused_mha_reference(q, k, v, mask).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_fused_mha_long_keys_head_dim_32(dev):
+    q, k, v, mask = _mha_case(dev, 2, 2, 40, 300, 32, torch.float32,
+                              "padding", seed=3)
+    torch.testing.assert_close(fused_mha(q, k, v, mask),
+                               fused_mha_reference(q, k, v, mask),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_kernel_wrappers_refuse_grad(dev):
+    """A CUDA call that would need a gradient raises, instead of returning
+    a result without one; under no_grad, or without requires_grad, the
+    kernels run."""
+    q, k, v, mask = _mha_case(dev, 2, 2, 8, 40, 64, torch.float32,
+                              "padding", 0)
+    qg = q.detach().clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_mha(qg, k, v, mask)
+    with torch.no_grad():
+        fused_mha(qg, k, v, mask)
+    inputs = list(_case(dev, 2, 2, 2, 8, 64, 1, torch.float32, 3, seed=0))
+    inputs[0] = inputs[0].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        beam_decode_attention(*inputs, 3, 0)
+    with torch.no_grad():
+        beam_decode_attention(*inputs, 3, 0)
+
+
+@pytest.mark.parametrize("task", ["classification", "multilabel",
+                                  "regression"])
+def test_downstream_step_on_card_matches_cpu(dev, task):
+    """One AdamW step of make_downstream_step, dropout off, from the same
+    weights and batch on the card and on the CPU: loss, gradients and
+    parameters agree (sums run in other orders; TF32 is off)."""
+    import copy
+
+    from spmm_tpu_torch.configs import BertArchConfig, FinetuneConfig
+    from spmm_tpu_torch.models.downstream import Downstream
+    from spmm_tpu_torch.training.finetune import make_downstream_step
+
+    cfg = BertArchConfig(hidden_size=128, num_hidden_layers=4,
+                         num_attention_heads=2, intermediate_size=256,
+                         fusion_layer=2, encoder_width=128)
+    n_out = 5 if task == "multilabel" else 2
+    cpu_model = Downstream.random_init(0, task, cfg, n_out, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(4, 300, (8, 24), generator=g)
+    mask = (torch.arange(24)[None] < torch.randint(5, 25, (8, 1),
+                                                   generator=g)).int()
+    target = {"classification": torch.randint(0, 2, (8,), generator=g),
+              "multilabel": torch.randint(0, 2, (8, n_out),
+                                          generator=g).float(),
+              "regression": torch.randn(8, generator=g)}[task]
+    fcfg = FinetuneConfig()          # step 0 runs at warmup_lr, 5e-6
+    out = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("card", card_model,
+                                                       dev)):
+        _, step = make_downstream_step(model, fcfg, steps_per_epoch=10)
+        batch = {"ids": ids.to(d), "mask": mask.to(d),
+                 "target": target.to(d)}
+        out[name] = step(0, batch)["loss"].item()
+    assert abs(out["card"] - out["cpu"]) <= 1e-5 * abs(out["cpu"])
+    # a gradient that is zero in exact arithmetic (the key biases: softmax
+    # ignores a shift) is rounding noise on both sides, so the relative bar
+    # has a floor of 1e-6 of the largest gradient
+    floor = 1e-6 * max(p.grad.norm() for p in cpu_model.parameters())
+    for (name, p_cpu), p_card in zip(cpu_model.named_parameters(),
+                                     card_model.parameters()):
+        gc, gd = p_cpu.grad, p_card.grad.cpu()
+        assert (gd - gc).norm() <= 1e-4 * gc.norm() + floor, name
+        torch.testing.assert_close(p_card.detach().cpu(), p_cpu.detach(),
+                                   atol=1e-6, rtol=0, msg=name)

@@ -91,6 +91,30 @@ def test_bf16_matches_pallas(fn, mask_kind):
                                np.asarray(want, np.float32), atol=3e-2)
 
 
+@pytest.mark.parametrize("fn", sorted(FN))
+@pytest.mark.parametrize("mask_kind", ["random_padding", "causal"])
+def test_long_keys_match_pallas(fn, mask_kind):
+    """Lk = 300, past the 256 keys of the card's short kernel: the plain
+    version the long kernel is held to on the card matches JAX's kernel."""
+    rng = np.random.default_rng(300)
+    q, k, v = _qkv(rng, 20, 300)
+    jm, tm = _masks(mask_kind, 20, 300, rng)
+    want = pallas_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm,
+                      interpret=True)
+    got = FN[fn](*(torch.from_numpy(x) for x in (q, k, v)), tm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+
+
+def test_cpu_call_keeps_its_gradient():
+    """On the CPU the plain version runs under autograd as before; only a
+    CUDA call that needs a gradient is refused (tests/test_torch_cuda.py)."""
+    q, k, v = (torch.randn(1, 2, 5, 32, requires_grad=True) for _ in range(3))
+    fused_mha(q, k, v).sum().backward()
+    assert all(x.grad is not None and x.grad.abs().sum() > 0
+               for x in (q, v))
+
+
 def test_split_heads_views_and_fully_masked_row():
     """q/k/v as the transposed views BertAttention passes.  A batch row whose
     keys are all masked (-10000, not -inf) comes out as in JAX, but that

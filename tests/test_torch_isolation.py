@@ -1,5 +1,7 @@
 """Port boundary: spmm_tpu_torch imports neither jax nor anything of
-spmm_tpu, and its entry points never drop to the CPU unasked."""
+spmm_tpu, nor pandas, sklearn or optax (the GPU machine has none of them;
+RDKit only behind chem.featurizer's guard), and its entry points never drop
+to the CPU unasked."""
 
 import ast
 import os
@@ -20,6 +22,10 @@ def _forbidden(name: str) -> bool:
             or name == "spmm_tpu" or name.startswith("spmm_tpu."))
 
 
+# absent where the port runs: no module may need them
+_ABSENT = ("pandas", "sklearn", "optax")
+
+
 def _modules() -> list[str]:
     import spmm_tpu_torch
 
@@ -34,7 +40,11 @@ def test_importing_every_module_loads_no_jax():
     assert "spmm_tpu_torch.ops.fused_attention" in mods
     assert "spmm_tpu_torch.cli.smiles2pv" in mods
     for new in ("models.rxn", "inference.rxn", "cli.rxn_prediction",
-                "cli.pv2smiles_single", "cli.pv2smiles_batched"):
+                "cli.pv2smiles_single", "cli.pv2smiles_batched",
+                "models.downstream", "training.finetune", "training.schedules",
+                "data.pipeline", "utils.logging", "cli._finetune_driver",
+                "cli.classification", "cli.classification_multilabel",
+                "cli.regression"):
         assert f"spmm_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -42,7 +52,8 @@ def test_importing_every_module_loads_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith(('jax.', 'jaxlib')) or n == 'spmm_tpu' or "
-        "n.startswith('spmm_tpu.'))\n"
+        "n.startswith('spmm_tpu.') or "
+        f"n.split('.')[0] in {_ABSENT!r})\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -67,7 +78,13 @@ def test_no_import_statement_names_jax_or_spmm_tpu():
                     names = [node.module or ""]
                 else:
                     continue
-                offenders += [(path, n) for n in names if _forbidden(n)]
+                offenders += [(path, n) for n in names if _forbidden(n)
+                              or n.split(".")[0] in _ABSENT]
+                rdkit = [n for n in names if n.split(".")[0] == "rdkit"]
+                if rdkit and not path.endswith(
+                        os.path.join("chem", "featurizer.py")) and not \
+                        path.endswith(os.path.join("data", "datasets.py")):
+                    offenders += [(path, n) for n in rdkit]
     assert not offenders
 
 
@@ -148,8 +165,28 @@ def test_rxn_entry_points_need_a_gpu_unless_told_otherwise(tmp_path):
     missing = str(tmp_path / "missing")
     for argv, cli in (
             (["--evaluate", "--data_dir", missing], rxn_prediction),
+            (["--data_dir", missing], rxn_prediction),
             (["--checkpoint", missing], pv2smiles_single),
             (["--checkpoint", missing, "--input_file", missing,
               "--property_cache", missing], pv2smiles_batched)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(argv)
+
+
+@pytest.mark.parametrize("cli_name", ["classification",
+                                      "classification_multilabel",
+                                      "regression"])
+def test_finetune_clis_need_a_gpu_unless_told_otherwise(tmp_path, cli_name):
+    """The MoleculeNet fine-tune CLIs: cuda by default, raising without a
+    GPU before they read any file."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    import importlib
+
+    from spmm_tpu_torch.models.downstream import Downstream
+
+    cli = importlib.import_module(f"spmm_tpu_torch.cli.{cli_name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--data_dir", str(tmp_path / "missing")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Downstream.random_init(0, "classification")

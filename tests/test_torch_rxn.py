@@ -543,12 +543,19 @@ def test_evaluate_runs_on_cpu(pair, tmp_path, n_beam):
     assert acc == metric_eval(refs, cands)
 
 
-def test_rxn_cli_needs_evaluate(capsys):
+def test_rxn_cli_needs_evaluate(tmp_path):
+    """Without --evaluate the CLI trains, so it reads the train split first
+    (training end to end: tests/test_torch_finetune.py); --evaluate reads
+    only valid and test."""
     from spmm_tpu_torch.cli.rxn_prediction import main
 
-    with pytest.raises(SystemExit):
-        main([])
-    assert "item 11" in capsys.readouterr().err
+    data = tmp_path / "USPTO-480k"
+    data.mkdir()
+    for split in ("valid", "test"):
+        (data / f"{split}_parsed.txt").write_text("CCO.CC\tCCO\n")
+    with pytest.raises(FileNotFoundError, match="train_parsed"):
+        main(["--data_dir", str(tmp_path), "--output_dir",
+              str(tmp_path / "out"), "--device", "cpu"])
 
 
 def test_load_rxn_checkpoint_routes_both_states(pair, tmp_path):
