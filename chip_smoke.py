@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (spmm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Drives the port's paths at the full width of the SPMM model (12-layer
 768-wide text BERT with fusion from layer 6, 6-layer property BERT, 53
@@ -23,10 +23,15 @@ Phases, in order; any failure exits non-zero:
   1. device   needs CUDA; prints the card's name and power limit
               (nvidia-smi), turns TF32 off;
   2. build    builds both kernels from the sources in the checkout, one
-              nvcc each, started together; prints each kernel's registers
-              and spills (ptxas) and, from the CUDA occupancy API, the
-              blocks per SM and shared memory of its launches on the paths
-              (reaction prediction's included: k=1 and k=5, 96x96, 160x160);
+              nvcc each, started together (with --parent DIR, a checkout of
+              another commit, its kernel-2 source too); prints each
+              kernel's registers and spills (ptxas) and, from the CUDA
+              occupancy API, the blocks per SM and shared memory of its
+              launches on the paths (reaction prediction's included: k=1
+              and k=5, 96x96, 160x160; past 256 keys 288, 512, 1000 and
+              2000 keys), and the largest Lk that kernel 2's long kernel
+              (scores resident in shared memory) takes before its streaming
+              kernel does;
   3. kernels  beam_decode_attention vs its plain version at the serving
               shapes (m=128, h=12, k=2, D=64, T=104) for f32/bf16/fp8
               caches on random ancestry, plus k=1 and k=5; on the decoder's
@@ -41,13 +46,16 @@ Phases, in order; any failure exits non-zero:
               class of SMILES->PV at full width (B=128, h=12, D=64; S in
               16/32/54; L=100) and the reactant encoder's (96x96 and
               160x160, per-row padding), and past 256 keys (Lk 257, 288,
-              512, 1000; padding, causal, none; f32 within 1e-5, bf16
-              within 2e-2).  Times each kernel, its plain
+              512, 1000, 1300, 2000; padding, causal, none; f32 within
+              1e-5, bf16 within 2e-2), and a fine-tune eval batch of 64 with
+              one long molecule (a 505-token text among 63 SMILES, Lk 512,
+              the eval's own padding mask).  Times each kernel, its plain
               version and one scaled_dot_product_attention call from the
               replay of a CUDA graph (device time, without the host's
               launch overhead) and computes the bound: kernel 1 at m=128 and
               m=16, greedy k=1 (m=128) and beam k=5 (m=32), kernel 2 at
-              every launch class with its launches per batch;
+              every launch class with its launches per batch, and at the
+              mixed eval batch;
   4. exact    captures the mask that inference/decoding.py passes kernel 1
               at the last step of a full-width bf16 batch of 128 (by
               wrapping the name it calls), holds kernel 1 to its plain
@@ -98,7 +106,11 @@ Phases, in order; any failure exits non-zero:
               kernel 1 on the masks they passed at steps 0, 1, 33, 100 and
               the last, kernel 2 on the inputs of its first call; and each
               shape is timed as in phase 3 (kernel 1 on the last mask it
-              was passed, bf16 caches; kernel 2 on those inputs);
+              was passed, bf16 caches; kernel 2 on those inputs); with
+              --parent, kernel 2 at every input past 256 keys (the eval's
+              512x512, the rxn training CLI's 288x288, the mixed batch)
+              timed in turns with the other commit's library in its place
+              (parent, this, this, parent);
   6. profile  one bf16 PV->SMILES batch, one fp32 SMILES->PV batch and one
               bf16 rxn greedy batch of 128 under torch.profiler: device
               busy share and the kernels that take the device time;
@@ -144,12 +156,15 @@ FT_TASKS = (("classification", 2, 16), ("multilabel", 27, 16),
             ("regression", 1, 8))
 RXN_TRAIN = (16, RXN_SRC_LEN, 64)
 FT_WARMUP, FT_TIMED = 3, 20
-# (Lq, Lk, mask) past kernel 2's 256 keys, its tiled kernel: one key past,
-# a 257-token source in a bucket grown by 32, 512, 1000
+# (Lq, Lk, mask) past kernel 2's 256 keys: one key past, a 257-token source
+# in a bucket grown by 32, 512 (32-row items of the long kernel), 1000
+# (16-row items), 1300 (the long kernel in bf16, the streaming one in f32)
+# and 2000 (past the long kernel in both: the streaming kernel)
 LONG_KEY_CASES = ((37, 257, "padding"), (288, 288, "padding"),
                   (288, 288, "causal"), (64, 512, "padding"),
                   (512, 512, "causal"), (16, 1000, "padding"),
-                  (70, 1000, "none"))
+                  (70, 1000, "none"), (40, 1300, "causal"),
+                  (33, 2000, "padding"))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -256,11 +271,39 @@ def occupancy() -> dict:
             pos)
     for label, lq, lk, *_ in s2p_launch_classes() + RXN_ENCODER_CLASSES:
         ask(f"fused_mha f32 {label}", lib2.fmha_occupancy, 0, 64, lq, lk)
-    for lq, lk in ((288, 288), (512, 512)):     # the tiled kernel
+    for lq, lk in ((288, 288), (512, 512), (70, 1000), (33, 2000)):
         for code, name in ((0, "f32"), (1, "bf16")):
-            ask(f"fused_mha {name} {lq}x{lk} (tiled)", lib2.fmha_occupancy,
-                code, 64, lq, lk)
+            ask(f"fused_mha {name} {lq}x{lk} (past 256 keys)",
+                lib2.fmha_occupancy, code, 64, lq, lk)
     return rows
+
+
+def long_kernel_reach() -> dict:
+    """Where kernel 2's routes past 256 keys switch, per dtype at D=64, from
+    the shared memory fmha_occupancy reports at Lk = 320, 384, ... 4096:
+    the long kernel's grows with Lk (its resident scores) and drops where
+    its items go from 32 rows to 16 (Lq > 16); the streaming kernel's does
+    not depend on Lk.  So the Lk before the first drop is the last with
+    32-row items, and the last Lk at which it grew the last the long
+    kernel takes."""
+    import ctypes
+
+    from spmm_tpu_torch.ops import fused_attention
+
+    lib, info, reach = fused_attention._library(), (ctypes.c_int * 2)(), {}
+    for code, name in ((0, "f32"), (1, "bf16")):
+        prev, top, rows32 = None, None, None
+        for lk in range(320, 4097, 64):
+            err = lib.fmha_occupancy(code, 64, 64, lk, info)
+            if err:
+                fail(f"occupancy at Lk {lk}: CUDA error {err}")
+            if prev is not None and info[1] > prev:
+                top = lk
+            if prev is not None and info[1] < prev and rows32 is None:
+                rows32 = lk - 64
+            prev = info[1]
+        reach[name] = {"rows_32_up_to": rows32, "long_kernel_up_to": top}
+    return reach
 
 
 # --------------------------------------------------------------------------- #
@@ -680,6 +723,77 @@ def time_mha_on(dev, inputs) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
             "sdpa_vs_kernel_max_abs": sdpa_err}
+
+
+def mixed_eval_inputs(dev) -> tuple:
+    """Kernel 2's inputs in a fine-tune eval batch of 64 with one long
+    molecule: a 505-token text and 63 example SMILES, padded as
+    evaluate_scores pads them (bucket 512); q, k and v random split_heads
+    views (h=12, D=64, fp32), the batch's own padding mask."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.cli._common import make_tokenizer
+    from spmm_tpu_torch.data.pipeline import batch_supervised
+    from spmm_tpu_torch.ops.masks import extend_attention_mask
+
+    texts = ["[CLS]" + long_text(490)] + [
+        "[CLS]" + s for s in example_smiles(63)]
+    batch = next(batch_supervised(make_tokenizer(), texts, np.zeros(64), 64,
+                                  truncation=False, pad_batch=True))
+    mask = torch.as_tensor(batch["mask"], device=dev)
+    lk = mask.shape[1]
+    if lk != 512:
+        fail(f"the mixed eval batch has Lk {lk}, not 512")
+    q, k, v, _ = mha_inputs(dev, 64, 12, lk, lk, 64, torch.float32, "none",
+                            seed=lk)
+    return q, k, v, extend_attention_mask(mask)
+
+
+def parent_library(parent_dir: str):
+    """Kernel 2's library built from another checkout's source (the parent
+    commit's, unpacked with git archive) with this checkout's flags, and
+    bound as fused_attention binds its own."""
+    import ctypes
+    from pathlib import Path
+
+    from spmm_tpu_torch.ops import _build, fused_attention
+
+    source = Path(parent_dir) / "spmm_tpu_torch" / "csrc" / "fused_attention.cu"
+    if not source.exists():
+        fail(f"no kernel-2 source at {source}")
+    return fused_attention.bind(ctypes.CDLL(str(_build.build(
+        "fused_attention", source=source))))
+
+
+def long_rows_vs_parent(dev, rows: list, parent_lib) -> list:
+    """Kernel 2 at each (label, inputs) row, timed in turns with the parent
+    library in place of this checkout's (parent, this, this, parent), and
+    the parent's result against this kernel's."""
+    from spmm_tpu_torch.ops import fused_attention
+    from spmm_tpu_torch.ops.fused_attention import fused_mha
+
+    own = fused_attention._library()
+    out = []
+    try:
+        for label, (q, k, v, mask) in rows:
+            turns = []
+            for lib in (parent_lib, own, own, parent_lib):
+                fused_attention._lib = lib
+                turns.append(cuda_ms(lambda i: fused_mha(q, k, v, mask),
+                                     iters=50))
+            fused_attention._lib = parent_lib
+            theirs = fused_mha(q, k, v, mask)
+            fused_attention._lib = own
+            diff = (theirs.float() - fused_mha(q, k, v, mask).float()).abs()
+            sync(dev)
+            out.append({"shape": label, "ms": (turns[1] + turns[2]) / 2,
+                        "parent_ms": (turns[0] + turns[3]) / 2,
+                        "turns_ms": turns,
+                        "parent_vs_kernel_max_abs": diff.max().item()})
+    finally:
+        fused_attention._lib = own
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1668,7 +1782,15 @@ def profile_s2p(dev, model) -> dict:
 # --------------------------------------------------------------------------- #
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", default=None,
+                        help="a checkout of another commit (git archive): "
+                             "time its kernel-2 library beside this one at "
+                             "the inputs past 256 keys")
+    args = parser.parse_args(argv)
     t_start = time.perf_counter()
     import torch
 
@@ -1715,10 +1837,15 @@ def main() -> int:
 
     mark("build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
+        parent_build = None if args.parent is None else pool.submit(
+            parent_library, args.parent)
         secs = list(pool.map(timed_build, (decode_attention, fused_attention)))
+        parent_lib = None if parent_build is None else parent_build.result()
     log(f"[build] beam_decode_attention {secs[0]:.1f} s, fused_attention "
-        f"{secs[1]:.1f} s, together {time.perf_counter() - t0:.1f} s")
+        f"{secs[1]:.1f} s, together {time.perf_counter() - t0:.1f} s"
+        + ("" if parent_lib is None else
+           f" (with the kernel-2 source under {args.parent})"))
     for name in ("beam_decode_attention", "fused_attention"):
         report = _build.library_path(name).with_suffix(".log")
         for entry, usage in ptxas_usage(report.read_text()):
@@ -1727,6 +1854,11 @@ def main() -> int:
     for label, row in occ.items():
         log(f"  occupancy {label}: {row['blocks_per_sm']} blocks per SM, "
             f"{row['dynamic_smem_bytes']} B dynamic shared memory")
+    reach = long_kernel_reach()
+    for name, row in reach.items():
+        log(f"  fused_mha {name} D=64: fused_mha_long_kernel with 32-row "
+            f"items up to Lk {row['rows_32_up_to']}, 16-row items up to "
+            f"{row['long_kernel_up_to']}; past it fused_mha_stream_kernel")
 
     # ---- 3. kernels vs plain ----
     mark("kernels")
@@ -1748,6 +1880,11 @@ def main() -> int:
     timing_enc = time_mha(dev, RXN_ENCODER_CLASSES)
     for row in timing2 + timing_enc:
         log_mha_timing(f"{row['shape']} x{row['launches_per_batch']}", row)
+    mixed = mixed_eval_inputs(dev)
+    check_mha(dev, "mixed eval", "padding", mixed, worst2)
+    timing_mixed = {"shape": "B=64 Lk 512, one 505-token text among 63 "
+                             "SMILES", **time_mha_on(dev, mixed)}
+    log_mha_timing("mixed eval B=64 512x512", timing_mixed)
     mha_batch_ms = sum(r["launches_per_batch"] * r["ms"] for r in timing2)
     log(f"  sum over classes of launches x ms: {mha_batch_ms:.2f} ms of "
         f"kernel 2 per SMILES->PV batch")
@@ -1907,7 +2044,22 @@ def main() -> int:
     log("[shapes] each kernel against its plain version, and timed, at every "
         "launch shape the main paths passed it")
     main_shapes = main_path_shapes(dev, calls, worst, worst2)
-    del calls
+    vs_parent = []
+    if parent_lib is not None:
+        long_rows = [(f"{calls.paths[key]}, B={inputs[0].shape[0]} "
+                      f"{inputs[0].shape[2]}x{inputs[1].shape[2]}", inputs)
+                     for key, inputs in calls.mha.items()
+                     if inputs[1].shape[2] > 256]
+        long_rows.append(("mixed eval B=64 512x512", mixed))
+        log(f"[shapes] kernel 2 past 256 keys against the library built "
+            f"from {args.parent} (turns: parent, this, this, parent)")
+        vs_parent = long_rows_vs_parent(dev, long_rows, parent_lib)
+        for row in vs_parent:
+            log(f"  {row['shape']}: this {row['ms']:.4f} ms, parent "
+                f"{row['parent_ms']:.4f} ms (turns "
+                + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
+                + f"); parent vs this {row['parent_vs_kernel_max_abs']:.2e}")
+    del calls, mixed
 
     # ---- 6. profile ----
     mark("profile")
@@ -1954,6 +2106,8 @@ def main() -> int:
                    rxn_launches=rxn_run["greedy_launches"][1],
                    finetune_eval_launches=ft["eval"]["launches"],
                    per_shape=timing2 + timing_enc,
+                   mixed_eval=timing_mixed, long_kernel_reach=reach,
+                   long_rows_vs_parent=vs_parent,
                    main_path_shapes=[row for row in main_shapes
                                      if row["kernel"] == KERNEL2["name"]],
                    sum_launches_x_ms=mha_batch_ms,

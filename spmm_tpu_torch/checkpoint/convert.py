@@ -12,9 +12,11 @@ the port's ``nn.Module`` trees reproduce, so both load with ``strict=True``):
     Sequential indices ``.0/.2/.3``; the pretrain heads only if present.
     ``rxn_state_dict_from_jax_tree`` does the same for a reaction tree,
     ``downstream_state_dict_from_jax_tree`` for a MoleculeNet one.
-  - ``load_reference_checkpoint``: a reference ``{"state_dict": ...}``
-    ``.ckpt`` with the ``_unk`` -> ``_mask`` rename (reference
-    d_regression.py:157-161).
+  - ``load_reference_checkpoint``: a reference ``{"state_dict": ...}`` (or
+    ``{"model": ...}``) ``.ckpt`` with the ``_unk`` -> ``_mask`` rename
+    (reference d_regression.py:157-161); ``spmm_subset`` keeps what an
+    inference ``SPMM`` holds, and ``load_spmm_checkpoint`` loads that
+    strictly, as the four inference CLIs do.
 """
 
 from __future__ import annotations
@@ -158,22 +160,42 @@ def downstream_state_dict_from_jax_tree(
 
 
 def load_reference_checkpoint(path: str) -> dict[str, torch.Tensor]:
-    """Read a reference ``{"state_dict": ...}`` checkpoint as fp32 tensors
-    on the CPU, with ``_unk`` renamed to ``_mask``."""
+    """Read a reference checkpoint as fp32 tensors on the CPU, with ``_unk``
+    renamed to ``_mask``: its ``state_dict``, else its ``model``, else the
+    dict itself (spmm_tpu/checkpoint/convert.py:38)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    state = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    state = (ckpt.get("state_dict", ckpt.get("model", ckpt))
+             if isinstance(ckpt, dict) else ckpt)
     return {k.replace("_unk", "_mask"): v.detach().to(torch.float32)
             for k, v in state.items() if isinstance(v, torch.Tensor)}
 
 
+def drop_position_ids(state: Mapping[str, torch.Tensor]
+                      ) -> dict[str, torch.Tensor]:
+    """Without the ``*.embeddings.position_ids`` buffers that the
+    reference's xbert saves: the port's embeddings compute positions."""
+    return {k: v for k, v in state.items()
+            if not k.endswith("embeddings.position_ids")}
+
+
 def spmm_subset(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The keys an inference ``SPMM`` holds: drops the feature queues, the
-    momentum twins (``*_m.``) and the pretraining heads."""
+    """The keys an inference ``SPMM`` holds: drops the feature queues and
+    ``queue_ptr``, the temperature ``temp``, the momentum twins (``*_m.``),
+    the pretraining heads and the ``position_ids`` buffers."""
     heads = ("property_proj.", "text_proj.", "itm_head.")
     out = {}
-    for k, v in state.items():
+    for k, v in drop_position_ids(state).items():
         top = k.split(".", 1)[0]
-        if "queue" in top or top.endswith("_m") or k.startswith(heads):
+        if ("queue" in top or top == "temp" or top.endswith("_m")
+                or k.startswith(heads)):
             continue
         out[k] = v
     return out
+
+
+def load_spmm_checkpoint(model, path: str):
+    """Load a reference pretrain ``.ckpt`` into an inference ``SPMM``, in
+    place and strictly (a missing weight raises); returns the model."""
+    model.load_state_dict(spmm_subset(load_reference_checkpoint(path)),
+                          strict=True)
+    return model

@@ -67,8 +67,7 @@ def metric_eval(refs, cands, stats, out_file, novelty_corpus=None):
 
 
 def main(argv=None):
-    from spmm_tpu_torch.checkpoint.convert import (
-        load_reference_checkpoint, spmm_subset)
+    from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
     from spmm_tpu_torch.cli._common import (
         load_stats, make_tokenizer, seed_everything)
     from spmm_tpu_torch.data.datasets import PretrainDataset
@@ -98,10 +97,7 @@ def main(argv=None):
     seed = seed_everything(args.seed)
     tok = make_tokenizer()
     stats = load_stats()
-    model = SPMM()
-    model.load_state_dict(spmm_subset(load_reference_checkpoint(
-        args.checkpoint)), strict=True)
-    model = model.to(dev).eval()
+    model = load_spmm_checkpoint(SPMM(), args.checkpoint).to(dev).eval()
 
     ds = PretrainDataset(args.input_file, property_cache=args.property_cache,
                          data_range=args.data_range)

@@ -70,8 +70,7 @@ def metric_eval(prop_input, cand, prop_mask, stats, out_file):
 
 
 def main(argv=None):
-    from spmm_tpu_torch.checkpoint.convert import (
-        load_reference_checkpoint, spmm_subset)
+    from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
     from spmm_tpu_torch.cli._common import (
         load_stats, make_tokenizer, seed_everything)
     from spmm_tpu_torch.inference.pv2smiles import generate_with_property
@@ -96,10 +95,7 @@ def main(argv=None):
     seed = seed_everything(args.seed)
     tok = make_tokenizer()
     stats = load_stats()
-    model = SPMM()
-    model.load_state_dict(spmm_subset(load_reference_checkpoint(
-        args.checkpoint)), strict=True)
-    model = model.to(dev).eval()
+    model = load_spmm_checkpoint(SPMM(), args.checkpoint).to(dev).eval()
 
     prop_input, prop_mask = read_condition(args.input_csv, stats)
     # masked entries carry the learned mask vector; their values are unused

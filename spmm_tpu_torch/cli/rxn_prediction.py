@@ -35,15 +35,17 @@ def load_rxn_checkpoint(model, path: str):
     d_rxn_prediction.py:160-168; spmm_tpu/cli/rxn_prediction.py:39-57):
 
       a reaction state (``text_encoder2.`` keys, e.g. a saved ``Rxn``
-        state dict)              -> loaded strictly, decoder and encoder;
+        state dict, or one the reference saved, whose ``position_ids``
+        buffers are dropped) -> loaded strictly, decoder and encoder;
       a reference SPMM pretrain state -> its text encoder initialises the
         reactant encoder (``load_encoder_from_pretrain``)."""
-    from spmm_tpu_torch.checkpoint.convert import load_reference_checkpoint
+    from spmm_tpu_torch.checkpoint.convert import (
+        drop_position_ids, load_reference_checkpoint)
     from spmm_tpu_torch.models.rxn import load_encoder_from_pretrain
 
     state = load_reference_checkpoint(path)
     if any(k.startswith("text_encoder2.") for k in state):
-        model.load_state_dict(state, strict=True)
+        model.load_state_dict(drop_position_ids(state), strict=True)
         return model
     return load_encoder_from_pretrain(model, state)
 

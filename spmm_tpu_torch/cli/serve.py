@@ -125,8 +125,7 @@ def make_server(services: dict, host: str, port: int,
 
 
 def main(argv=None):
-    from spmm_tpu_torch.checkpoint.convert import (
-        load_reference_checkpoint, spmm_subset)
+    from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
     from spmm_tpu_torch.cli._common import load_stats, make_tokenizer
     from spmm_tpu_torch.models.spmm import SPMM
     from spmm_tpu_torch.serving import Pv2SmilesService, Smiles2PvService
@@ -152,10 +151,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     tok = make_tokenizer()
     stats = load_stats()
-    model = SPMM()
-    model.load_state_dict(spmm_subset(load_reference_checkpoint(
-        args.checkpoint)), strict=True)
-    model = model.to(dev).eval()
+    model = load_spmm_checkpoint(SPMM(), args.checkpoint).to(dev).eval()
     services = {
         "pv2smiles": Pv2SmilesService(
             model, tok, k=args.k, stochastic=args.stochastic, seed=args.seed,

@@ -66,8 +66,7 @@ def metric_eval(ref_norm: np.ndarray, cand_norm: np.ndarray, stats):
 
 
 def main(argv=None):
-    from spmm_tpu_torch.checkpoint.convert import (
-        load_reference_checkpoint, spmm_subset)
+    from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
     from spmm_tpu_torch.chem.featurizer import HAS_RDKIT, canonicalize
     from spmm_tpu_torch.cli._common import (
         load_stats, make_tokenizer, seed_everything)
@@ -95,10 +94,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     tok = make_tokenizer()
     stats = load_stats()
-    model = SPMM()
-    model.load_state_dict(spmm_subset(load_reference_checkpoint(
-        args.checkpoint)), strict=True)
-    model = model.to(dev).eval()
+    model = load_spmm_checkpoint(SPMM(), args.checkpoint).to(dev).eval()
 
     print("SMILES-to-PV generation...")
     if args.property_cache:

@@ -12,7 +12,8 @@ cache are bf16.
 Sources are padded to the smallest of the buckets (32, 64, 96, 128,
 max_src_len) that holds them and never truncated, so a source longer than
 ``max_src_len`` grows its bucket in steps of 32; kernel 2 takes any number
-of keys (past 256 its tiled kernel runs).
+of keys (past 256 its long kernel, which keeps the scores in shared
+memory, runs).
 """
 
 from __future__ import annotations

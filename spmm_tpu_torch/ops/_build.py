@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -41,23 +42,26 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+def library_path(name: str, source: Optional[Path] = None) -> Path:
+    source = source or CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns its path.
-    The compiler's report (registers, shared memory, spills) is kept beside
-    the library as ``<lib>.log``."""
-    out = library_path(name)
+def build(name: str, source: Optional[Path] = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or ``source``, another version of it)
+    unless its library exists; returns its path.  The compiler's report
+    (registers, shared memory, spills) is kept beside the library as
+    ``<lib>.log``."""
+    source = source or CSRC / f"{name}.cu"
+    out = library_path(name, source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / (f"{out.stem}.{os.getpid()}.{threading.get_ident()}"
                        ".tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

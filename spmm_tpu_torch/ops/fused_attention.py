@@ -12,7 +12,8 @@ broadcast to [B, Lq, Lk]; no mask adds zeros.
 
 Shapes and types: q [B, h, Lq, D], k / v [B, h, Lk, D], all float32 or all
 bfloat16, any Lk >= 1 (past ``fmha_max_keys()`` = 256 keys the source's
-second kernel streams K/V in tiles); additive_mask None or 4-D, broadcastable
+second kernel keeps each item's scores in shared memory and streams K/V in
+tiles, and past its range a third streams them twice); additive_mask None or 4-D, broadcastable
 to [B, *, Lq, Lk].  No dropout and no gradient: a CUDA call that would need
 one (grad enabled and an input requiring it) raises, as the kernel has no
 backward; training runs the plain attention, as JAX's training runs XLA's.
@@ -36,18 +37,22 @@ _HEAD_DIMS = (32, 64)
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a loaded kernel-2 library."""
+    lib.fmha_launch.restype = ctypes.c_int
+    lib.fmha_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    lib.fmha_max_keys.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from spmm_tpu_torch.ops import _build
 
-        lib = _build.load("fused_attention")
-        lib.fmha_launch.restype = ctypes.c_int
-        lib.fmha_launch.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-        lib.fmha_max_keys.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(_build.load("fused_attention"))
     return _lib
 
 

@@ -8,7 +8,8 @@ on a machine without it run it as
 Bars: kernel 1's ctx within 1e-5 (f32) and 2e-2 (bf16, fp8), and the cache
 after the call equals the plain version's bit for bit; kernel 2 within 2e-5
 (f32) and 3e-2 (bf16), the Pallas kernel's bars, and past 256 keys (its
-tiled kernel, whose tile order changes the sums) within kernel 1's bars.
+long and streaming kernels, whose tiles and softmax sums change the order
+of summation) within kernel 1's bars.
 Also: both wrappers refuse a call that would need a gradient, and one
 fine-tune step on the card equals the same step on the CPU.
 """
@@ -162,11 +163,18 @@ def test_cuda_tensor_never_falls_back(dev):
 
 
 def _mha_case(dev, b, h, lq, lk, d, dtype, mask_kind, seed):
-    """q/k/v as split_heads views of [B, L, h*D] projections, and a mask."""
+    """q/k/v as split_heads views of [B, L, h*D] projections, and a mask:
+    "padding" from random lengths, "mixed" a padding mask with one row of
+    lk - 7 keys among short ones (an eval batch with one long molecule),
+    "causal" or "none"."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((b, n, h * d), generator=g, device=dev).to(dtype)
                .view(b, n, h, d).transpose(1, 2) for n in (lq, lk, lk))
     lens = torch.randint(1, lk + 1, (b,), generator=g, device=dev)
+    if mask_kind == "mixed":
+        lens = torch.randint(8, 40, (b,), generator=g, device=dev)
+        lens[b // 2] = lk - 7
+        mask_kind = "padding"
     bin_mask = (torch.arange(lk, device=dev)[None] < lens[:, None]).int()
     if mask_kind == "none":
         return q, k, v, None
@@ -302,33 +310,40 @@ def test_fused_mha_never_falls_back(dev):
     (37, 257, "padding"),               # one key past the short kernel
     (288, 288, "padding"),              # a 257-token source, bucket of 32s
     (288, 288, "causal"),
-    (64, 512, "padding"),
+    (64, 512, "padding"),               # the long kernel's 32-row items
     (512, 512, "causal"),
-    (16, 1000, "padding"),
+    (512, 512, "mixed"),                # one long row among short ones
+    (16, 1000, "padding"),              # its 16-row items
     (70, 1000, "none"),
+    (40, 1300, "causal"),               # long kernel in bf16, streaming in f32
+    (33, 2000, "padding"),              # past the long kernel: streaming
 ])
 def test_fused_mha_long_keys(dev, dtype, lq, lk, mask_kind):
-    """Past 256 keys: K/V streamed in tiles, the exact two-pass softmax."""
-    q, k, v, mask = _mha_case(dev, 2, 3, lq, lk, 64, dtype, mask_kind,
+    """Past 256 keys: the long kernel (an item's scores resident in shared
+    memory, K/V tiles pipelined) up to its limit, the streaming kernel
+    past it; both the exact two-pass softmax."""
+    b = 6 if mask_kind == "mixed" else 2
+    q, k, v, mask = _mha_case(dev, b, 3, lq, lk, 64, dtype, mask_kind,
                               seed=lq + lk)
     before = fused_mha.launches
     got = fused_mha(q, k, v, mask)
     want = fused_mha_reference(q, k, v, mask)
     torch.cuda.synchronize()
     assert fused_mha.launches == before + 1
-    assert got.dtype == dtype and got.shape == (2, 3, lq, 64)
+    assert got.dtype == dtype and got.shape == (b, 3, lq, 64)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_mha_long_keys_skip_hidden_tiles(dev, dtype):
-    """A padding mask's hidden tiles are skipped: rows of 1, 127, 128, 129
-    and 300 keys, and a fully masked row (uniform softmax over all 300)."""
+    """A padding mask's hidden tiles are skipped: rows of 1, 63, 64, 65,
+    127, 128, 129 and 300 keys (both kernels' tile edges), and a fully
+    masked row (uniform softmax over all 300)."""
     from spmm_tpu_torch.ops.masks import extend_attention_mask
 
-    q, k, v, _ = _mha_case(dev, 6, 2, 40, 300, 64, dtype, "none", seed=11)
-    lens = torch.tensor([1, 127, 128, 129, 300, 0], device=dev)
+    q, k, v, _ = _mha_case(dev, 9, 2, 40, 300, 64, dtype, "none", seed=11)
+    lens = torch.tensor([1, 63, 64, 65, 127, 128, 129, 300, 0], device=dev)
     mask = extend_attention_mask(
         (torch.arange(300, device=dev)[None] < lens[:, None]).int())
     tol = 1e-5 if dtype == torch.float32 else 2e-2
