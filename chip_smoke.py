@@ -16,7 +16,9 @@ against its plain PyTorch version:
     PV->SMILES file CLIs;
   - MoleculeNet fine-tunes and reaction training: train steps on the plain
     attention with dropout, evaluation through kernel 2 (any Lk: past 256
-    keys its tiled kernel), and the four training CLIs.
+    keys its tiled kernel), and the four training CLIs;
+  - SPMM pretraining (four objectives, momentum twins, feature queues) on
+    the plain attention: it launches neither kernel.
 
 Phases, in order; any failure exits non-zero:
 
@@ -100,6 +102,19 @@ Phases, in order; any failure exits non-zero:
               training for one (a 275-token source among its eval lines,
               Lk 288; checkpoint_best.pt read back), each a main path over
               synthetic files in a temporary directory;
+  pretrain    full-width pretraining: one step (batch 8, queue 64, dropout
+              off, noise fixed) on the card against the same step on the
+              CPU, with the finetune phase's bars and the EMA twins (1e-6),
+              the written queue columns (1e-5) and queue_ptr; then batch
+              96, queue 36,864, dropout on, in fp32 and in bf16_compute
+              (with remat only if fp32 does not fit): 3 warm-up steps, one
+              under FlopCounterMode, 20 timed (samples/s, MFU against the
+              H100's published fp32 or bf16 peak, peak memory) and one
+              under torch.profiler; then cli.pretrain --max_steps 4
+              --save_every 2 and a --resume from step_2.pt over a corpus
+              of the example SMILES with raw properties from the seed, and
+              cli.convert_checkpoint --to_torch of the result, loaded
+              strictly into an inference SPMM;
   shapes      over phases 5, rxn and finetune, every call of a kernel
               wrapper was recorded (KernelCalls); each kernel is held to its plain
               version at every launch shape those main paths passed it:
@@ -139,8 +154,8 @@ KERNEL = {"name": "beam_decode_attention", "route": "cuda",
 KERNEL2 = {"name": "fused_mha", "route": "cuda",
            "source": "spmm_tpu_torch/csrc/fused_attention.cu",
            "replaces": "spmm_tpu/ops/pallas_attention.py:28"}
-S2P_INPUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "examples", "s2p_input.txt")
+REPO = os.path.dirname(os.path.abspath(__file__))
+S2P_INPUT = os.path.join(REPO, "examples", "s2p_input.txt")
 S2P_LAUNCHES = 6 + 53 * 18      # text layers + 53 steps x (6 + 6 x 2)
 RXN_ENC_LAYERS = 6              # kernel-2 launches per reaction batch
 RXN_SRC_LEN = 96                # bench.py's rxn greedy source length
@@ -156,6 +171,13 @@ FT_TASKS = (("classification", 2, 16), ("multilabel", 27, 16),
             ("regression", 1, 8))
 RXN_TRAIN = (16, RXN_SRC_LEN, 64)
 FT_WARMUP, FT_TIMED = 3, 20
+# pretraining: (batch, queue) of the timed steps, the reference's per-GPU
+# sizes; of the card-vs-CPU gate, small so that the CPU step stays short;
+# warm-up and timed steps; corpus lines of the CLI run (4 steps an epoch)
+PRETRAIN = (96, 36864)
+PRETRAIN_GATE = (8, 64)
+PT_WARMUP, PT_TIMED = 3, 20
+PT_CLI_LINES = 384
 # (Lq, Lk, mask) past kernel 2's 256 keys: one key past, a 257-token source
 # in a bucket grown by 32, 512 (32-row items of the long kernel), 1000
 # (16-row items), 1300 (the long kernel in bf16, the streaming one in f32)
@@ -1419,14 +1441,27 @@ def step_gate(dev, model, make_step, batch: dict) -> dict:
         _, step = make_step(m, FinetuneConfig(), 10)
         res = step(0, {k: v.to(d) for k, v in batch.items()})
         loss[where], lr = res["loss"].item(), res["lr"]
+    out = compare_steps(model, cpu, loss, lr)
+    del cpu
+    return out
+
+
+def compare_steps(model, cpu, loss: dict, lr: float) -> dict:
+    """step_gate's bars on one step that ``model`` took on the card and its
+    copy ``cpu`` on the CPU, over the parameters that train."""
+    import torch
+
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on for the card's fp32 matmuls")
     loss_rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
     if not loss_rel <= 1e-5:
         fail(f"card loss {loss['card']} vs CPU {loss['cpu']}")
-    floor = 1e-6 * max(p.grad.norm().item() for p in cpu.parameters())
+    pairs = [(name, pc, pd) for (name, pc), pd in
+             zip(cpu.named_parameters(), model.parameters())
+             if pc.requires_grad]
+    floor = 1e-6 * max(pc.grad.norm().item() for _, pc, _ in pairs)
     grad_share, param_err, excess, n_loose = 0.0, 0.0, -1.0, 0
-    for (name, pc), pd in zip(cpu.named_parameters(), model.parameters()):
+    for name, pc, pd in pairs:
         dg = pd.grad.cpu() - pc.grad
         grad_share = max(grad_share, dg.norm().item()
                          / (1e-4 * pc.grad.norm().item() + floor))
@@ -1438,7 +1473,6 @@ def step_gate(dev, model, make_step, batch: dict) -> dict:
             fail(f"card step differs from the CPU step at {name}: gradient "
                  f"at {grad_share:.2f} of its bar, parameter by "
                  f"{dp.max().item():.2e}")
-    del cpu
     return {"loss": loss["cpu"], "loss_rel_diff": loss_rel, "lr": lr,
             "grad_worst_share_of_bar": grad_share, "grad_floor": floor,
             "param_max_abs_diff": param_err,
@@ -1500,6 +1534,223 @@ def finetune_training(dev, rxn) -> dict:
     _, step = make_rxn_step(model, FinetuneConfig(), 100)
     out["rxn"] = dict(train_throughput(dev, step, b, RXN_TRAIN[0]), gate=gate)
     return out
+
+
+def pretrain_batch(dev, n: int, seed: int) -> tuple[dict, dict]:
+    """A pretrain batch and fixed noise: n - 1 example SMILES and one text
+    cut at 100 tokens (the 100 bucket, as a batch of 96 real molecules
+    reaches), normalized properties and a property mask from ``seed``, hard
+    negatives at the next and previous rows."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.cli._common import make_tokenizer
+    from spmm_tpu_torch.tokenizer import default_buckets
+
+    texts = ["[CLS]" + t for t in example_smiles(n - 1) + [long_text(90)]]
+    ids, mask = make_tokenizer().encode_batch(texts, max_len=100,
+                                              buckets=default_buckets(100))
+    if ids.shape[1] != 100:
+        fail(f"pretrain batch padded to {ids.shape[1]}, not 100")
+    rng = np.random.default_rng(seed)
+    rows = np.arange(n)
+    batch = {"prop": rng.normal(size=(n, 53)).astype(np.float32),
+             "ids": ids, "mask": mask}
+    noise = {"mpm_mask": (rng.random((n, 53)) < 0.5).astype(np.float32),
+             "neg_prop_idx": (rows + 1) % n, "neg_text_idx": (rows - 1) % n}
+    return ({k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+            {k: torch.as_tensor(v, device=dev) for k, v in noise.items()})
+
+
+def pretrain_gate(dev) -> dict:
+    """One full-width pretrain step at PRETRAIN_GATE's batch and queue,
+    dropout off and the noise fixed, on the card and on the CPU from the
+    same state (global step 12 of 10 an epoch: alpha 0.4 and the cosine
+    lr): step_gate's bars on the loss, the clipped gradients and the
+    parameters (``temp`` among them), and the EMA twins within 1e-6, the
+    written queue columns within 1e-5, ``queue_ptr`` equal."""
+    import torch
+
+    from spmm_tpu_torch.configs import PretrainConfig
+    from spmm_tpu_torch.training.pretrain import (
+        EMA_KEYS, init_pretrain_state, make_pretrain_step)
+
+    n, queue = PRETRAIN_GATE
+    pcfg = PretrainConfig(queue_size=queue)
+    cpu = init_pretrain_state(SEED, pcfg, device="cpu")
+    model = copy.deepcopy(cpu).to(dev)
+    batch, noise = pretrain_batch(torch.device("cpu"), n, SEED + 20)
+    loss = {}
+    for where, m, d in (("card", model, dev),
+                        ("cpu", cpu, torch.device("cpu"))):
+        _, step = make_pretrain_step(m, pcfg, 10)
+        res = step(12, {k: v.to(d) for k, v in batch.items()}, None,
+                   {k: v.to(d) for k, v in noise.items()})
+        if res["skipped"]:
+            fail(f"the gate's pretrain step on the {where} was skipped")
+        loss[where], lr = res["loss"].item(), res["lr"]
+    out = compare_steps(model, cpu, loss, lr)
+    got, want = model.state_dict(), cpu.state_dict()
+    twin_err = max((got[k].cpu() - v).abs().max().item()
+                   for k, v in want.items()
+                   if k.split(".", 1)[0] in {f"{e}_m" for e in EMA_KEYS})
+    queue_err = max((got[k][:, :n].cpu() - want[k][:, :n]).abs().max().item()
+                    for k in ("prop_queue", "text_queue"))
+    if not twin_err <= 1e-6 or not queue_err <= 1e-5 or \
+            got["queue_ptr"].tolist() != [n] or \
+            want["queue_ptr"].tolist() != [n]:
+        fail(f"pretrain gate: twins {twin_err:.2e} (bar 1e-6), queues "
+             f"{queue_err:.2e} (bar 1e-5), ptr {got['queue_ptr'].tolist()} "
+             f"vs {want['queue_ptr'].tolist()}")
+    del cpu, model
+    return dict(out, twin_max_abs_diff=twin_err,
+                queue_max_abs_diff=queue_err,
+                temp=want["temp"].item())
+
+
+def pretrain_timing(dev, bf16: bool, remat: bool = False) -> dict:
+    """PRETRAIN's batch and queue at full width, dropout on (a generator
+    per step from the seed): PT_WARMUP steps, one step under
+    FlopCounterMode, PT_TIMED steps timed between synchronizations (peak
+    memory over them), then one step under torch.profiler.  If fp32 does
+    not fit without remat, it runs again with remat and says so."""
+    import torch
+
+    from spmm_tpu_torch.configs import PretrainConfig
+    from spmm_tpu_torch.training.pretrain import (
+        init_pretrain_state, make_pretrain_step, step_generator)
+    from spmm_tpu_torch.utils.profiling import (
+        H100_PEAK_FLOPS, count_flops, device_breakdown)
+
+    n, queue = PRETRAIN
+    pcfg = PretrainConfig(queue_size=queue, bf16_compute=bf16, remat=remat)
+    model = init_pretrain_state(SEED, pcfg, device=dev)
+    _, step = make_pretrain_step(model, pcfg, 1000)
+    batch, _ = pretrain_batch(dev, n, SEED + 21)
+
+    def run(i):
+        return step(i, batch, step_generator(SEED, i, dev))
+
+    before = launch_counts()
+    try:
+        losses = [run(i)["loss"] for i in range(PT_WARMUP)]
+        _, flops = count_flops(lambda: run(PT_WARMUP))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(PT_TIMED):
+            losses.append(run(PT_WARMUP + 1 + i)["loss"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    except torch.cuda.OutOfMemoryError:
+        if remat:
+            raise
+        del model, step, batch
+        torch.cuda.empty_cache()
+        log(f"  pretrain {'bf16' if bf16 else 'fp32'} at batch {n} does "
+            f"not fit without remat: running it with --remat")
+        return pretrain_timing(dev, bf16, remat=True)
+    peak_mem = torch.cuda.max_memory_allocated()
+    prof = device_breakdown(lambda: run(PT_WARMUP + 1 + PT_TIMED), top=8)
+    losses = [x.item() for x in losses]
+    if launch_counts() != before:
+        fail("a pretrain step launched a kernel")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail(f"non-finite pretrain loss: {losses}")
+    peak = H100_PEAK_FLOPS["bf16" if bf16 else "fp32"]
+    step_s = secs / PT_TIMED
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return {"dtype": "bf16" if bf16 else "fp32", "remat": remat, "batch": n,
+            "queue": queue, "samples_per_s": n / step_s,
+            "step_ms": 1e3 * step_s, "flops_per_step": flops,
+            "peak_flops": peak, "mfu": flops / step_s / peak,
+            "max_memory_gib": peak_mem / 2 ** 30, "first_loss": losses[0],
+            "last_loss": losses[-1], "profile": prof}
+
+
+def _run_cli(args: list, what: str) -> tuple[str, float]:
+    """``python -m`` one of the port's CLIs from the checkout, on the card;
+    (its stdout, seconds).  A failure shows its output's tail."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True, timeout=900, cwd=REPO)
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def _metrics(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def pretrain_cli(dev, workdir: str) -> dict:
+    """cli.pretrain at full width on the card over a corpus of the example
+    SMILES cycled to PT_CLI_LINES lines and raw properties from the seed
+    (the reference's mean and std): --max_steps 4 --save_every 2, then
+    --resume from step_2.pt to step 4 in another directory; then
+    cli.convert_checkpoint --to_torch of the resumed step_4.pt, loaded
+    strictly into an inference SPMM."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.chem.normalize import PropertyStats
+    from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
+    from spmm_tpu_torch.models.spmm import SPMM
+
+    corpus = os.path.join(workdir, "corpus.txt")
+    with open(corpus, "w") as f:
+        f.writelines(s + "\n" for s in example_smiles(PT_CLI_LINES))
+    stats = PropertyStats.load()
+    pv = stats.mean + stats.std * np.random.default_rng(SEED).normal(
+        size=(PT_CLI_LINES, 53))
+    cache = os.path.join(workdir, "corpus.pv.npz")
+    np.savez(cache, pv=pv.astype(np.float32))
+    first, second = (os.path.join(workdir, d) for d in ("first", "second"))
+    common = ["spmm_tpu_torch.cli.pretrain", "--data_path", corpus,
+              "--property_cache", cache, "--max_steps", "4",
+              "--save_every", "2", "--seed", str(SEED)]
+    out1, s1 = _run_cli(common + ["--output_dir", first], "cli.pretrain")
+    out2, s2 = _run_cli(common + ["--output_dir", second, "--resume",
+                                  os.path.join(first, "step_2.pt")],
+                        "cli.pretrain --resume")
+    run1 = _metrics(os.path.join(first, "metrics.jsonl"))
+    run2 = _metrics(os.path.join(second, "metrics.jsonl"))
+    names = sorted(os.listdir(first)), sorted(os.listdir(second))
+    want = ["metrics.jsonl", "run_meta.json", "step_2.pt", "step_4.pt"]
+    if names != (want, ["metrics.jsonl", "run_meta.json", "step_4.pt"]) or \
+            [r["step"] for r in run1] != [1, 2, 3, 4] or \
+            [r["step"] for r in run2] != [3, 4] or \
+            "resumed at step 2" not in out2 or \
+            not all(np.isfinite(r["loss"]) for r in run1 + run2):
+        fail(f"cli.pretrain: files {names}, steps {[r['step'] for r in run1]}"
+             f" and {[r['step'] for r in run2]}")
+    resume_diff = max(abs(a["loss"] - b["loss"])
+                      for a, b in zip(run1[2:], run2))
+    ckpt = os.path.join(second, "step_4.pt")
+    ckpt_gib = os.path.getsize(ckpt) / 2 ** 30
+    for name in ("step_2.pt", "step_4.pt"):
+        os.remove(os.path.join(first, name))
+    exported = os.path.join(workdir, "exported.ckpt")
+    _, s3 = _run_cli(["spmm_tpu_torch.cli.convert_checkpoint", "--torch_ckpt",
+                      ckpt, "--out", exported, "--to_torch"],
+                     "cli.convert_checkpoint --to_torch")
+    saved = torch.load(ckpt, map_location="cpu",
+                       weights_only=True)["state_dict"]
+    spmm = load_spmm_checkpoint(SPMM.random_init(SEED + 1, device=dev),
+                                exported)
+    if not all(torch.equal(v.cpu(), saved[k])
+               for k, v in spmm.state_dict().items()):
+        fail("the exported checkpoint did not load as saved")
+    mfu_line = [ln for ln in out1.splitlines() if ln.startswith("MFU")]
+    parts = ("loss", "loss_mlm", "loss_mpm", "loss_ita", "loss_itm")
+    return {"wall_s": [s1, s2, s3],
+            "losses": [{k: r[k] for k in parts} for r in run1],
+            "resumed_losses": [r["loss"] for r in run2],
+            "resume_loss_max_abs_diff": resume_diff,
+            "checkpoint_gib": ckpt_gib, "mfu_line": mfu_line[:1]}
 
 
 def finetune_eval(dev, calls) -> dict:
@@ -2039,6 +2290,47 @@ def main(argv=None) -> int:
             + (", checkpoint_best.pt read back" if name == "rxn_prediction"
                else ""))
 
+    # ---- pretrain: the gate, fp32 and bf16 steps, the CLIs ----
+    mark("pretrain")
+    pt = {"gate": pretrain_gate(dev)}
+    gate = pt["gate"]
+    log(f"[pretrain] gate, full width, batch {PRETRAIN_GATE[0]}, queue "
+        f"{PRETRAIN_GATE[1]}, dropout off, noise fixed (card vs CPU): loss "
+        f"{gate['loss']:.5f}, rel diff {gate['loss_rel_diff']:.2e} (bar "
+        f"1e-5), worst gradient at {gate['grad_worst_share_of_bar']:.3f} of "
+        f"its bar, parameters within {gate['param_max_abs_diff']:.2e} "
+        f"({gate['params_past_1e-6']} elements past 1e-6, each within lr * "
+        f"|dg| / eps of it), twins {gate['twin_max_abs_diff']:.2e}, queues "
+        f"{gate['queue_max_abs_diff']:.2e}, ptr equal")
+    for bf16 in (False, True):
+        row = pt["bf16" if bf16 else "fp32"] = pretrain_timing(dev, bf16)
+        prof = row["profile"]
+        log(f"[pretrain] {row['dtype']}{' with remat' if row['remat'] else ''}"
+            f", batch {row['batch']}, queue {row['queue']}, dropout on: "
+            f"{row['samples_per_s']:.1f} samples/s ({row['step_ms']:.1f} ms "
+            f"a step over {PT_TIMED}), {row['flops_per_step'] / 1e12:.2f} "
+            f"TFLOP a step (FlopCounterMode), MFU {100 * row['mfu']:.1f}% of "
+            f"{row['peak_flops'] / 1e12:.0f} TFLOP/s ({row['dtype']} peak of "
+            f"an H100; this card: {card}), peak {row['max_memory_gib']:.2f} "
+            f"GiB, loss {row['first_loss']:.4f} -> {row['last_loss']:.4f}")
+        log(f"  profile of one step: wall {prof['wall_s'] * 1e3:.1f} ms, "
+            + ("device busy not measured (no device events)"
+               if prof["busy_share"] is None else
+               f"device busy {100 * prof['busy_share']:.1f}%, "
+               f"{prof['device_events']} device events"))
+        for top in prof["top"]:
+            log(f"  {top['ms']:9.3f} ms {top['count']:6d}x  {top['name']}")
+    with tempfile.TemporaryDirectory() as workdir:
+        pt["cli"] = pretrain_cli(dev, workdir)
+    row = pt["cli"]
+    log(f"[pretrain] cli.pretrain --max_steps 4 --save_every 2 "
+        f"{row['wall_s'][0]:.1f} s, --resume from step_2.pt "
+        f"{row['wall_s'][1]:.1f} s (steps 3-4 losses within "
+        f"{row['resume_loss_max_abs_diff']:.2e} of the first run's), "
+        f"checkpoint {row['checkpoint_gib']:.2f} GiB; "
+        f"cli.convert_checkpoint --to_torch {row['wall_s'][2]:.1f} s, "
+        f"loaded strictly into an SPMM; {row['mfu_line']}")
+
     # ---- shapes: every launch shape of the main paths vs plain ----
     mark("shapes")
     log("[shapes] each kernel against its plain version, and timed, at every "
@@ -2085,7 +2377,7 @@ def main(argv=None) -> int:
 
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
                       "exact": exact, "rxn": rxn_run, "finetune": ft,
-                      "profile": profiles}))
+                      "pretrain": pt, "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   rxn_launches=rxn_run["greedy_launches"][0],
                   max_abs_err=worst["bfloat16"],

@@ -11,12 +11,16 @@ the port's ``nn.Module`` trees reproduce, so both load with ``strict=True``):
     names (xbert.py:686-691); ``property_mtr_head`` flattens to the
     Sequential indices ``.0/.2/.3``; the pretrain heads only if present.
     ``rxn_state_dict_from_jax_tree`` does the same for a reaction tree,
-    ``downstream_state_dict_from_jax_tree`` for a MoleculeNet one.
+    ``downstream_state_dict_from_jax_tree`` for a MoleculeNet one, and
+    ``pretrain_state_dict_from_jax`` for a JAX pretrain state (the twins
+    named as ``export_spmm_state_dict`` names ``params["momentum"]``, plus
+    ``temp``, the queues and ``queue_ptr``).
   - ``load_reference_checkpoint``: a reference ``{"state_dict": ...}`` (or
     ``{"model": ...}``) ``.ckpt`` with the ``_unk`` -> ``_mask`` rename
     (reference d_regression.py:157-161); ``spmm_subset`` keeps what an
     inference ``SPMM`` holds, and ``load_spmm_checkpoint`` loads that
-    strictly, as the four inference CLIs do.
+    strictly, as the four inference CLIs do; ``pretrain_subset`` keeps
+    what ``training.pretrain.PretrainModel`` holds.
 """
 
 from __future__ import annotations
@@ -117,6 +121,27 @@ def state_dict_from_jax_tree(
     return out
 
 
+def pretrain_state_dict_from_jax(
+    state: Params,
+    text_cfg: Optional[BertArchConfig] = None,
+    prop_cfg: Optional[BertArchConfig] = None,
+) -> dict[str, torch.Tensor]:
+    """A ``spmm_tpu`` pretrain state ({"params" with "temp", "ema",
+    "queue"}, numpy leaves) -> the reference names of
+    ``PretrainModel.load_state_dict(strict=True)``."""
+    out = state_dict_from_jax_tree(state["params"], text_cfg, prop_cfg)
+    ema = state["ema"]
+    _put_bert_mlm(out, ema["text_encoder"], "text_encoder_m")
+    _put_bert(out, ema["property_encoder"], "property_encoder_m")
+    _put_linear(out, "property_proj_m", ema["property_proj"])
+    _put_linear(out, "text_proj_m", ema["text_proj"])
+    out["temp"] = _t(state["params"]["temp"])
+    out["prop_queue"] = _t(state["queue"]["prop"])
+    out["text_queue"] = _t(state["queue"]["text"])
+    out["queue_ptr"] = torch.tensor([int(state["queue"]["ptr"])])
+    return out
+
+
 def rxn_state_dict_from_jax_tree(
     tree: Params,
     decoder_cfg: Optional[BertArchConfig] = None,
@@ -190,6 +215,38 @@ def spmm_subset(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
                 or k.startswith(heads)):
             continue
         out[k] = v
+    return out
+
+
+TWINS = ("text_encoder_m", "property_encoder_m", "property_proj_m",
+         "text_proj_m")
+
+
+def pretrain_subset(state: Mapping[str, torch.Tensor]
+                    ) -> dict[str, torch.Tensor]:
+    """The keys a ``PretrainModel`` holds, of a reference pretrain state:
+    ``_unk`` renamed to ``_mask``, the ``position_ids`` buffers dropped, and
+    every ``*_m`` entry but the four twins dropped (the reference saves
+    more of them; JAX reads the four by name, spmm_tpu/models/spmm.py:
+    114-120).  A missing twin stays missing, so a strict load raises.  The
+    tied LM-head entries take the values JAX reads (``convert_bert_mlm``):
+    the decoder weight the word table's, the decoder bias
+    ``cls.predictions.bias``; in a file the reference saved they are
+    equal already."""
+    out = {}
+    for k, v in drop_position_ids(state).items():
+        k = k.replace("_unk", "_mask")
+        top = k.split(".", 1)[0]
+        if top.endswith("_m") and top not in TWINS:
+            continue
+        out[k] = v
+    for mlm in ("text_encoder", "text_encoder_m"):
+        head, word = (f"{mlm}.cls.predictions",
+                      f"{mlm}.bert.embeddings.word_embeddings.weight")
+        if f"{head}.decoder.weight" in out and word in out:
+            out[f"{head}.decoder.weight"] = out[word]
+        if f"{head}.decoder.bias" in out and f"{head}.bias" in out:
+            out[f"{head}.decoder.bias"] = out[f"{head}.bias"]
     return out
 
 

@@ -1,8 +1,9 @@
-"""Configuration (copy of the BERT and fine-tune parts of ``spmm_tpu.configs``).
+"""Configuration (copy of the BERT, fine-tune and pretrain parts of
+``spmm_tpu.configs``).
 
 The three architectures, with the values of the reference
 config_bert.json / config_bert_property.json / config_bert_smiles.json, and
-the fine-tune hyperparameters.
+the fine-tune and pretrain hyperparameters.
 """
 
 from __future__ import annotations
@@ -91,3 +92,33 @@ class FinetuneConfig:
     max_text_len: int = 100
     step_size: int = 50           # warmup chunk size (50 for cls, 100 for reg/rxn)
     seed: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainConfig:
+    """SPMM pretraining hyperparameters (reference SPMM_pretrain.py:51-65),
+    with the JAX package's defaults.  ``zero1`` and ``bf16_moments`` are
+    carried for the same field set; the port's one-GPU step refuses both
+    (``training.pretrain.make_pretrain_step``)."""
+
+    embed_dim: int = 256
+    batch_size: int = 96          # per-device batch
+    temp: float = 0.07
+    queue_size: int = 36864
+    momentum: float = 0.995
+    alpha: float = 0.4
+    mask_prob: float = 0.5        # Bernoulli property-masking prob (SPMM_models.py:85)
+    mpm_weight: float = 5.0       # MPM loss multiplier (SPMM_models.py:256)
+    max_text_len: int = 100
+    n_properties: int = 53
+    lr: float = 5e-5
+    min_lr: float = 1e-5
+    warmup_lr: float = 5e-5
+    weight_decay: float = 0.02
+    epochs: int = 30
+    warmup_epochs: int = 20       # interpreted as warmup *chunks* of 100 steps
+    grad_clip: float = 5.0
+    bf16_compute: bool = False    # bf16 encoder compute (reference: fp16 AMP)
+    remat: bool = False           # objective+layer rematerialization (memory for FLOPs)
+    bf16_moments: bool = False    # bf16 Adam first moment (not in the port yet)
+    zero1: bool = False           # ZeRO-1 optimizer-state sharding (not in the port yet)

@@ -2,7 +2,6 @@
 pipeline that tokenizes and pads into a small set of static buckets, with a
 background-thread prefetcher so host batching overlaps device compute
 (SURVEY §7.1).  Batches are numpy; the train loops move them to the card.
-``batch_pretrain`` comes with pretraining.
 """
 
 from __future__ import annotations
@@ -84,6 +83,39 @@ def batch_pairs(
         yield {"src_ids": src_ids, "src_mask": src_mask,
                "tgt_ids": tgt_ids, "tgt_mask": tgt_mask,
                "n_real": len(pairs)}
+
+
+def batch_pretrain(
+    tok: SmilesTokenizer,
+    dataset,
+    batch_size: int,
+    max_len: int = 100,
+    buckets: Optional[Sequence[int]] = None,
+    shuffle: bool = True,
+    seed: int = 0,
+    skip_batches: int = 0,
+) -> Iterator[dict]:
+    """{'prop','ids','mask'} batches for the pretrain step (drop_last), in
+    the JAX package's order for the same seed (``np.random.default_rng(
+    seed).shuffle``).
+
+    ``skip_batches`` fast-forwards past already-consumed batches of this
+    epoch's shuffle order without touching the dataset or tokenizer: the
+    resume path uses it so a restored run continues the epoch where it
+    stopped instead of replaying it (reference: PL ``ckpt_path`` restores
+    the loader position, SPMM_pretrain.py:24-26,37)."""
+    buckets = buckets if buckets is not None else default_buckets(max_len)
+    order = np.arange(len(dataset))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    for start in range(skip_batches * batch_size,
+                       len(order) - batch_size + 1, batch_size):
+        idx = order[start: start + batch_size]
+        items = [dataset[int(i)] for i in idx]
+        ids, mask = tok.encode_batch([t for _, t in items],
+                                     max_len=max_len, buckets=buckets)
+        yield {"prop": np.stack([p for p, _ in items]).astype(np.float32),
+               "ids": ids, "mask": mask}
 
 
 def prefetch(it: Iterable, depth: int = 2) -> Iterator:

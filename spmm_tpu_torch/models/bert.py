@@ -25,17 +25,25 @@ at ``cfg.hidden_dropout_prob`` / ``cfg.attention_probs_dropout_prob``.  It
 is on only when the caller passes a ``torch.Generator`` (``generator=``,
 the counterpart of JAX's ``rng`` with ``deterministic=False``), whatever
 ``train()`` / ``eval()`` say: without one every forward is the inference
-forward, bit for bit.  Remat and the sequence-parallel hooks wait for
-pretraining.
+forward, bit for bit.
+
+``remat=True`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), as ``encoder_forward``'s
+``jax.checkpoint`` does (spmm_tpu/models/bert.py:256-275).
+``checkpointed`` rewinds the caller's generator for the recompute, so
+that it draws the forward's dropout masks again.  The sequence-parallel
+hooks wait for the parallel slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import functools
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spmm_tpu_torch.configs import BertArchConfig
 from spmm_tpu_torch.ops.attention import dropout, multi_head_attention
@@ -62,6 +70,37 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
+
+
+def checkpointed(fn: Callable, generator: Optional[torch.Generator],
+                 *args, **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint`` (non-
+    reentrant): its activations are recomputed in the backward.
+
+    The checkpoint restores only the global RNG, while dropout draws from
+    ``generator`` (``ops.attention.dropout``).  So the generator's state is
+    taken before the forward, set back for the recompute and then returned
+    to where the stream had gone: the recompute draws the forward's masks,
+    and the stream runs on as it does without remat."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    start = generator.get_state()
+    calls = []
+
+    def run(*a, **kw):
+        if not calls:                     # the forward
+            calls.append(1)
+            return fn(*a, **kw)
+        live = generator.get_state()      # a recompute
+        generator.set_state(start)
+        try:
+            return fn(*a, **kw)
+        finally:
+            generator.set_state(live)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
 
 
 def split_heads(x: Tensor, num_heads: int) -> Tensor:
@@ -236,11 +275,13 @@ class BertEncoder(nn.Module):
                 encoder_hidden=None, cross_mask=None, mode: str = "multi_modal",
                 cross_kv: Optional[dict] = None,
                 attention_impl: str = "plain",
-                generator: Optional[torch.Generator] = None) -> Tensor:
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> Tensor:
         """Run the section selected by ``mode``.  ``encoder_hidden`` /
         ``cross_mask`` may be lists, assigned round-robin over the fusion
         layers; ``cross_kv`` ({"k": [L, B, h, Le, D], "v": ...}) supplies
-        precomputed cross K/V per absolute layer index."""
+        precomputed cross K/V per absolute layer index; ``remat``
+        recomputes each layer in the backward."""
         cfg = self.cfg
         for i in _layer_range(cfg, mode):
             if isinstance(encoder_hidden, (list, tuple)):
@@ -252,8 +293,14 @@ class BertEncoder(nn.Module):
             ckv = None
             if cross_kv is not None and layer.has_cross:
                 ckv = (cross_kv["k"][i], cross_kv["v"][i])
-            hidden = layer(hidden, self_mask, enc, xmask, cross_kv=ckv,
-                           attention_impl=attention_impl, generator=generator)
+            run = functools.partial(layer, cross_kv=ckv,
+                                    attention_impl=attention_impl,
+                                    generator=generator)
+            if remat:
+                hidden = checkpointed(run, generator, hidden, self_mask,
+                                      enc, xmask)
+            else:
+                hidden = run(hidden, self_mask, enc, xmask)
         return hidden
 
 
@@ -279,12 +326,14 @@ class BertModel(nn.Module):
         cross_kv: Optional[dict] = None,
         attention_impl: str = "plain",
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
     ) -> Tensor:
         """Returns the last hidden state [B, L, H].  ``encoder_embeds``
         bypasses the embedding layer; ``cross_kv`` replaces
         ``encoder_hidden_states`` with precomputed per-layer cross K/V;
         ``attention_impl`` ("plain" or "kernel") runs every attention of the
-        section through that core; ``generator`` turns dropout on."""
+        section through that core; ``generator`` turns dropout on;
+        ``remat`` recomputes each layer in the backward."""
         if encoder_embeds is not None:
             hidden = encoder_embeds
         else:
@@ -322,7 +371,8 @@ class BertModel(nn.Module):
 
         return self.encoder(hidden, self_mask, encoder_hidden_states,
                             cross_mask, mode, cross_kv=cross_kv,
-                            attention_impl=attention_impl, generator=generator)
+                            attention_impl=attention_impl, generator=generator,
+                            remat=remat)
 
 
 class BertPredictionTransform(nn.Module):

@@ -10,8 +10,8 @@ The inference surface of the reference SPMM module (SPMM_models.py:16-77):
   property_mtr_head   Linear-GELU-LayerNorm-Linear(768 -> 1)
   property_proj / text_proj / itm_head   optional pretraining heads
 
-Momentum twins and feature queues are training state and wait for the
-pretraining slice.
+Momentum twins, the temperature and the feature queues are training state:
+``training.pretrain.PretrainModel`` adds them.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ def _init_weights(module: nn.Module, std: float,
 class SPMM(nn.Module):
     def __init__(self, text_cfg: Optional[BertArchConfig] = None,
                  prop_cfg: Optional[BertArchConfig] = None,
-                 with_pretrain_heads: bool = False):
+                 with_pretrain_heads: bool = False,
+                 embed_dim: int = EMBED_DIM):
         super().__init__()
         self.text_cfg = text_cfg = text_cfg or text_config()
         self.prop_cfg = prop_cfg = prop_cfg or property_config()
@@ -59,20 +60,22 @@ class SPMM(nn.Module):
             nn.Linear(h, h), nn.GELU(), LayerNorm(h, text_cfg.layer_norm_eps),
             nn.Linear(h, 1))
         if with_pretrain_heads:
-            self.property_proj = nn.Linear(h, EMBED_DIM)
-            self.text_proj = nn.Linear(h, EMBED_DIM)
+            self.property_proj = nn.Linear(h, embed_dim)
+            self.text_proj = nn.Linear(h, embed_dim)
             self.itm_head = nn.Linear(2 * h, 2)
 
     @classmethod
     def random_init(cls, seed: int, text_cfg: Optional[BertArchConfig] = None,
                     prop_cfg: Optional[BertArchConfig] = None,
-                    device=None) -> "SPMM":
+                    device=None, with_pretrain_heads: bool = False,
+                    embed_dim: int = EMBED_DIM) -> "SPMM":
         """HF-style random init from ``seed`` (normal(0.02)), made on the CPU
-        with its own generator and moved to ``device``."""
+        with its own generator and moved to ``device``;
+        ``with_pretrain_heads`` adds the projections and the ITM head."""
         from spmm_tpu_torch.utils.device import resolve_device
 
         dev = resolve_device(device)
-        model = cls(text_cfg, prop_cfg)
+        model = cls(text_cfg, prop_cfg, with_pretrain_heads, embed_dim)
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             _init_weights(model, model.text_cfg.initializer_range, gen)
@@ -99,23 +102,30 @@ class SPMM(nn.Module):
     def encode_properties(self, prop_inputs: torch.Tensor,
                           attention_mask: Optional[torch.Tensor] = None,
                           is_decoder: bool = False,
-                          attention_impl: str = "plain") -> torch.Tensor:
+                          attention_impl: str = "plain",
+                          generator: Optional[torch.Generator] = None,
+                          remat: bool = False) -> torch.Tensor:
         """6-layer property encoder over injected embeddings (reference
-        SPMM_models.py:90)."""
+        SPMM_models.py:90; ``is_decoder``: the causal variant of MPM,
+        :242)."""
         return self.property_encoder(inputs_embeds=prop_inputs,
                                      attention_mask=attention_mask,
                                      is_decoder=is_decoder, mode="multi_modal",
-                                     attention_impl=attention_impl)
+                                     attention_impl=attention_impl,
+                                     generator=generator, remat=remat)
 
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor,
-                    attention_impl: str = "plain") -> torch.Tensor:
+                    attention_impl: str = "plain",
+                    generator: Optional[torch.Generator] = None,
+                    remat: bool = False) -> torch.Tensor:
         """Unimodal SMILES encoding, layers [0, fusion) (``encode_text``,
         reference SPMM_models.py:94)."""
         return self.text_encoder.bert(input_ids=input_ids,
                                       attention_mask=attention_mask,
                                       mode="text",
-                                      attention_impl=attention_impl)
+                                      attention_impl=attention_impl,
+                                      generator=generator, remat=remat)
 
     def mtr_head_forward(self, hidden: torch.Tensor) -> torch.Tensor:
         """property_mtr_head, Linear-GELU-LN-Linear -> one scalar per

@@ -58,9 +58,12 @@ def multi_head_attention(
     if impl != "plain":
         raise ValueError(f"unknown attention impl {impl!r}")
     # bf16 operands upcast exactly, so the fp32 product equals an fp32-
-    # accumulated bf16 product (JAX's preferred_element_type=float32)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(
-        q.shape[-1])
+    # accumulated bf16 product (JAX's preferred_element_type=float32); also
+    # under autocast (the pretrain step's bf16_compute), which would round
+    # the scores to bf16
+    with torch.autocast(q.device.type, enabled=False):
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)
+                              ) / math.sqrt(q.shape[-1])
     if additive_mask is not None:
         scores = scores + additive_mask.float()
     probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator)

@@ -1,17 +1,118 @@
-"""Device-time breakdown of one call under ``torch.profiler``.
+"""Profiling hooks (counterpart of ``spmm_tpu.utils.profiling`` for the CUDA
+port).
 
-Counterpart of ``spmm_tpu.utils.profiling`` for the CUDA port: how much of
-a call's wall time the device spends in kernels (its busy share), and which
-kernels take that time.
+``device_breakdown`` runs one call under ``torch.profiler``: how much of its
+wall time the device spends in kernels (its busy share), and which kernels
+take that time.  ``trace`` exports a ``torch.profiler`` trace of a block;
+``StepTimer`` measures steady-state step time with device synchronization;
+``count_flops`` counts a call's FLOPs (``FlopCounterMode``) and ``mfu``
+sets a step's FLOP rate against the H100's published peak for the dtype
+that runs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import subprocess
 import time
 from collections import defaultdict
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+
+# published dense peaks of one H100 SXM (NVIDIA's data sheet): fp32 on the
+# CUDA cores (TF32 off, as the port keeps it), bf16 on the tensor cores
+H100_PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+
+
+def count_flops(fn: Callable[[], object]) -> tuple[object, float]:
+    """(``fn()``, the FLOPs it ran, its backward too if it calls one), by
+    ``torch.utils.flop_counter.FlopCounterMode``: matmuls, convolutions
+    and attention; elementwise work is not counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        out = fn()
+    return out, float(counter.get_total_flops())
+
+
+def mfu(flops_per_step: Optional[float], step_time_s: float,
+        n_chips: int = 1, peak_per_chip: float = H100_PEAK_FLOPS["fp32"]
+        ) -> Optional[float]:
+    """Model FLOPs utilization of a measured step (None if flops unknown)."""
+    if not flops_per_step or not step_time_s or step_time_s <= 0:
+        return None
+    return flops_per_step / step_time_s / (n_chips * peak_per_chip)
+
+
+def card_description() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, else the name alone."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        out = None
+    if out is not None and out.returncode == 0 and out.stdout.strip():
+        return out.stdout.strip().splitlines()[0]
+    return f"{torch.cuda.get_device_name(0)}, power limit not read"
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a CPU and CUDA trace of the block into ``log_dir`` as a
+    Chrome trace (``with trace('prof'): step(...)``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class StepTimer:
+    """Wallclock per-step timing with warmup exclusion; ``tick`` waits for
+    ``device``'s queued work before it reads the clock.
+
+    timer = StepTimer(warmup=2, device=dev)
+    for batch in data:
+        step(...)
+        timer.tick()
+    print(timer.mean_step_time, timer.throughput(global_batch))
+    """
+
+    def __init__(self, warmup: int = 2, device: Optional[torch.device] = None):
+        self.warmup = warmup
+        self.device = device
+        self._times: list[float] = []
+        self._last: Optional[float] = None
+
+    def tick(self) -> None:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        if self._last is not None:
+            self._times.append(now - self._last)
+        self._last = now
+
+    @property
+    def steps(self) -> int:
+        return max(len(self._times) - self.warmup, 0)
+
+    @property
+    def mean_step_time(self) -> float:
+        if not self.steps:
+            return float("nan")
+        return sum(self._times[self.warmup:]) / self.steps
+
+    def throughput(self, items_per_step: int) -> float:
+        return items_per_step / self.mean_step_time
 
 
 def device_breakdown(fn: Callable[[], object], top: int = 8) -> dict:

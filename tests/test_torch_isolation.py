@@ -1,7 +1,7 @@
 """Port boundary: spmm_tpu_torch imports neither jax nor anything of
-spmm_tpu, nor pandas, sklearn or optax (the GPU machine has none of them;
-RDKit only behind chem.featurizer's guard), and its entry points never drop
-to the CPU unasked."""
+spmm_tpu, nor pandas, sklearn, optax or orbax (the GPU machine has none of
+them; RDKit only behind chem.featurizer's guard), and its entry points
+never drop to the CPU unasked."""
 
 import ast
 import os
@@ -23,7 +23,7 @@ def _forbidden(name: str) -> bool:
 
 
 # absent where the port runs: no module may need them
-_ABSENT = ("pandas", "sklearn", "optax")
+_ABSENT = ("pandas", "sklearn", "optax", "orbax")
 
 
 def _modules() -> list[str]:
@@ -44,7 +44,8 @@ def test_importing_every_module_loads_no_jax():
                 "models.downstream", "training.finetune", "training.schedules",
                 "data.pipeline", "utils.logging", "cli._finetune_driver",
                 "cli.classification", "cli.classification_multilabel",
-                "cli.regression"):
+                "cli.regression", "training.pretrain", "checkpoint.io",
+                "utils.profiling", "cli.pretrain", "cli.convert_checkpoint"):
         assert f"spmm_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -190,3 +191,28 @@ def test_finetune_clis_need_a_gpu_unless_told_otherwise(tmp_path, cli_name):
         cli.main(["--data_dir", str(tmp_path / "missing")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Downstream.random_init(0, "classification")
+
+
+def test_pretraining_needs_a_gpu_unless_told_otherwise(tmp_path):
+    """Pretraining: cuda by default, raising without a GPU before it reads
+    any file."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from spmm_tpu_torch.cli import pretrain as cli
+    from spmm_tpu_torch.configs import BertArchConfig, PretrainConfig
+    from spmm_tpu_torch.training.pretrain import init_pretrain_state
+
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--data_path", missing, "--property_cache", missing])
+    tc = BertArchConfig(hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=1, intermediate_size=32,
+                        fusion_layer=1, encoder_width=32)
+    pc = BertArchConfig(vocab_size=1, hidden_size=32, num_hidden_layers=1,
+                        num_attention_heads=1, intermediate_size=32,
+                        fusion_layer=1, add_cross_attention=False)
+    pcfg = PretrainConfig(embed_dim=8, queue_size=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_pretrain_state(0, pcfg, tc, pc)
+    assert init_pretrain_state(0, pcfg, tc, pc,
+                               device="cpu").temp.device.type == "cpu"
