@@ -56,8 +56,9 @@ Phases, in order; any failure exits non-zero:
               replay of a CUDA graph (device time, without the host's
               launch overhead) and computes the bound: kernel 1 at m=128 and
               m=16, greedy k=1 (m=128) and beam k=5 (m=32), kernel 2 at
-              every launch class with its launches per batch, and at the
-              mixed eval batch;
+              every launch class with its launches per batch, at the
+              mixed eval batch, and its streaming kernel (past 1,152 keys
+              in f32) at B=8 40x1300 causal and 33x2000 padding;
   4. exact    captures the mask that inference/decoding.py passes kernel 1
               at the last step of a full-width bf16 batch of 128 (by
               wrapping the name it calls), holds kernel 1 to its plain
@@ -115,6 +116,19 @@ Phases, in order; any failure exits non-zero:
               of the example SMILES with raw properties from the seed, and
               cli.convert_checkpoint --to_torch of the result, loaded
               strictly into an inference SPMM;
+  pretrain_dp data-parallel pretraining through a NCCL process group of
+              one (the card's machine has one GPU): at the gate's size the
+              data-parallel step equals the one-process step and zero1
+              equals replicated, bitwise, and the bf16_moments step on the
+              card equals the CPU's at the gate's bars; at batch 96, queue
+              36,864, fp32, the data-parallel and one-process steps timed
+              in turns over one model, with every all-reduce the
+              data-parallel step runs timed by CUDA events; then
+              cli.pretrain under torch.distributed.run --standalone
+              --nproc_per_node 1 with --zero1 --bf16_moments --async_save
+              and a resume from step_2.pt without --async_save (steps 3-4
+              equal), the loop's stall at each async save and at the
+              blocking save of the same state; neither kernel launches;
   shapes      over phases 5, rxn and finetune, every call of a kernel
               wrapper was recorded (KernelCalls); each kernel is held to its plain
               version at every launch shape those main paths passed it:
@@ -187,6 +201,12 @@ LONG_KEY_CASES = ((37, 257, "padding"), (288, 288, "padding"),
                   (512, 512, "causal"), (16, 1000, "padding"),
                   (70, 1000, "none"), (40, 1300, "causal"),
                   (33, 2000, "padding"))
+# the LONG_KEY_CASES past fused_mha_long_kernel's reach in f32 (B=8, h=12,
+# D=64): fused_mha_stream_kernel, timed in phase 3
+STREAM_CASES = ((40, 1300, "causal"), (33, 2000, "padding"))
+# pretrain_dp: warm-up steps of each step, then timed steps per turn (turns:
+# one process, data parallel, data parallel, one process)
+DP_WARMUP, DP_TURN = 1, 5
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -745,6 +765,22 @@ def time_mha_on(dev, inputs) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops,
             "sdpa_vs_kernel_max_abs": sdpa_err}
+
+
+def time_stream(dev) -> list:
+    """fused_mha_stream_kernel (kernel 2 past the long kernel's reach) at
+    STREAM_CASES, f32, B=8, h=12, D=64, on phase 3's inputs: kernel, plain,
+    SDPA and the bound as ``time_mha_on`` computes them.  No main path
+    reaches it."""
+    import torch
+
+    rows = []
+    for lq, lk, kind in STREAM_CASES:
+        inputs = mha_inputs(dev, 8, 12, lq, lk, 64, torch.float32, kind,
+                            seed=lq + lk)
+        rows.append({"shape": f"stream B=8 {lq}x{lk} {kind}",
+                     "launches_per_batch": 0, **time_mha_on(dev, inputs)})
+    return rows
 
 
 def mixed_eval_inputs(dev) -> tuple:
@@ -1562,13 +1598,15 @@ def pretrain_batch(dev, n: int, seed: int) -> tuple[dict, dict]:
             {k: torch.as_tensor(v, device=dev) for k, v in noise.items()})
 
 
-def pretrain_gate(dev) -> dict:
+def pretrain_gate(dev, bf16_moments: bool = False) -> dict:
     """One full-width pretrain step at PRETRAIN_GATE's batch and queue,
     dropout off and the noise fixed, on the card and on the CPU from the
     same state (global step 12 of 10 an epoch: alpha 0.4 and the cosine
     lr): step_gate's bars on the loss, the clipped gradients and the
     parameters (``temp`` among them), and the EMA twins within 1e-6, the
-    written queue columns within 1e-5, ``queue_ptr`` equal."""
+    written queue columns within 1e-5, ``queue_ptr`` equal.  Under a
+    process group the card's step is the data-parallel one; the CPU's is
+    the one-process step."""
     import torch
 
     from spmm_tpu_torch.configs import PretrainConfig
@@ -1576,14 +1614,15 @@ def pretrain_gate(dev) -> dict:
         EMA_KEYS, init_pretrain_state, make_pretrain_step)
 
     n, queue = PRETRAIN_GATE
-    pcfg = PretrainConfig(queue_size=queue)
+    pcfg = PretrainConfig(queue_size=queue, bf16_moments=bf16_moments)
     cpu = init_pretrain_state(SEED, pcfg, device="cpu")
     model = copy.deepcopy(cpu).to(dev)
     batch, noise = pretrain_batch(torch.device("cpu"), n, SEED + 20)
     loss = {}
     for where, m, d in (("card", model, dev),
                         ("cpu", cpu, torch.device("cpu"))):
-        _, step = make_pretrain_step(m, pcfg, 10)
+        _, step = make_pretrain_step(
+            m, pcfg, 10, data_parallel=False if where == "cpu" else None)
         res = step(12, {k: v.to(d) for k, v in batch.items()}, None,
                    {k: v.to(d) for k, v in noise.items()})
         if res["skipped"]:
@@ -1686,6 +1725,25 @@ def _metrics(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def pretrain_corpus(workdir: str) -> tuple[str, str]:
+    """The example SMILES cycled to PT_CLI_LINES lines and raw properties
+    from the seed (the reference's mean and std): (corpus, property
+    cache)."""
+    import numpy as np
+
+    from spmm_tpu_torch.chem.normalize import PropertyStats
+
+    corpus = os.path.join(workdir, "corpus.txt")
+    with open(corpus, "w") as f:
+        f.writelines(s + "\n" for s in example_smiles(PT_CLI_LINES))
+    stats = PropertyStats.load()
+    pv = stats.mean + stats.std * np.random.default_rng(SEED).normal(
+        size=(PT_CLI_LINES, 53))
+    cache = os.path.join(workdir, "corpus.pv.npz")
+    np.savez(cache, pv=pv.astype(np.float32))
+    return corpus, cache
+
+
 def pretrain_cli(dev, workdir: str) -> dict:
     """cli.pretrain at full width on the card over a corpus of the example
     SMILES cycled to PT_CLI_LINES lines and raw properties from the seed
@@ -1696,18 +1754,10 @@ def pretrain_cli(dev, workdir: str) -> dict:
     import numpy as np
     import torch
 
-    from spmm_tpu_torch.chem.normalize import PropertyStats
     from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
     from spmm_tpu_torch.models.spmm import SPMM
 
-    corpus = os.path.join(workdir, "corpus.txt")
-    with open(corpus, "w") as f:
-        f.writelines(s + "\n" for s in example_smiles(PT_CLI_LINES))
-    stats = PropertyStats.load()
-    pv = stats.mean + stats.std * np.random.default_rng(SEED).normal(
-        size=(PT_CLI_LINES, 53))
-    cache = os.path.join(workdir, "corpus.pv.npz")
-    np.savez(cache, pv=pv.astype(np.float32))
+    corpus, cache = pretrain_corpus(workdir)
     first, second = (os.path.join(workdir, d) for d in ("first", "second"))
     common = ["spmm_tpu_torch.cli.pretrain", "--data_path", corpus,
               "--property_cache", cache, "--max_steps", "4",
@@ -1751,6 +1801,225 @@ def pretrain_cli(dev, workdir: str) -> dict:
             "resumed_losses": [r["loss"] for r in run2],
             "resume_loss_max_abs_diff": resume_diff,
             "checkpoint_gib": ckpt_gib, "mfu_line": mfu_line[:1]}
+
+
+def dp_gate(dev) -> dict:
+    """pretrain_dp (a), under the NCCL group of one: at PRETRAIN_GATE's
+    batch and queue, dropout off, the noise fixed, global step 12, one step
+    from one full-width state by the one-process step, the data-parallel
+    step (replicated) and the data-parallel step with zero1, each on its
+    own copy: replicated equals one-process, and zero1 equals replicated,
+    bitwise (parameters, twins, queues, queue_ptr, the loss).  Then the
+    bf16_moments step on the card against the CPU's at the pretrain gate's
+    bars (``pretrain_gate``)."""
+    import torch
+
+    from spmm_tpu_torch.configs import PretrainConfig
+    from spmm_tpu_torch.training.pretrain import (
+        init_pretrain_state, make_pretrain_step)
+
+    n, queue = PRETRAIN_GATE
+    batch, noise = pretrain_batch(dev, n, SEED + 20)
+    start = init_pretrain_state(SEED, PretrainConfig(queue_size=queue),
+                                device=dev)
+    models, losses = {}, {}
+    for name, zero1, dp in (("one_process", False, False),
+                            ("replicated", False, None),
+                            ("zero1", True, None)):
+        models[name] = copy.deepcopy(start)
+        _, step = make_pretrain_step(
+            models[name], PretrainConfig(queue_size=queue, zero1=zero1), 10,
+            data_parallel=dp)
+        res = step(12, batch, None, noise)
+        if res["skipped"]:
+            fail(f"the {name} step of the dp gate was skipped")
+        losses[name] = res["loss"].item()
+    for name, want in (("replicated", "one_process"),
+                       ("zero1", "replicated")):
+        got, ref = models[name].state_dict(), models[want].state_dict()
+        differ = [k for k, v in ref.items() if not torch.equal(got[k], v)]
+        if differ or losses[name] != losses[want]:
+            fail(f"the {name} step differs from the {want} step: loss "
+                 f"{losses[name]} vs {losses[want]}, {len(differ)} tensors "
+                 f"differ, e.g. {differ[:3]}")
+    del models, start
+    torch.cuda.empty_cache()
+    return {"losses": losses, "bitwise_equal": True,
+            "bf16_moments_gate": pretrain_gate(dev, bf16_moments=True)}
+
+
+def dp_timing(dev) -> dict:
+    """pretrain_dp (b): PRETRAIN's batch and queue, fp32, dropout on (a
+    generator per chunk from the seed), one full-width model and two steps
+    over it, the one-process step and the data-parallel step (NCCL, world
+    1): DP_WARMUP warm-up steps each, then DP_TURN timed steps a turn in
+    turns (one process, data parallel, data parallel, one process).  During
+    the data-parallel turns every torch.distributed.all_reduce the step
+    calls is timed by CUDA events: the gradients' (one flat buffer of the
+    online parameters) and the loss's."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from spmm_tpu_torch.configs import PretrainConfig
+    from spmm_tpu_torch.training.pretrain import (
+        init_pretrain_state, make_pretrain_step, step_generator)
+
+    n, queue = PRETRAIN
+    pcfg = PretrainConfig(queue_size=queue)
+    model = init_pretrain_state(SEED, pcfg, device=dev)
+    n_grads = sum(p.numel() for p in model.online_parameters())
+    steps = {"one_process": make_pretrain_step(model, pcfg, 1000,
+                                               data_parallel=False)[1],
+             "data_parallel": make_pretrain_step(model, pcfg, 1000)[1]}
+    batch, _ = pretrain_batch(dev, n, SEED + 21)
+    count = [0]
+    losses = []
+
+    def run(name):
+        i = count[0]
+        count[0] += 1
+        losses.append(steps[name](i, batch, functools.partial(
+            step_generator, SEED, i, dev))["loss"])
+
+    reduces = []
+    real = dist.all_reduce
+
+    def timed_all_reduce(tensor, *args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(tensor, *args, **kwargs)
+        end.record()
+        reduces.append((tensor.numel(), start, end))
+        return out
+
+    before = launch_counts()
+    for name in steps:
+        for _ in range(DP_WARMUP):
+            run(name)
+    turns = {name: [] for name in steps}
+    for name in ("one_process", "data_parallel", "data_parallel",
+                 "one_process"):
+        torch.cuda.synchronize()
+        if name == "data_parallel":
+            dist.all_reduce = timed_all_reduce
+        try:
+            t0 = time.perf_counter()
+            for _ in range(DP_TURN):
+                run(name)
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) / DP_TURN)
+        finally:
+            dist.all_reduce = real
+    losses = [x.item() for x in losses]
+    if launch_counts() != before:
+        fail("a data-parallel pretrain step launched a kernel")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail(f"non-finite pretrain loss: {losses}")
+    grads_ms = [s.elapsed_time(e) for k, s, e in reduces if k == n_grads]
+    other_ms = [s.elapsed_time(e) for k, s, e in reduces if k != n_grads]
+    if len(grads_ms) != 2 * DP_TURN:
+        fail(f"{len(grads_ms)} gradient all-reduces of {n_grads} elements "
+             f"in {2 * DP_TURN} data-parallel steps")
+    step_ms = {name: 1e3 * sum(t) / len(t) for name, t in turns.items()}
+    del model, steps, batch
+    torch.cuda.empty_cache()
+    return {"batch": n, "queue": queue, "step_ms": step_ms,
+            "turns_ms": {k: [1e3 * t for t in v] for k, v in turns.items()},
+            "samples_per_s": {k: 1e3 * n / v for k, v in step_ms.items()},
+            "dp_over_one_process": step_ms["data_parallel"]
+            / step_ms["one_process"],
+            "grad_elements": n_grads,
+            "grad_all_reduce_ms": grads_ms,
+            "loss_all_reduce_ms": other_ms,
+            "first_loss": losses[0], "last_loss": losses[-1]}
+
+
+def dp_cli(dev, workdir: str) -> dict:
+    """pretrain_dp (c): cli.pretrain under torch.distributed.run
+    --standalone --nproc_per_node 1 with --zero1 --bf16_moments
+    --async_save --max_steps 4 --save_every 2 over pretrain_corpus, then
+    the same without --async_save from step_2.pt to step 4: steps 3-4's
+    losses equal the first run's, bitwise, so both runs save the same
+    state at step 4.  The CLI prints how long its loop stood still at each
+    save: the first run's two async saves, the resume's blocking one."""
+    corpus, cache = pretrain_corpus(workdir)
+    first, second = (os.path.join(workdir, d) for d in ("dp_first",
+                                                        "dp_second"))
+    common = ["torch.distributed.run", "--standalone", "--nproc_per_node",
+              "1", "-m", "spmm_tpu_torch.cli.pretrain", "--zero1",
+              "--bf16_moments", "--max_steps", "4", "--save_every", "2",
+              "--data_path", corpus, "--property_cache", cache, "--seed",
+              str(SEED)]
+    out1, s1 = _run_cli(common + ["--async_save", "--output_dir", first],
+                        "torch.distributed.run cli.pretrain")
+    out2, s2 = _run_cli(common + ["--output_dir", second, "--resume",
+                                  os.path.join(first, "step_2.pt")],
+                        "torch.distributed.run cli.pretrain --resume")
+    run1 = _metrics(os.path.join(first, "metrics.jsonl"))
+    run2 = _metrics(os.path.join(second, "metrics.jsonl"))
+    stalls = [[float(ln.split("stood still ")[1].split(" s")[0])
+               for ln in out.splitlines() if ln.startswith("saved step_")]
+              for out in (out1, out2)]
+    waits = [float(ln.split("(")[1].split(" s")[0])
+             for ln in out1.splitlines() if ln.startswith("saved step_")]
+    setup = [float(ln.split("after ")[1].split(" s")[0])
+             for ln in (out1 + out2).splitlines()
+             if ln.startswith("state ready after")]
+    with open(os.path.join(first, "run_meta.json")) as f:
+        meta = json.load(f)
+    if [r["step"] for r in run1] != [1, 2, 3, 4] or \
+            [r["step"] for r in run2] != [3, 4] or \
+            "resumed at step 2" not in out2 or \
+            [len(x) for x in stalls] != [2, 1] or meta["n_dev"] != 1 or \
+            [r["loss"] for r in run1[2:]] != [r["loss"] for r in run2] or \
+            not all(r["loss"] == r["loss"] for r in run1):
+        fail(f"torch.distributed.run cli.pretrain: steps "
+             f"{[r['step'] for r in run1]} and {[r['step'] for r in run2]}, "
+             f"losses {[r['loss'] for r in run1]} and "
+             f"{[r['loss'] for r in run2]}, saves {stalls}, {meta}")
+    gib = os.path.getsize(os.path.join(second, "step_4.pt")) / 2 ** 30
+    return {"wall_s": [s1, s2], "setup_s": setup,
+            "losses": [r["loss"] for r in run1],
+            "resumed_losses": [r["loss"] for r in run2],
+            "async_save_stall_s": stalls[0],
+            "async_save_waited_for_previous_s": waits,
+            "blocking_save_s": stalls[1][0],
+            "checkpoint_gib": gib}
+
+
+def pretrain_dp(dev, workdir: str) -> dict:
+    """The phase: a NCCL group of one on the card (a file store in
+    ``workdir``), the gate, the timing and the CLI; the group is destroyed
+    at the end.  Neither kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    from spmm_tpu_torch.parallel import multihost
+    from spmm_tpu_torch.training.pretrain import step_generator
+
+    t0 = time.perf_counter()
+    multihost.initialize(dev, init_method=f"file://{workdir}/store",
+                         world_size=1, rank=0)
+    before = launch_counts()
+    out = {"part_s": {"init": time.perf_counter() - t0}}
+    try:
+        out.update(backend=dist.get_backend(), world=dist.get_world_size())
+        for name, fn in (("gate", lambda: dp_gate(dev)),
+                         ("timing", lambda: dp_timing(dev)),
+                         ("cli", lambda: dp_cli(dev, workdir))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out["part_s"][name] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    if launch_counts() != before:
+        fail("the pretrain_dp phase launched a kernel")
+    a, b = (torch.rand(4, generator=step_generator(s, 0, dev), device=dev)
+            for s in (1, 2))
+    out["seed_reaches_card_generator"] = not torch.equal(a, b)
+    return out
 
 
 def finetune_eval(dev, calls) -> dict:
@@ -2136,6 +2405,9 @@ def main(argv=None) -> int:
     timing_mixed = {"shape": "B=64 Lk 512, one 505-token text among 63 "
                              "SMILES", **time_mha_on(dev, mixed)}
     log_mha_timing("mixed eval B=64 512x512", timing_mixed)
+    timing_stream = time_stream(dev)
+    for row in timing_stream:
+        log_mha_timing(row["shape"], row)
     mha_batch_ms = sum(r["launches_per_batch"] * r["ms"] for r in timing2)
     log(f"  sum over classes of launches x ms: {mha_batch_ms:.2f} ms of "
         f"kernel 2 per SMILES->PV batch")
@@ -2331,6 +2603,52 @@ def main(argv=None) -> int:
         f"cli.convert_checkpoint --to_torch {row['wall_s'][2]:.1f} s, "
         f"loaded strictly into an SPMM; {row['mfu_line']}")
 
+    # ---- pretrain_dp: the data-parallel step through NCCL at world 1 ----
+    mark("pretrain_dp")
+    with tempfile.TemporaryDirectory() as workdir:
+        dp = pt["dp"] = pretrain_dp(dev, workdir)
+    gate, bf = dp["gate"], dp["gate"]["bf16_moments_gate"]
+    log(f"[pretrain_dp] {dp['backend']} group of {dp['world']}; gate, full "
+        f"width, batch {PRETRAIN_GATE[0]}, queue {PRETRAIN_GATE[1]}, noise "
+        f"fixed: the data-parallel step equals the one-process step and "
+        f"zero1 equals replicated, bitwise (parameters, twins, queues, ptr; "
+        f"loss {gate['losses']['one_process']:.6f}); bf16_moments card vs "
+        f"CPU: loss rel diff {bf['loss_rel_diff']:.2e}, worst gradient at "
+        f"{bf['grad_worst_share_of_bar']:.3f} of its bar, parameters within "
+        f"{bf['param_max_abs_diff']:.2e} ({bf['params_past_1e-6']} past "
+        f"1e-6), twins {bf['twin_max_abs_diff']:.2e}, queues "
+        f"{bf['queue_max_abs_diff']:.2e}")
+    row = dp["timing"]
+    log(f"[pretrain_dp] fp32, batch {row['batch']}, queue {row['queue']}, "
+        f"dropout on, turns of {DP_TURN} (one process, data parallel, data "
+        f"parallel, one process): one process "
+        f"{row['step_ms']['one_process']:.1f} ms a step "
+        f"({row['samples_per_s']['one_process']:.1f} samples/s; turns "
+        + ", ".join(f"{t:.1f}" for t in row["turns_ms"]["one_process"])
+        + f"), data parallel {row['step_ms']['data_parallel']:.1f} ms "
+        f"({row['samples_per_s']['data_parallel']:.1f} samples/s; turns "
+        + ", ".join(f"{t:.1f}" for t in row["turns_ms"]["data_parallel"])
+        + f"): x{row['dp_over_one_process']:.4f}; all-reduce of the "
+        f"{row['grad_elements']} gradient elements "
+        f"{sum(row['grad_all_reduce_ms']) / len(row['grad_all_reduce_ms']):.3f}"
+        f" ms (min {min(row['grad_all_reduce_ms']):.3f}, max "
+        f"{max(row['grad_all_reduce_ms']):.3f}), of the loss "
+        f"{max(row['loss_all_reduce_ms']):.3f} ms at most; {card}")
+    row = dp["cli"]
+    log(f"[pretrain_dp] torch.distributed.run cli.pretrain --zero1 "
+        f"--bf16_moments --async_save --max_steps 4 --save_every 2 "
+        f"{row['wall_s'][0]:.1f} s, the same without --async_save from "
+        f"step_2.pt {row['wall_s'][1]:.1f} s, steps 3-4 losses equal; of a "
+        f"{row['checkpoint_gib']:.2f} GiB checkpoint the loop stood still "
+        + ", ".join(f"{t:.3f}" for t in row["async_save_stall_s"])
+        + " s at the async saves (of which waiting for the previous write "
+        + ", ".join(f"{t:.3f}" for t in row["async_save_waited_for_previous_s"])
+        + f" s), {row['blocking_save_s']:.3f} s at the "
+        f"blocking one; the run's seed reaches the card's step generator: "
+        f"{dp['seed_reaches_card_generator']}; the CLI's state was ready "
+        f"after " + ", ".join(f"{t:.1f}" for t in row["setup_s"]) + " s; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in dp["part_s"].items()))
+
     # ---- shapes: every launch shape of the main paths vs plain ----
     mark("shapes")
     log("[shapes] each kernel against its plain version, and timed, at every "
@@ -2398,7 +2716,8 @@ def main(argv=None) -> int:
                    rxn_launches=rxn_run["greedy_launches"][1],
                    finetune_eval_launches=ft["eval"]["launches"],
                    per_shape=timing2 + timing_enc,
-                   mixed_eval=timing_mixed, long_kernel_reach=reach,
+                   mixed_eval=timing_mixed, stream_kernel=timing_stream,
+                   long_kernel_reach=reach,
                    long_rows_vs_parent=vs_parent,
                    main_path_shapes=[row for row in main_shapes
                                      if row["kernel"] == KERNEL2["name"]],

@@ -1,32 +1,49 @@
-"""SPMM pretraining CLI on one GPU (counterpart of ``spmm_tpu.cli.pretrain``;
-reference SPMM_pretrain.py).
+"""SPMM pretraining CLI (counterpart of ``spmm_tpu.cli.pretrain``; reference
+SPMM_pretrain.py), on one GPU or data-parallel over several.
 
     python -m spmm_tpu_torch.cli.pretrain --data_path corpus.txt \\
         --property_cache corpus.pv.npz --output_dir ./Pretrain
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m spmm_tpu_torch.cli.pretrain --data_path ... --zero1
 
-One process and one device (the GPU unless ``--device cpu``), so the global
-batch is ``--batch_size``.  The corpus is one SMILES per line; the
-property cache is an ``.npz`` whose ``pv`` [N, 53] holds the raw property
-vectors of those lines (the port computes no descriptors: it has no RDKit).
-A checkpoint (``checkpoint.io``) is written to ``<output_dir>/step_<n>.pt``
-every ``--save_every`` steps and at ``--max_steps``, and to ``final.pt``
-after the last epoch; ``--resume`` reads one back, checks ``run_meta.json``
-beside it and fast-forwards the data to the step it holds.  Each step's
-dropout, property mask and hard negatives draw from a generator seeded from
-``--seed`` and the step, so a resumed run draws what an uninterrupted one
-draws.  Every 50 steps it prints the losses, samples/s and, on the GPU,
-MFU against the H100's peak for the dtype that runs (FLOPs counted over
-the first step).
+Without ``torch.distributed.run``'s environment it is one process on one
+device (the GPU unless ``--device cpu``) with no process group.  Under it
+each rank is one process on ``cuda:LOCAL_RANK`` (NCCL), or on the CPU with
+``--device cpu`` (gloo), and the step is data-parallel
+(``training.pretrain.make_pretrain_step``).  ``--batch_size`` is per rank,
+as in the JAX CLI, so the global batch is ``batch_size x world``; it must
+divide ``--queue_size``.  Every rank builds the same global batch from the
+seed and keeps its rows (``parallel.multihost.local_rows``).  Rank 0 alone
+prints, logs and writes checkpoints.
 
-Not here yet: ``--zero1``, ``--bf16_moments`` and ``--async_save`` (ROADMAP
-queue 1 item 2), ``--tp``, ``--fsdp`` and ``--sp`` (queue 1 item 5).
-``--donate`` and ``--prng`` have no meaning in the port: PyTorch updates
-the state in place, and randomness comes from ``torch.Generator``.
+The corpus is one SMILES per line; the property cache is an ``.npz`` whose
+``pv`` [N, 53] holds the raw property vectors of those lines (the port
+computes no descriptors: it has no RDKit).  A checkpoint
+(``checkpoint.io``, a plain AdamW's optimizer layout whatever the world
+size or ``--zero1``) is written to ``<output_dir>/step_<n>.pt`` every
+``--save_every`` steps and at ``--max_steps``, and to ``final.pt`` after
+the last epoch; ``--async_save`` writes it from a background thread once
+the state is on the host.  ``--resume`` reads one back, checks
+``run_meta.json`` beside it and fast-forwards the data to the step it
+holds.  Each chunk of a step's global batch draws its dropout, property
+mask and hard negatives from a generator seeded from ``--seed``, the step
+and the chunk, so a resumed run draws what an uninterrupted one draws, and
+N ranks draw what one process at N times the ``--accum`` draws.  Every 50
+steps it prints the losses, samples/s and, on the GPU, MFU against the
+H100's peak for the dtype that runs (FLOPs counted per rank over the first
+step).
+
+Not here: ``--tp``, ``--fsdp`` and ``--sp`` (ROADMAP queue 1 item 5).
+``--donate`` (an XLA buffer flag) and ``--prng`` have no meaning in the
+port: PyTorch updates the state in place, and randomness comes from
+``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import sys
@@ -34,12 +51,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from spmm_tpu_torch.checkpoint.io import restore_checkpoint, save_checkpoint
+from spmm_tpu_torch.checkpoint.io import (
+    AsyncSaver, restore_checkpoint, save_checkpoint)
 from spmm_tpu_torch.cli._common import make_tokenizer, seed_everything
 from spmm_tpu_torch.configs import PretrainConfig, property_config, text_config
 from spmm_tpu_torch.data.datasets import PretrainDataset
 from spmm_tpu_torch.data.pipeline import batch_pretrain, prefetch
+from spmm_tpu_torch.parallel import multihost
+from spmm_tpu_torch.parallel.mesh import dp_rank, dp_size
 from spmm_tpu_torch.training.pretrain import (
     LOSS_KEYS, init_pretrain_state, make_pretrain_step, step_generator)
 from spmm_tpu_torch.utils.device import resolve_device
@@ -58,7 +79,8 @@ def main(argv=None):
                    help="a step_<n>.pt written by this CLI")
     p.add_argument("--output_dir", default="./Pretrain")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--batch_size", type=int, default=96)
+    p.add_argument("--batch_size", type=int, default=96,
+                   help="per-rank batch (reference: 96 x 8 GPUs)")
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--queue_size", type=int, default=36864)
     p.add_argument("--save_every", type=int, default=10000)
@@ -70,6 +92,15 @@ def main(argv=None):
     p.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step "
                         "(in-batch negatives become microbatch-local)")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard the AdamW moments over the ranks (ZeRO-1; "
+                        "parameters and EMA twins stay replicated); needs "
+                        "torch.distributed.run")
+    p.add_argument("--bf16_moments", action="store_true",
+                   help="bf16 AdamW first moment (optax mu_dtype)")
+    p.add_argument("--async_save", action="store_true",
+                   help="write checkpoints from a background thread once "
+                        "the state is on the host")
     p.add_argument("--metrics_log", default=None,
                    help="JSONL metrics path (default "
                         "<output_dir>/metrics.jsonl)")
@@ -77,22 +108,45 @@ def main(argv=None):
                    help="torch device (default: the GPU; 'cpu' to run there)")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    if multihost.launched():
+        dev = multihost.initialize(args.device)
+    else:
+        if args.zero1:
+            p.error("--zero1 shards over ranks: run under "
+                    "torch.distributed.run")
+        dev = resolve_device(args.device)
+    try:
+        with contextlib.redirect_stdout(sys.stdout if dp_rank() == 0
+                                        else None):
+            _run(p, args, dev)
+        if dist.is_initialized():
+            dist.barrier()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(p, args, dev) -> None:
+    t_start = time.perf_counter()
+    world, rank = dp_size(), dp_rank()
     seed = seed_everything(args.seed)
     tok = make_tokenizer()
-    global_bs = args.batch_size
+    global_bs = args.batch_size * world
     if args.queue_size % global_bs:
-        p.error("--queue_size must divide by --batch_size")
+        p.error(f"--queue_size must divide by the global batch {global_bs}")
+    if args.batch_size % args.accum:
+        p.error("--batch_size must divide by --accum")
     ds = PretrainDataset(args.data_path, property_cache=args.property_cache)
     steps_per_epoch = len(ds) // global_bs
     if steps_per_epoch == 0:
         p.error(f"{len(ds)} lines make no batch of {global_bs}")
-    print(f"#data: {len(ds)}  device: {dev}  batch: {global_bs}  "
-          f"steps/epoch: {steps_per_epoch}")
+    print(f"#data: {len(ds)}  device: {dev}  ranks: {world}  global batch: "
+          f"{global_bs}  steps/epoch: {steps_per_epoch}")
 
-    pcfg = PretrainConfig(batch_size=global_bs, epochs=args.epochs,
+    pcfg = PretrainConfig(batch_size=args.batch_size, epochs=args.epochs,
                           queue_size=args.queue_size, bf16_compute=args.bf16,
-                          remat=args.remat)
+                          remat=args.remat, bf16_moments=args.bf16_moments,
+                          zero1=args.zero1)
     model = init_pretrain_state(seed, pcfg, text_config(), property_config(),
                                 device=dev)
     opt, step_fn = make_pretrain_step(model, pcfg, steps_per_epoch,
@@ -101,11 +155,13 @@ def main(argv=None):
     if args.resume:
         start_step = restore_checkpoint(args.resume, model, opt)
         print("resumed at step", start_step)
-        _check_run_meta(args.resume, global_bs, seed)
-    os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "run_meta.json"), "w") as f:
-        json.dump({"global_bs": global_bs, "seed": seed, "n_dev": 1,
-                   "batch_size": global_bs}, f)
+        if rank == 0:
+            _check_run_meta(args.resume, global_bs, seed, world)
+    if rank == 0:
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "run_meta.json"), "w") as f:
+            json.dump({"global_bs": global_bs, "seed": seed, "n_dev": world,
+                       "batch_size": args.batch_size}, f)
     peak = None
     if dev.type == "cuda":
         peak = H100_PEAK_FLOPS["bf16" if args.bf16 else "fp32"]
@@ -113,23 +169,32 @@ def main(argv=None):
               f"({'bf16' if args.bf16 else 'fp32'} peak of an H100) on "
               f"{card_description()}")
 
+    print(f"state ready after {time.perf_counter() - t_start:.1f} s")
     start_epoch = min(start_step // steps_per_epoch, args.epochs)
     if args.resume and start_step:
         print(f"resume fast-forward: epoch {start_epoch}, "
               f"skipping {start_step % steps_per_epoch} batches")
-    logger = MetricLogger(args.metrics_log
-                          or os.path.join(args.output_dir, "metrics.jsonl"))
+    rows = (None if world == 1 else
+            multihost.local_rows(global_bs, rank, world, args.accum))
+    logger = MetricLogger(None if rank else args.metrics_log or os.path.join(
+        args.output_dir, "metrics.jsonl"))
+    saver = AsyncSaver() if args.async_save else None
     try:
-        _train_loop(args, model, opt, step_fn, tok, ds, logger, dev,
-                    steps_per_epoch, start_epoch, start_step, seed, peak)
+        _train_loop(args, model, opt, step_fn, tok, ds, logger, saver, dev,
+                    steps_per_epoch, start_epoch, start_step, seed, peak,
+                    rows, world)
     finally:
         logger.close()
+        if saver is not None:
+            saver.close()
 
 
-def _check_run_meta(resume: str, global_bs: int, seed: int) -> None:
+def _check_run_meta(resume: str, global_bs: int, seed: int,
+                    world: int) -> None:
     """The data fast-forward recomputes the position from the CURRENT seed
-    and batch; a resume under other values lands on other samples with no
-    error, so compare with the metadata written beside the checkpoint."""
+    and global batch; a resume under other values lands on other samples
+    with no error, so compare with the metadata written beside the
+    checkpoint (a changed world size too, as the JAX CLI does)."""
     meta_path = os.path.join(os.path.dirname(os.path.abspath(resume)),
                              "run_meta.json")
     if not os.path.exists(meta_path):
@@ -139,7 +204,8 @@ def _check_run_meta(resume: str, global_bs: int, seed: int) -> None:
         return
     with open(meta_path) as f:
         meta = json.load(f)
-    for key, cur in (("global_bs", global_bs), ("seed", seed), ("n_dev", 1)):
+    for key, cur in (("global_bs", global_bs), ("seed", seed),
+                     ("n_dev", world)):
         if meta.get(key, cur) != cur:
             print(f"WARNING: resume {key}={cur} differs from the original "
                   f"run's {meta[key]} ({meta_path}): the data fast-forward "
@@ -147,27 +213,39 @@ def _check_run_meta(resume: str, global_bs: int, seed: int) -> None:
                   "samples)", file=sys.stderr)
 
 
-def _train_loop(args, model, opt, step_fn, tok, ds, logger, dev,
-                steps_per_epoch, start_epoch, step, seed, peak):
+def _train_loop(args, model, opt, step_fn, tok, ds, logger, saver, dev,
+                steps_per_epoch, start_epoch, step, seed, peak, rows, world):
     def save(name: str) -> None:
-        save_checkpoint(os.path.join(args.output_dir, f"{name}.pt"), model,
-                        opt, step)
+        path = os.path.join(args.output_dir, f"{name}.pt")
+        t0 = time.perf_counter()
+        if saver is None:
+            save_checkpoint(path, model, opt, step)
+            note = ""
+        else:
+            saver.wait()
+            waited = time.perf_counter() - t0
+            saver.save(path, model, opt, step)
+            note = (f" ({waited:.3f} s of it waiting for the previous write;"
+                    " this write goes on)")
+        print(f"saved {name}.pt: the loop stood still "
+              f"{time.perf_counter() - t0:.3f} s{note}")
 
+    global_bs = args.batch_size * world
     flops_per_step = None
     losses = []
     t0 = time.time()
     for epoch in range(start_epoch, args.epochs):
         skip = step % steps_per_epoch if epoch == start_epoch else 0
         for b in prefetch(batch_pretrain(
-                tok, ds, args.batch_size, shuffle=True, seed=seed + epoch,
-                skip_batches=skip), depth=4):
+                tok, ds, global_bs, shuffle=True, seed=seed + epoch,
+                skip_batches=skip, rows=rows), depth=4):
             batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
-            gen = step_generator(seed, step, dev)
+            gens = functools.partial(step_generator, seed, step, dev)
             if peak is not None and flops_per_step is None:
                 metrics, flops_per_step = count_flops(
-                    lambda: step_fn(step, batch, gen))
+                    lambda: step_fn(step, batch, gens))
             else:
-                metrics = step_fn(step, batch, gen)
+                metrics = step_fn(step, batch, gens)
             step += 1
             losses.append([float(metrics[k]) for k in LOSS_KEYS])
             logger.log(step, {k: metrics[k] for k in
@@ -175,11 +253,13 @@ def _train_loop(args, model, opt, step_fn, tok, ds, logger, dev,
             if step % 50 == 0:
                 m = np.mean(losses[-50:], axis=0)
                 dt = time.time() - t0
-                util = mfu(flops_per_step, dt / 50, 1, peak) if peak else None
+                # FLOPs are counted per rank; mfu wants the whole step's
+                util = (mfu(flops_per_step * world, dt / 50, world, peak)
+                        if peak else None)
                 util_s = f" mfu {util:.1%}" if util else ""
                 print(f"step {step} lr {metrics['lr']:.2e} "
                       f"mlm {m[0]:.4f} mpm {m[1]:.4f} ita {m[2]:.4f} "
-                      f"itm {m[3]:.4f} ({args.batch_size * 50 / dt:.1f} "
+                      f"itm {m[3]:.4f} ({global_bs * 50 / dt:.1f} "
                       f"samples/s{util_s})")
                 t0 = time.time()
             if step % args.save_every == 0:

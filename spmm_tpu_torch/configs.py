@@ -97,9 +97,7 @@ class FinetuneConfig:
 @dataclasses.dataclass(frozen=True)
 class PretrainConfig:
     """SPMM pretraining hyperparameters (reference SPMM_pretrain.py:51-65),
-    with the JAX package's defaults.  ``zero1`` and ``bf16_moments`` are
-    carried for the same field set; the port's one-GPU step refuses both
-    (``training.pretrain.make_pretrain_step``)."""
+    with the JAX package's defaults."""
 
     embed_dim: int = 256
     batch_size: int = 96          # per-device batch
@@ -120,5 +118,5 @@ class PretrainConfig:
     grad_clip: float = 5.0
     bf16_compute: bool = False    # bf16 encoder compute (reference: fp16 AMP)
     remat: bool = False           # objective+layer rematerialization (memory for FLOPs)
-    bf16_moments: bool = False    # bf16 Adam first moment (not in the port yet)
-    zero1: bool = False           # ZeRO-1 optimizer-state sharding (not in the port yet)
+    bf16_moments: bool = False    # bf16 Adam first moment (optax mu_dtype)
+    zero1: bool = False           # ZeRO-1: Adam moments sharded over the ranks

@@ -94,10 +94,16 @@ def batch_pretrain(
     shuffle: bool = True,
     seed: int = 0,
     skip_batches: int = 0,
+    rows: Optional[Sequence[int]] = None,
 ) -> Iterator[dict]:
     """{'prop','ids','mask'} batches for the pretrain step (drop_last), in
     the JAX package's order for the same seed (``np.random.default_rng(
     seed).shuffle``).
+
+    ``rows`` keeps those rows of each global batch of ``batch_size``: a
+    data-parallel rank's share (``parallel.multihost.local_rows``).  Every
+    rank builds the same global batch from the same seed and pads it to
+    the same bucket, so its rows are the ones one process would train on.
 
     ``skip_batches`` fast-forwards past already-consumed batches of this
     epoch's shuffle order without touching the dataset or tokenizer: the
@@ -114,8 +120,10 @@ def batch_pretrain(
         items = [dataset[int(i)] for i in idx]
         ids, mask = tok.encode_batch([t for _, t in items],
                                      max_len=max_len, buckets=buckets)
-        yield {"prop": np.stack([p for p, _ in items]).astype(np.float32),
-               "ids": ids, "mask": mask}
+        batch = {"prop": np.stack([p for p, _ in items]).astype(np.float32),
+                 "ids": ids, "mask": mask}
+        yield batch if rows is None else {k: v[np.asarray(rows)]
+                                          for k, v in batch.items()}
 
 
 def prefetch(it: Iterable, depth: int = 2) -> Iterator:

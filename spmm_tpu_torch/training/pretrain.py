@@ -29,15 +29,24 @@ Randomness: dropout, the property mask and the hard negatives draw from the
 JAX loss's ``deterministic=False``), the momentum forwards included.
 ``noise_override`` fixes the mask and the negatives.
 
-One process, one device: the data-parallel, ZeRO-1 and bf16-moment
-variants of the JAX step come with the parallel slice.
+Data parallelism: under a ``torch.distributed`` process group (one
+process per GPU, ``parallel.multihost.initialize``) the step is the JAX
+step's ``shard_map`` over ``dp``: each rank computes the loss on its own
+rows, the gradients, loss and metrics are reduced, the momentum features
+are gathered into the replicated queues in global row order, and each
+rank draws its own noise.  ``pcfg.zero1`` shards the AdamW moments over
+the ranks (``ZeroRedundancyOptimizer``); ``pcfg.bf16_moments`` keeps the
+first moment in bf16 (``training.optim.AdamW``).  Without a process group
+it is one process on one device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -46,6 +55,8 @@ from spmm_tpu_torch.configs import (
     BertArchConfig, PretrainConfig, property_config, text_config)
 from spmm_tpu_torch.models.bert import BertForMaskedLM, BertModel, checkpointed
 from spmm_tpu_torch.models.spmm import SPMM
+from spmm_tpu_torch.parallel.mesh import dp_group
+from spmm_tpu_torch.training.optim import AdamW
 from spmm_tpu_torch.training.schedules import reference_cosine_schedule
 from spmm_tpu_torch.utils.device import DeviceLike, fp32_matmuls, resolve_device
 
@@ -383,72 +394,120 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> Tensor:
     return norm
 
 
-def make_pretrain_optimizer(model: PretrainModel,
-                            pcfg: PretrainConfig) -> torch.optim.AdamW:
-    """AdamW (optax.adamw's arithmetic, finetune.py's note) over the online
-    parameters and ``temp``, never the twins: with zero gradients AdamW
-    would decay them.  The lr is set per step."""
-    return torch.optim.AdamW(model.online_parameters(), lr=0.0,
-                             betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=pcfg.weight_decay)
+def make_pretrain_optimizer(model: PretrainModel, pcfg: PretrainConfig,
+                            group: Optional[dist.ProcessGroup] = None
+                            ) -> torch.optim.Optimizer:
+    """AdamW over the online parameters and ``temp``, never the twins: with
+    zero gradients AdamW would decay them.  The lr is set per step.
+
+    ``torch.optim.AdamW`` (optax.adamw's arithmetic, finetune.py's note),
+    or with ``pcfg.bf16_moments`` the port's ``training.optim.AdamW`` with a
+    bf16 first moment (optax's ``mu_dtype``).  ``pcfg.zero1`` wraps it in a
+    ``ZeroRedundancyOptimizer`` over ``group``: each rank keeps the moments
+    of its share of the parameters, steps them, and broadcasts them back;
+    the parameters stay replicated."""
+    cls = (functools.partial(AdamW, mu_dtype=torch.bfloat16)
+           if pcfg.bf16_moments else torch.optim.AdamW)
+    hyper = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=pcfg.weight_decay)
+    params = model.online_parameters()
+    if not pcfg.zero1:
+        return cls(params, **hyper)
+    if group is None:
+        raise ValueError("zero1 shards the optimizer state over a process "
+                         "group: start one first (parallel.multihost."
+                         "initialize)")
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    return ZeroRedundancyOptimizer(params, optimizer_class=cls,
+                                   process_group=group, **hyper)
+
+
+Generators = Union[torch.Generator, Callable[[int], torch.Generator], None]
 
 
 def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
-                       steps_per_epoch: int, accum: int = 1):
+                       steps_per_epoch: int, accum: int = 1,
+                       data_parallel: Optional[bool] = None):
     """(optimizer, step) of pretraining (``make_pretrain_step``,
-    spmm_tpu/training/pretrain.py:549-653, on one device).
+    spmm_tpu/training/pretrain.py:549-653).
 
-    ``step(global_step, batch, generator=None, noise=None)`` trains on one
-    batch of tensors on the model's device and returns the losses (0-dim
-    tensors), the lr, the gradients' global norm before the clip (None on a
-    skipped step) and whether the step was skipped.  In order:
+    ``step(global_step, batch, generator=None, noise=None)`` trains on this
+    rank's rows of one global batch (tensors on the model's device) and
+    returns the losses (0-dim tensors, averaged over the global batch), the
+    lr, the gradients' global norm before the clip (None on a skipped step)
+    and whether the step was skipped.  In order:
 
       - the EMA update, before the forward;
       - alpha ramps over epoch 0;
-      - ``accum`` microbatches: their losses and gradients are averaged,
-        and the queue takes every microbatch's momentum features in order
-        (in-batch negatives are microbatch-local);
+      - ``accum`` microbatches of this rank's rows: each backpropagates its
+        loss over ``world * accum`` into one flat gradient buffer, and the
+        queue takes every microbatch's momentum features;
+      - with a process group (``data_parallel`` None and one initialized,
+        or True): one all-reduce (sum) of the gradient buffer, one of the
+        loss and metrics, and one all-gather of the momentum features, so
+        that the queue is written in global row order on every rank.
+        Summing pre-scaled gradients makes two ranks' step the arithmetic
+        of one process at twice the ``accum``;
       - a non-finite loss skips everything below (the EMA and the caller's
-        step count still advance);
-      - clip by global norm ``pcfg.grad_clip``, then AdamW at
-        ``reference_cosine_schedule(step_size=100)`` of the step;
+        step count still advance); it is the reduced loss, so every rank
+        skips together;
+      - clip by global norm ``pcfg.grad_clip`` over the whole reduced
+        gradients, then AdamW at ``reference_cosine_schedule(step_size=
+        100)`` of the step (under ``pcfg.zero1`` each rank steps its share
+        and broadcasts it);
       - ``temp`` clipped to [0.01, 0.5];
-      - the queue written at columns (ptr + arange(B)) % Q.
+      - the queue written at columns (ptr + arange(B_global)) % Q.
 
-    ``noise`` fixes the loss's draws (``pretrain_loss``'s
-    ``noise_override``), as full-batch tensors that are split with the
-    batch; ``neg_*_idx`` index within their microbatch."""
-    if pcfg.zero1:
-        raise ValueError("zero1 is not in the port's one-GPU step; it comes "
-                         "with ROADMAP queue 1 item 2 (ZeroRedundancy"
-                         "Optimizer)")
-    if pcfg.bf16_moments:
-        raise ValueError("bf16_moments is not in the port's one-GPU step; "
-                         "it comes with ROADMAP queue 1 item 2")
+    Rows: the global batch is cut into ``accum`` microbatches and each is
+    split over the ranks, as JAX does, so this rank holds
+    ``parallel.multihost.local_rows``; microbatch ``i`` of rank ``r`` is
+    chunk ``c = i * world + r`` of the global batch.  ``generator`` is one
+    ``torch.Generator`` that every microbatch draws from, or a function of
+    the chunk (``functools.partial(step_generator, seed, step, device)``):
+    then the draws depend on the chunk alone, not on how the chunks are
+    spread over ranks and microbatches.  ``noise`` fixes the loss's draws
+    (``pretrain_loss``'s ``noise_override``), as tensors over this rank's
+    rows that are split with them; ``neg_*_idx`` index within their
+    microbatch.  ``data_parallel=False`` is the one-process step even under
+    a process group."""
+    group = None if data_parallel is False else dp_group()
+    if data_parallel and group is None:
+        raise ValueError("data_parallel=True needs a process group "
+                         "(parallel.multihost.initialize)")
+    world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
     fp32_matmuls()
-    opt = make_pretrain_optimizer(model, pcfg)
-    params = opt.param_groups[0]["params"]
+    opt = make_pretrain_optimizer(model, pcfg, group)
+    params = model.online_parameters()
+    # the gradients are views of one buffer: backward accumulates into
+    # them in place, and one collective reduces them all
+    flat = torch.zeros(sum(p.numel() for p in params),
+                       device=params[0].device)
+    grads, offset = [], 0
+    for p in params:
+        grads.append(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
     schedule = reference_cosine_schedule(
         pcfg.lr, pcfg.min_lr, pcfg.warmup_lr, pcfg.epochs,
         pcfg.warmup_epochs, steps_per_epoch, step_size=100)
 
-    def step(global_step: int, batch: dict,
-             generator: Optional[torch.Generator] = None,
+    def step(global_step: int, batch: dict, generator: Generators = None,
              noise: Optional[dict] = None) -> dict:
-        gb = batch["prop"].shape[0]
-        if pcfg.queue_size % gb or gb % accum:
-            raise ValueError(f"batch {gb} must divide the queue "
-                             f"{pcfg.queue_size} and divide by accum {accum}")
+        lb = batch["prop"].shape[0]
+        gb = lb * world
+        if pcfg.queue_size % gb or lb % accum:
+            raise ValueError(f"global batch {gb} ({world} x {lb}) must "
+                             f"divide the queue {pcfg.queue_size}, and "
+                             f"{lb} divide by accum {accum}")
         epoch, batch_idx = divmod(int(global_step), steps_per_epoch)
         alpha = (pcfg.alpha if epoch > 0 else
                  pcfg.alpha * min(1.0, batch_idx / steps_per_epoch))
         ema_update(model, pcfg.momentum)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            else:
-                p.grad.zero_()
-        mb = gb // accum
+        flat.zero_()
+        for p, g in zip(params, grads):
+            p.grad = g
+        mb, scale = lb // accum, world * accum
         loss = 0.0
         parts = dict.fromkeys(LOSS_KEYS, 0.0)
         feats = []
@@ -456,31 +515,43 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
             rows = slice(i * mb, (i + 1) * mb)
             total, aux = pretrain_loss(
                 model, {k: v[rows] for k, v in batch.items()}, alpha, pcfg,
-                generator,
+                generator(i * world + rank) if callable(generator)
+                else generator,
                 None if noise is None else {k: v[rows]
                                             for k, v in noise.items()})
-            (total / accum).backward()
-            loss = loss + total.detach() / accum
+            (total / scale).backward()
+            loss = loss + total.detach() / scale
             for k in LOSS_KEYS:
-                parts[k] = parts[k] + aux[k].detach() / accum
-            feats.append((aux["prop_feat_m"], aux["text_feat_m"]))
+                parts[k] = parts[k] + aux[k].detach() / scale
+            feats.append(torch.stack([aux["prop_feat_m"],
+                                      aux["text_feat_m"]]))
+        feats = torch.stack(feats)                  # [accum, 2, mb, E]
+        if group is None:
+            feats = feats[:, None]
+        else:
+            dist.all_reduce(flat, group=group)
+            stats = torch.stack([loss, *(parts[k] for k in LOSS_KEYS)])
+            dist.all_reduce(stats, group=group)
+            loss, parts = stats[0], dict(zip(LOSS_KEYS, stats[1:]))
+            gathered = [torch.empty_like(feats) for _ in range(world)]
+            dist.all_gather(gathered, feats, group=group)
+            feats = torch.stack(gathered, 1)        # [accum, world, 2, mb, E]
+        # chunk order (microbatch, then rank) is global row order
+        feats = feats.permute(2, 0, 1, 3, 4).reshape(2, gb, -1)
         lr = schedule(global_step)
         finite = bool(torch.isfinite(loss))
         norm = None
         if finite:
-            norm = clip_by_global_norm_([p.grad for p in params],
-                                        pcfg.grad_clip)
-            for group in opt.param_groups:
-                group["lr"] = lr
+            norm = clip_by_global_norm_(grads, pcfg.grad_clip)
+            for g in opt.param_groups:
+                g["lr"] = lr
             opt.step()
             with torch.no_grad():
                 model.temp.clamp_(0.01, 0.5)
                 cols = (model.queue_ptr + torch.arange(
                     gb, device=model.queue_ptr.device)) % pcfg.queue_size
-                model.prop_queue.index_copy_(
-                    1, cols, torch.cat([f[0] for f in feats]).t())
-                model.text_queue.index_copy_(
-                    1, cols, torch.cat([f[1] for f in feats]).t())
+                model.prop_queue.index_copy_(1, cols, feats[0].t())
+                model.text_queue.index_copy_(1, cols, feats[1].t())
                 model.queue_ptr.copy_((model.queue_ptr + gb)
                                       % pcfg.queue_size)
         return {"loss": loss, **parts, "lr": lr, "grad_norm": norm,
@@ -489,11 +560,26 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
     return opt, step
 
 
-def step_generator(seed: int, global_step: int,
-                   device: torch.device) -> torch.Generator:
-    """The generator of one step, seeded from the run's seed and the step
-    (as the JAX CLI folds the step into its key): a resumed run draws what
-    an uninterrupted one draws."""
-    return torch.Generator(device=device).manual_seed(
-        ((seed + 1) << 32) + int(global_step))
+def step_generator(seed: int, global_step: int, device: torch.device,
+                   chunk: int = 0) -> torch.Generator:
+    """The generator of one chunk of one step's global batch, seeded from
+    the run's seed, the step (as the JAX CLI folds the step into its key)
+    and the chunk (``make_pretrain_step``: microbatch ``i`` of rank ``r``
+    is chunk ``i * world + r``, as JAX folds in the dp index): a resumed
+    run draws what an uninterrupted one draws, and two ranks draw what one
+    process at twice the ``accum`` draws.  Chunk 0 is the one-process,
+    one-microbatch generator.  Other chunks take the splitmix64 mix of it
+    and the chunk, which reaches the low 32 bits, the only ones the CPU's
+    Mersenne Twister reads."""
+    value = ((seed + 1) << 32) + int(global_step)
+    if chunk:
+        value = _splitmix64(value ^ _splitmix64(chunk))
+    return torch.Generator(device=device).manual_seed(value)
 
+
+def _splitmix64(x: int) -> int:
+    mask = 2 ** 64 - 1
+    x = (x + 0x9E3779B97F4A7C15) & mask
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & mask
+    return x ^ (x >> 31)

@@ -408,14 +408,6 @@ def test_optimizer_takes_online_params_and_temp_never_twins():
     assert [p.shape for p in twins] == [p.shape for p in online]
 
 
-@pytest.mark.parametrize("field", ["zero1", "bf16_moments"])
-def test_unported_options_raise(field):
-    _, tp = pcfgs(**{field: True})
-    model = port_state(jax_state(0))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pretrain.make_pretrain_step(model, tp, STEPS_PER_EPOCH)
-
-
 def test_ema_update_matches_jax():
     jp, _ = pcfgs()
     st = jax_state(10)

@@ -1,0 +1,102 @@
+"""One rank of the port's data-parallel tests
+(tests/test_torch_distributed.py).
+
+It imports torch and spmm_tpu_torch only: a rank started by
+``torch.multiprocessing.spawn`` would re-import the test module, and with
+it jax and spmm_tpu.  Two ways to run it:
+
+    python tests/torch_dist_worker.py steps WORKDIR RANK WORLD
+
+joins a gloo group through the file store ``WORKDIR/store``, reads
+``WORKDIR/input.pt`` (a port state dict, the configs, global batches and
+noise, and a list of scenarios), runs each scenario's data-parallel steps
+on this rank's rows and writes ``WORKDIR/<scenario>_rank<RANK>.pt`` (the
+state dict, the losses, the optimizer state's element count);
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        tests/torch_dist_worker.py cli TEXT_CFG_JSON PROP_CFG_JSON ARGS...
+
+runs ``spmm_tpu_torch.cli.pretrain.main(ARGS)`` with those tiny configs
+in place of the full-width ones.
+"""
+
+import json
+import sys
+
+import torch
+
+from spmm_tpu_torch.checkpoint.io import restore_checkpoint, save_checkpoint
+from spmm_tpu_torch.configs import BertArchConfig, PretrainConfig
+from spmm_tpu_torch.parallel import multihost
+from spmm_tpu_torch.parallel.mesh import dp_rank, dp_size
+from spmm_tpu_torch.training import pretrain
+
+
+def rows_of(tree: dict, rows) -> dict:
+    return {k: v[torch.as_tensor(rows)] for k, v in tree.items()}
+
+
+def run_scenario(inp: dict, sc: dict, workdir: str) -> dict:
+    """``sc``: name, accum, batches (a key of ``inp``), steps, zero1,
+    bf16_moments, and optionally resume (a checkpoint to start from) and
+    save_at (write a checkpoint after that many steps)."""
+    rank, world = dp_rank(), dp_size()
+    pcfg = PretrainConfig(**inp["pcfg"], zero1=sc["zero1"],
+                          bf16_moments=sc["bf16_moments"])
+    model = pretrain.PretrainModel(*inp["configs"], pcfg.embed_dim,
+                                   pcfg.queue_size)
+    model.load_state_dict(inp["state"], strict=True)
+    opt, step = pretrain.make_pretrain_step(
+        model, pcfg, inp["steps_per_epoch"], accum=sc["accum"])
+    first = 0
+    if sc.get("resume"):
+        first = restore_checkpoint(sc["resume"], model, opt)
+    batches, noises = inp[sc["batches"]]
+    losses = []
+    for s in range(first, sc["steps"]):
+        n = batches[s]["prop"].shape[0]
+        rows = multihost.local_rows(n, rank, world, sc["accum"])
+        m = step(s, rows_of(batches[s], rows), noise=rows_of(noises[s], rows))
+        losses.append(m["loss"].item())
+        if sc.get("save_at") == s + 1:
+            save_checkpoint(f"{workdir}/{sc['name']}_step{s + 1}.pt", model,
+                            opt, s + 1)
+    inner = getattr(opt, "optim", opt)
+    held = sum(st[k].numel() for st in inner.state.values()
+               for k in ("exp_avg", "exp_avg_sq"))
+    return {"state": model.state_dict(), "losses": losses,
+            "opt_elements": held,
+            "param_elements": sum(p.numel()
+                                  for p in model.online_parameters())}
+
+
+def steps(workdir: str, rank: int, world: int) -> None:
+    torch.set_num_threads(1)
+    multihost.initialize("cpu", init_method=f"file://{workdir}/store",
+                         world_size=world, rank=rank)
+    try:
+        inp = torch.load(f"{workdir}/input.pt", weights_only=True)
+        inp["configs"] = [BertArchConfig(**c) for c in inp["configs"]]
+        for sc in inp["scenarios"]:
+            torch.save(run_scenario(inp, sc, workdir),
+                       f"{workdir}/{sc['name']}_rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def cli(text_cfg: str, prop_cfg: str, argv: list) -> None:
+    from spmm_tpu_torch.cli import pretrain as cli_pretrain
+
+    torch.set_num_threads(1)
+    tc, pc = (BertArchConfig(**json.loads(c)) for c in (text_cfg, prop_cfg))
+    cli_pretrain.text_config = lambda: tc
+    cli_pretrain.property_config = lambda: pc
+    cli_pretrain.main(argv)
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "steps":
+        steps(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    else:
+        cli(sys.argv[2], sys.argv[3], sys.argv[4:])
