@@ -18,7 +18,11 @@ against its plain PyTorch version:
     attention with dropout, evaluation through kernel 2 (any Lk: past 256
     keys its tiled kernel), and the four training CLIs;
   - SPMM pretraining (four objectives, momentum twins, feature queues) on
-    the plain attention: it launches neither kernel.
+    the plain attention, in one process, data-parallel, tensor-parallel
+    (with or without sequence parallelism) and fully sharded: it launches
+    neither kernel;
+  - data-parallel inference over several replicas (``devices=``) and the
+    fusion layers' cross-attention maps.
 
 Phases, in order; any failure exits non-zero:
 
@@ -129,6 +133,24 @@ Phases, in order; any failure exits non-zero:
               and a resume from step_2.pt without --async_save (steps 3-4
               equal), the loop's stall at each async save and at the
               blocking save of the same state; neither kernel launches;
+  parallel    under a NCCL group of one: the full-width pretrain step
+              (batch 96, queue 36,864, fp32, dropout on) under a (1, 1)
+              dp x tp mesh with the tp plan, the same with sp, and under a
+              (1, 1) dp x fsdp mesh with FSDP2, each from a copy of one
+              state against the one-process step at the pretrain gate's
+              bars, then timed in turns (one process, tp, sp, fsdp, and
+              back) with the memory each keeps and its peak; both kernels
+              at a tp rank's heads (h=6 for tp=2, h=3 for tp=4): kernel 2
+              at every SMILES->PV launch class, kernel 1 at the serving
+              shape, against their plain versions and timed beside their
+              bounds; predict_pv under the tp plan through kernel 2 within
+              1e-5 of the unsharded model.  Then, as main paths, an fp32
+              k=2 beam search of 128 PVs and predict_pv of 128 SMILES over
+              devices=[card, card] (two shards, two worker threads) equal
+              to the unsharded batches (seqs exact, values within 1e-5),
+              each shard launching what the unsharded batch launches; and
+              cross_attention_maps at full width, card against CPU within
+              1e-5, every row summing to 1;
   shapes      over phases 5, rxn and finetune, every call of a kernel
               wrapper was recorded (KernelCalls); each kernel is held to its plain
               version at every launch shape those main paths passed it:
@@ -207,6 +229,10 @@ STREAM_CASES = ((40, 1300, "causal"), (33, 2000, "padding"))
 # pretrain_dp: warm-up steps of each step, then timed steps per turn (turns:
 # one process, data parallel, data parallel, one process)
 DP_WARMUP, DP_TURN = 1, 5
+# parallel: timed steps per turn of each layout (turns: one process, tp,
+# tp + sp, fsdp, then back); the heads of a tp rank at tp=2 and tp=4
+PAR_TURN = 2
+TP_HEADS = (6, 3)
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -550,9 +576,11 @@ def capture_decoder_mask(dev, model, batch: int = 128) -> dict:
     return {"mask": mask, "pos": pos, "steps": res["steps"]}
 
 
-def time_kernel(dev, m=128, pos=103, mask=None, k=2, kind="random") -> dict:
-    """bf16 at h=12, D=64, T=104: kernel, plain version, one SDPA call, and
-    the bound, on an ancestry mask of ``kind`` or on the given mask.
+def time_kernel(dev, m=128, pos=103, mask=None, k=2, kind="random",
+                h=12) -> dict:
+    """bf16 at h heads (12, or a tensor-parallel rank's 12 / tp), D=64,
+    T=104: kernel, plain version, one SDPA call, and the bound, on an
+    ancestry mask of ``kind`` or on the given mask.
     Launches walk the 12 layers, so at m=128, k=2 each reads a layer's
     prefix (81 MB > the 50 MB L2) cold, as the decoder does."""
     import torch
@@ -562,7 +590,7 @@ def time_kernel(dev, m=128, pos=103, mask=None, k=2, kind="random") -> dict:
         beam_decode_attention, beam_decode_attention_reference)
     from spmm_tpu_torch.ops.masks import MASK_VALUE
 
-    h, d, T, L = 12, 64, 104, 12
+    d, T, L = 64, 104, 12
     dt = torch.bfloat16
     q, kn, vn, cache, mask = kernel_inputs(dev, m, h, k, T, d, L, dt, pos,
                                            seed=1, kind=kind, mask=mask)
@@ -715,16 +743,17 @@ def s2p_launch_classes() -> list:
     return classes
 
 
-def time_mha(dev, classes) -> list:
-    """fp32, B=128, h=12, D=64, at each of the given launch classes (label,
-    Lq, Lk, mask, cross K/V, launches per batch), on inputs from
-    ``mha_inputs``.  Launches per batch beside each, so that sum(launches x
-    ms) can be held against the profile."""
+def time_mha(dev, classes, h: int = 12) -> list:
+    """fp32, B=128, h heads (12, or a tensor-parallel rank's 12 / tp),
+    D=64, at each of the given launch classes (label, Lq, Lk, mask, cross
+    K/V, launches per batch), on inputs from ``mha_inputs``.  Launches per
+    batch beside each, so that sum(launches x ms) can be held against the
+    profile."""
     import torch
 
     rows = []
     for label, lq, lk, kind, kv_contig, launches in classes:
-        inputs = mha_inputs(dev, 128, 12, lq, lk, 64, torch.float32, kind,
+        inputs = mha_inputs(dev, 128, h, lq, lk, 64, torch.float32, kind,
                             seed=lq + lk, kv_contiguous=kv_contig)
         rows.append({"shape": label, "launches_per_batch": launches,
                      **time_mha_on(dev, inputs)})
@@ -2022,6 +2051,333 @@ def pretrain_dp(dev, workdir: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase parallel: tp, sp and fsdp at world 1, both kernels at a tp rank's
+# heads, predict_pv under the tp plan, sharded inference, attention maps
+# --------------------------------------------------------------------------- #
+
+
+def whole_state(model) -> dict:
+    """The model's state dict with every DTensor gathered whole."""
+    from spmm_tpu_torch.checkpoint.io import whole
+
+    return whole(model.state_dict())
+
+
+def compare_parallel(model, ref, loss: float, ref_loss: float,
+                     lr: float) -> dict:
+    """The "pretrain" gate's bars between a tp, sp or fsdp step and the
+    one-process step from the same state on the card: the loss within 1e-5
+    relative; each gradient within 1e-4 of its norm plus the gate's floor;
+    each parameter within 1e-6 plus lr * |dg| / eps (Adam's slope, as
+    ``compare_steps``); the twins within 1e-6; the queues within 1e-5;
+    ``queue_ptr`` equal."""
+    from spmm_tpu_torch.checkpoint.io import whole
+    from spmm_tpu_torch.training.pretrain import EMA_KEYS
+
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    if not loss_rel <= 1e-5:
+        fail(f"parallel step loss {loss} vs one process {ref_loss}")
+    mine = dict(model.named_parameters())
+    pairs = [(name, mine[name], p) for name, p in ref.named_parameters()
+             if p.requires_grad]
+    floor = 1e-6 * max(p.grad.norm().item() for _, _, p in pairs)
+    grad_share, param_err = 0.0, 0.0
+    for name, pm, pr in pairs:
+        dg = whole(pm.grad) - pr.grad
+        grad_share = max(grad_share, dg.norm().item()
+                         / (1e-4 * pr.grad.norm().item() + floor))
+        dp = (whole(pm.detach()) - pr.detach()).abs()
+        param_err = max(param_err, dp.max().item())
+        excess = (dp - 1e-6 - lr * dg.abs() / 1e-8).max().item()
+        if grad_share > 1 or excess > 0:
+            fail(f"parallel step differs from the one-process step at "
+                 f"{name}: gradient at {grad_share:.2f} of its bar, "
+                 f"parameter by {dp.max().item():.2e}")
+    got, want = whole_state(model), ref.state_dict()
+    twins = {f"{e}_m" for e in EMA_KEYS}
+    twin_err = max((got[k] - v).abs().max().item() for k, v in want.items()
+                   if k.split(".", 1)[0] in twins)
+    queue_err = max((got[k] - want[k]).abs().max().item()
+                    for k in ("prop_queue", "text_queue"))
+    if not twin_err <= 1e-6 or not queue_err <= 1e-5 or \
+            not got["queue_ptr"].equal(want["queue_ptr"]):
+        fail(f"parallel step: twins {twin_err:.2e} (bar 1e-6), queues "
+             f"{queue_err:.2e} (bar 1e-5), ptr {got['queue_ptr'].tolist()} "
+             f"vs {want['queue_ptr'].tolist()}")
+    return {"loss": loss, "loss_rel_diff": loss_rel,
+            "grad_worst_share_of_bar": grad_share,
+            "param_max_abs_diff": param_err, "twin_max_abs_diff": twin_err,
+            "queue_max_abs_diff": queue_err}
+
+
+def parallel_steps(dev) -> dict:
+    """parallel (1), under the NCCL group of one: PRETRAIN's batch and
+    queue, fp32, dropout on (a generator per chunk from the seed), global
+    step 12 of 1000 an epoch.  One state is built once and copied: the
+    one-process step, then the step under a (1, 1) dp x tp mesh with the tp
+    plan, the same with sp, and under a (1, 1) dp x fsdp mesh with FSDP2,
+    each from its own copy; each equals the one-process step at
+    ``compare_parallel``'s bars.  Then PAR_TURN steps a turn, in turns (one
+    process, tp, sp, fsdp, fsdp, sp, tp, one process), with the memory
+    each model keeps between steps and the peak over its steps.  Neither
+    kernel launches."""
+    import functools
+
+    import torch
+
+    from spmm_tpu_torch.configs import PretrainConfig
+    from spmm_tpu_torch.parallel import mesh
+    from spmm_tpu_torch.training.pretrain import (
+        init_pretrain_state, make_pretrain_step, step_generator)
+
+    n, queue = PRETRAIN
+    pcfg = PretrainConfig(queue_size=queue)
+    batch, _ = pretrain_batch(dev, n, SEED + 22)
+    start = init_pretrain_state(SEED, pcfg, device=dev)
+    before = launch_counts()
+    layouts = {"one_process": (None, False), "tp": ("tp", False),
+               "tp_sp": ("tp", True), "fsdp": ("fsdp", False)}
+    models, steps, gate = {}, {}, {}
+    for name, (minor, sp) in layouts.items():
+        mesh.clear_mesh()
+        if minor is not None:
+            mesh.set_mesh(1, 1, minor)
+        models[name] = copy.deepcopy(start)
+        _, steps[name] = make_pretrain_step(
+            models[name], pcfg, 1000, data_parallel=False if minor is None
+            else None, sp=sp)
+        res = steps[name](12, batch, functools.partial(step_generator, SEED,
+                                                       12, dev))
+        if res["skipped"]:
+            fail(f"the {name} step of the parallel phase was skipped")
+        gate[name] = (res["loss"].item(), res["lr"])
+    del start
+    ref_loss, lr = gate["one_process"]
+    out = {"gate": {name: compare_parallel(models[name],
+                                           models["one_process"],
+                                           gate[name][0], ref_loss, lr)
+                    for name in ("tp", "tp_sp", "fsdp")}}
+    count = [13]
+    turns = {name: [] for name in layouts}
+    resident, peak = {}, {}
+    for name in ("one_process", "tp", "tp_sp", "fsdp", "fsdp", "tp_sp",
+                 "tp", "one_process"):
+        torch.cuda.synchronize()
+        resident[name] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(PAR_TURN):
+            steps[name](count[0], batch, functools.partial(
+                step_generator, SEED, count[0], dev))
+            count[0] += 1
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) / PAR_TURN)
+        peak[name] = max(peak.get(name, 0), torch.cuda.max_memory_allocated())
+    mesh.clear_mesh()
+    if launch_counts() != before:
+        fail("a tp, sp or fsdp pretrain step launched a kernel")
+    del models, steps
+    torch.cuda.empty_cache()
+    out.update(batch=n, queue=queue,
+               step_ms={k: 1e3 * sum(v) / len(v) for k, v in turns.items()},
+               turns_ms={k: [1e3 * t for t in v] for k, v in turns.items()},
+               resident_gib={k: v / 2 ** 30 for k, v in resident.items()},
+               peak_gib={k: v / 2 ** 30 for k, v in peak.items()})
+    return out
+
+
+def tp_head_kernels(dev) -> dict:
+    """parallel (2): both kernels at a tensor-parallel rank's heads, h=6
+    (tp=2) and h=3 (tp=4).  Kernel 2 at every SMILES->PV launch class
+    (B=128, D=64, f32) against its plain version at phase 3's bars, and
+    timed with its bound as ``time_mha_on`` computes it; kernel 1 at the
+    serving shape (bf16 caches, k=2, m=128, T=104, random ancestry) at
+    positions 1, 33 and 103 against its plain version, and timed at 103
+    with its bound as ``time_kernel`` computes it."""
+    import torch
+
+    out = {"fused_mha": [], "beam_decode_attention": [],
+           "max_abs_err": {"fused_mha": 0.0, "beam_decode_attention": 0.0}}
+    worst, worst2 = {}, {}
+    for h in TP_HEADS:
+        for n, (label, lq, lk, kind, kv_contig, _) in enumerate(
+                s2p_launch_classes()):
+            inputs = mha_inputs(dev, 128, h, lq, lk, 64, torch.float32,
+                                kind, seed=100 + n, kv_contiguous=kv_contig)
+            check_mha(dev, f"h={h} {label}", kind, inputs, worst2)
+        for row in time_mha(dev, s2p_launch_classes(), h=h):
+            out["fused_mha"].append(dict(row, h=h))
+        for pos in (1, 33, 103):
+            check_kernel(dev, f"h={h}", kernel_inputs(
+                dev, 128, h, 2, 104, 64, 2, torch.bfloat16, pos,
+                seed=pos + h), pos, worst)
+        out["beam_decode_attention"].append(dict(time_kernel(dev, h=h),
+                                                 h=h))
+    out["max_abs_err"] = {"fused_mha": worst2["float32"],
+                          "beam_decode_attention": worst["bfloat16"]}
+    return out
+
+
+def tp_predict_pv(dev, model) -> dict:
+    """parallel (3): fp32 predict_pv of 128 SMILES through kernel 2 with the
+    model under the tp plan on a (1, 1) dp x tp mesh, against the
+    unsharded model: within 1e-5, and the same 960 launches."""
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv
+    from spmm_tpu_torch.parallel import mesh, tp
+
+    _, ids, mask = s2p_batch()
+    mesh.set_mesh(1, 1, "tp")
+    try:
+        sharded = tp.apply_tp(copy.deepcopy(model))
+        reset_launch_counts()
+        got, secs, _, launches = run_counted(dev, lambda: predict_pv(
+            sharded, ids, mask, device=dev))
+        want, want_secs, _, want_launches = run_counted(
+            dev, lambda: predict_pv(model, ids, mask, device=dev))
+    finally:
+        mesh.clear_mesh()
+    err = (got - want).abs().max().item()
+    if not err <= 1e-5 or launches != S2P_LAUNCHES or \
+            want_launches != S2P_LAUNCHES:
+        fail(f"predict_pv under the tp plan: {err:.2e} from the unsharded "
+             f"run (bar 1e-5), launches {launches} vs {want_launches}")
+    del sharded
+    return {"max_abs_diff": err, "launches": launches, "tp_s": secs,
+            "unsharded_s": want_secs}
+
+
+def sharded_inference(dev, model) -> dict:
+    """parallel (4): data-parallel inference with devices=[card, card] (two
+    shards of 64 rows on one card, each in its own worker thread and
+    stream; a card named twice holds one replica).  fp32 k=2 beam search of
+    128 PVs: seqs equal to the unsharded batch's, logp within 1e-5 + 5e-7
+    x |logp|; fp32 predict_pv of 128 SMILES within 1e-5.  Each run is a
+    main path: counts from 0 just before, read just after; each shard
+    launches what the unsharded batch launches (as initialised no beam
+    finishes, so both shards run all the steps)."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.inference import pv2smiles
+    from spmm_tpu_torch.inference.decoding import BeamSpec
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv, predict_pv_rows
+    from spmm_tpu_torch.parallel.replicas import Replicas
+
+    devices = [dev, dev]
+    pv = np.random.default_rng(SEED + 30).normal(
+        size=(128, 53)).astype(np.float32)
+    spec = BeamSpec(k=2, stop_count=2)
+    decoder = pv2smiles.decoder_for(model, bf16=False)
+    out = {}
+    reset_launch_counts()
+    one, one_s, l1_one, _ = run_counted(dev, lambda: pv2smiles.to_host(
+        pv2smiles._beam_batch(model, decoder, torch.as_tensor(pv, device=dev),
+                              None, spec)))
+    with pv2smiles.replicas_for(model, devices, bf16=False) as reps:
+        reset_launch_counts()
+        got, got_s, l1_got, _ = run_counted(dev, lambda: pv2smiles.beam_rows(
+            reps, pv, None, spec, None))
+    if not np.array_equal(got["seqs"], one["seqs"]) or \
+            not np.allclose(got["logp"], one["logp"], atol=1e-5, rtol=5e-7) \
+            or l1_got != 2 * l1_one or l1_one == 0:
+        fail(f"sharded PV->SMILES differs from the unsharded batch: seqs "
+             f"equal {np.array_equal(got['seqs'], one['seqs'])}, launches "
+             f"{l1_got} vs 2 x {l1_one}")
+    out["pv2smiles"] = {
+        "steps": one["steps"], "launches": l1_got,
+        "unsharded_launches": l1_one, "sharded_s": got_s,
+        "unsharded_s": one_s, "logp_max_abs_diff": float(
+            np.abs(got["logp"] - one["logp"]).max())}
+    _, ids, mask = s2p_batch()
+    reset_launch_counts()
+    one, one_s, _, l2_one = run_counted(dev, lambda: predict_pv(
+        model, ids, mask, device=dev).cpu().numpy())
+    with Replicas(model, devices) as reps:
+        reset_launch_counts()
+        got, got_s, _, l2_got = run_counted(dev, lambda: predict_pv_rows(
+            reps, ids, mask))
+    err = float(np.abs(got - one).max())
+    if not err <= 1e-5 or l2_got != 2 * l2_one or l2_one != S2P_LAUNCHES:
+        fail(f"sharded SMILES->PV: {err:.2e} from the unsharded batch (bar "
+             f"1e-5), launches {l2_got} vs 2 x {l2_one}")
+    out["smiles2pv"] = {"max_abs_diff": err, "launches": l2_got,
+                        "unsharded_launches": l2_one, "sharded_s": got_s,
+                        "unsharded_s": one_s}
+    return out
+
+
+def attention_maps(dev, model) -> dict:
+    """parallel (5): cross_attention_maps at full width, the property
+    encoder's hiddens of 8 PVs (54 queries) against the text encoder's of
+    8 example SMILES (padded keys), on the card and on a CPU copy: within
+    1e-5, every row summing to 1 within 1e-5."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.models.introspect import cross_attention_maps
+
+    _, ids, mask = s2p_batch(8)
+    pv = torch.as_tensor(np.random.default_rng(SEED + 31).normal(
+        size=(8, 53)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        ids_t, mask_t = (torch.as_tensor(x, device=dev) for x in (ids, mask))
+        keys = model.encode_text(ids_t, mask_t)
+        queries = model.encode_properties(model.embed_properties(pv, None))
+    qmask = torch.ones(queries.shape[:2], dtype=torch.int32, device=dev)
+    cpu = copy.deepcopy(model).cpu()
+    maps = {}
+    t0 = time.perf_counter()
+    maps["card"] = cross_attention_maps(model, model.text_cfg, queries, qmask,
+                                        keys, mask_t)
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    maps["cpu"] = cross_attention_maps(cpu, cpu.text_cfg, queries.cpu(),
+                                       qmask.cpu(), keys.cpu(), mask_t.cpu())
+    err = max((a.cpu() - b).abs().max().item()
+              for a, b in zip(maps["card"], maps["cpu"]))
+    row_err = max((a.sum(-1) - 1).abs().max().item() for a in maps["card"])
+    shape = tuple(maps["card"][0].shape)
+    cfg = model.text_cfg
+    if len(maps["card"]) != cfg.num_hidden_layers - cfg.fusion_layer \
+            or not err <= 1e-5 or not row_err <= 1e-5 \
+            or shape != (8, cfg.num_attention_heads, 54, ids.shape[1]):
+        fail(f"cross_attention_maps: {len(maps['card'])} maps of {shape}, "
+             f"card vs CPU {err:.2e}, rows off 1 by {row_err:.2e} (bars "
+             f"1e-5)")
+    del cpu
+    return {"maps": len(maps["card"]), "shape": list(shape),
+            "card_vs_cpu_max_abs": err, "row_sum_max_abs_err": row_err,
+            "card_s": card_s}
+
+
+def parallel_phase(dev, workdir: str, model) -> dict:
+    """The phase: parts (1)-(3) under a NCCL group of one (a file store in
+    ``workdir``), destroyed at the end; then (4) and (5)."""
+    import torch.distributed as dist
+
+    from spmm_tpu_torch.parallel import multihost
+
+    out = {"part_s": {}}
+    multihost.initialize(dev, init_method=f"file://{workdir}/store",
+                         world_size=1, rank=0)
+    try:
+        for name, fn in (("steps", lambda: parallel_steps(dev)),
+                         ("kernels", lambda: tp_head_kernels(dev)),
+                         ("tp_predict_pv", lambda: tp_predict_pv(dev, model))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out["part_s"][name] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    for name, fn in (("sharded", lambda: sharded_inference(dev, model)),
+                     ("maps", lambda: attention_maps(dev, model))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out["part_s"][name] = time.perf_counter() - t0
+    return out
+
+
 def finetune_eval(dev, calls) -> dict:
     """The fine-tune evaluate_scores on a full-width classification model:
     64 example SMILES and one text of 505 tokens (its own batch, bucket
@@ -2649,6 +3005,57 @@ def main(argv=None) -> int:
         f"after " + ", ".join(f"{t:.1f}" for t in row["setup_s"]) + " s; "
         + ", ".join(f"{k} {v:.1f} s" for k, v in dp["part_s"].items()))
 
+    # ---- parallel: tp, sp, fsdp at world 1; tp heads; sharded inference ----
+    mark("parallel")
+    with tempfile.TemporaryDirectory() as workdir:
+        par = parallel_phase(dev, workdir, model)
+    for name, row in par["steps"]["gate"].items():
+        log(f"[parallel] {name} step, full width, batch {PRETRAIN[0]}, queue "
+            f"{PRETRAIN[1]}, fp32, dropout on, (1, 1) mesh, vs the "
+            f"one-process step: loss {row['loss']:.6f}, rel diff "
+            f"{row['loss_rel_diff']:.2e} (bar 1e-5), worst gradient at "
+            f"{row['grad_worst_share_of_bar']:.3f} of its bar, parameters "
+            f"within {row['param_max_abs_diff']:.2e}, twins "
+            f"{row['twin_max_abs_diff']:.2e}, queues "
+            f"{row['queue_max_abs_diff']:.2e}, ptr equal")
+    row = par["steps"]
+    log("[parallel] step ms in turns of "
+        f"{PAR_TURN} (one process, tp, tp+sp, fsdp, then back): "
+        + "; ".join(f"{k} {row['step_ms'][k]:.1f} ms (turns "
+                    + ", ".join(f"{t:.1f}" for t in row["turns_ms"][k])
+                    + f"), resident {row['resident_gib'][k]:.2f} GiB, peak "
+                    f"{row['peak_gib'][k]:.2f} GiB"
+                    for k in row["step_ms"]) + f"; {card}")
+    for row in par["kernels"]["fused_mha"]:
+        log_mha_timing(f"h={row['h']} {row['shape']} "
+                       f"x{row['launches_per_batch']}", row)
+    for row in par["kernels"]["beam_decode_attention"]:
+        log_bda_timing(f"h={row['h']} random mask", row)
+    row = par["tp_predict_pv"]
+    log(f"[parallel] predict_pv of 128 SMILES under the tp plan ((1, 1) "
+        f"mesh): max |diff| {row['max_abs_diff']:.2e} from the unsharded "
+        f"model (bar 1e-5), {row['launches']} fused_mha launches; "
+        f"{row['tp_s']:.2f} s, unsharded {row['unsharded_s']:.2f} s")
+    row = par["sharded"]
+    log(f"[parallel] devices=[{dev}, {dev}]: fp32 k=2 beam search of 128 "
+        f"PVs, seqs equal to the unsharded batch's, max |logp diff| "
+        f"{row['pv2smiles']['logp_max_abs_diff']:.2e}, "
+        f"{row['pv2smiles']['steps']} steps, kernel-1 launches "
+        f"{row['pv2smiles']['launches']} (unsharded "
+        f"{row['pv2smiles']['unsharded_launches']}), "
+        f"{row['pv2smiles']['sharded_s']:.2f} s (unsharded "
+        f"{row['pv2smiles']['unsharded_s']:.2f} s); fp32 predict_pv of 128 "
+        f"SMILES within {row['smiles2pv']['max_abs_diff']:.2e}, kernel-2 "
+        f"launches {row['smiles2pv']['launches']} (unsharded "
+        f"{row['smiles2pv']['unsharded_launches']}), "
+        f"{row['smiles2pv']['sharded_s']:.2f} s (unsharded "
+        f"{row['smiles2pv']['unsharded_s']:.2f} s)")
+    row = par["maps"]
+    log(f"[parallel] cross_attention_maps: {row['maps']} maps of "
+        f"{row['shape']}, card vs CPU {row['card_vs_cpu_max_abs']:.2e}, rows "
+        f"sum to 1 within {row['row_sum_max_abs_err']:.2e} (bars 1e-5); "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in par["part_s"].items()))
+
     # ---- shapes: every launch shape of the main paths vs plain ----
     mark("shapes")
     log("[shapes] each kernel against its plain version, and timed, at every "
@@ -2695,7 +3102,8 @@ def main(argv=None) -> int:
 
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
                       "exact": exact, "rxn": rxn_run, "finetune": ft,
-                      "pretrain": pt, "profile": profiles}))
+                      "pretrain": pt, "parallel": par,
+                      "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   rxn_launches=rxn_run["greedy_launches"][0],
                   max_abs_err=worst["bfloat16"],
@@ -2704,6 +3112,10 @@ def main(argv=None) -> int:
                   rxn_greedy_k1=timing_greedy, rxn_beam_k5=timing_k5,
                   main_path_shapes=[row for row in main_shapes
                                     if row["kernel"] == KERNEL["name"]],
+                  tp_heads=par["kernels"]["beam_decode_attention"],
+                  tp_heads_max_abs_err=par["kernels"]["max_abs_err"][
+                      KERNEL["name"]],
+                  sharded_launches=par["sharded"]["pv2smiles"]["launches"],
                   occupancy={key: row for key, row in occ.items()
                              if key.startswith(KERNEL["name"])})
     head = timing2[0]
@@ -2721,6 +3133,11 @@ def main(argv=None) -> int:
                    long_rows_vs_parent=vs_parent,
                    main_path_shapes=[row for row in main_shapes
                                      if row["kernel"] == KERNEL2["name"]],
+                   tp_heads=par["kernels"]["fused_mha"],
+                   tp_heads_max_abs_err=par["kernels"]["max_abs_err"][
+                       KERNEL2["name"]],
+                   tp_predict_pv_launches=par["tp_predict_pv"]["launches"],
+                   sharded_launches=par["sharded"]["smiles2pv"]["launches"],
                    sum_launches_x_ms=mha_batch_ms,
                    profile_ms=in_profile,
                    occupancy={key: row for key, row in occ.items()

@@ -12,9 +12,12 @@ The optimizer state is stored in the layout of a plain AdamW over the
 online parameters, whatever the world size and whether ``zero1`` sharded
 it: a ``ZeroRedundancyOptimizer``'s shards are gathered to rank 0 first.
 So a checkpoint written by N ranks with ``zero1`` resumes in one process
-without it, and the reverse, as JAX's Orbax checkpoints do.  Under a
-process group every rank calls ``save_checkpoint`` / ``AsyncSaver.save``
-(the gather is a collective) and rank 0 writes; every rank restores.
+without it, and the reverse, as JAX's Orbax checkpoints do.  The same
+holds for tensor and fully-sharded parallelism: a DTensor parameter or
+moment is written whole (``full_tensor``), and a whole tensor read back
+into one is cut to this rank's part.  Under a process group every rank
+calls ``save_checkpoint`` / ``AsyncSaver.save`` (the gathers are
+collectives) and global rank 0 writes; every rank restores.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import threading
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from spmm_tpu_torch.parallel.mesh import dp_rank
+from spmm_tpu_torch.parallel.mesh import is_main
 
 
 def optimizer_state(optimizer: torch.optim.Optimizer) -> Optional[dict]:
@@ -35,7 +39,7 @@ def optimizer_state(optimizer: torch.optim.Optimizer) -> Optional[dict]:
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
     if not isinstance(optimizer, ZeroRedundancyOptimizer):
-        return optimizer.state_dict()
+        return whole(optimizer.state_dict())
     optimizer.consolidate_state_dict(to=0)
     if optimizer.rank != 0:
         return None
@@ -47,6 +51,25 @@ def optimizer_state(optimizer: torch.optim.Optimizer) -> Optional[dict]:
              if k != "params"}
     return {"state": optimizer.state_dict()["state"],
             "param_groups": [dict(hyper, params=list(range(len(params))))]}
+
+
+def whole(obj):
+    """``obj`` (a state dict, nested) with every DTensor gathered whole: a
+    collective that every rank of its mesh calls."""
+    if isinstance(obj, dict):
+        return {k: whole(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(whole(v) for v in obj)
+    return obj.full_tensor() if isinstance(obj, DTensor) else obj
+
+
+def _like(value: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """A whole ``value`` laid out as ``target``: this rank's part of it as
+    a DTensor of ``target``'s mesh and placements, or ``value``."""
+    if not isinstance(target, DTensor):
+        return value
+    return distribute_tensor(value.to(target.device, target.dtype),
+                             target.device_mesh, target.placements)
 
 
 def _write(path: str, state: dict) -> None:
@@ -62,8 +85,9 @@ def save_checkpoint(path: str, model: torch.nn.Module,
     """Write {"state_dict", "optimizer", "step"} to ``path`` atomically
     (rank 0 writes; every rank of a process group calls it)."""
     opt_state = optimizer_state(optimizer)
-    if dp_rank() == 0:
-        _write(path, {"state_dict": model.state_dict(),
+    model_state = whole(model.state_dict())
+    if is_main():
+        _write(path, {"state_dict": model_state,
                       "optimizer": opt_state, "step": int(step)})
 
 
@@ -90,9 +114,10 @@ class AsyncSaver:
              optimizer: torch.optim.Optimizer, step: int) -> None:
         self.wait()
         opt_state = optimizer_state(optimizer)
-        if dp_rank() != 0:
+        model_state = whole(model.state_dict())
+        if not is_main():
             return
-        state = self._to_host({"state_dict": model.state_dict(),
+        state = self._to_host({"state_dict": model_state,
                                "optimizer": opt_state}, "")
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
@@ -151,9 +176,19 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(ckpt["state_dict"], strict=True)
+    own = model.state_dict()
+    model.load_state_dict({k: _like(v, own[k]) if k in own else v
+                           for k, v in ckpt["state_dict"].items()},
+                          strict=True)
     if optimizer is not None:
-        optimizer.load_state_dict(ckpt["optimizer"])
+        state = ckpt["optimizer"]
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        if any(isinstance(p, DTensor) for p in params):
+            state = dict(state, state={
+                i: {k: _like(v, params[i]) if k.startswith("exp_avg")
+                    else v for k, v in st.items()}
+                for i, st in state["state"].items()})
+        optimizer.load_state_dict(state)
     if isinstance(optimizer, ZeroRedundancyOptimizer):
         # ZeRO puts every 0-dim state tensor on the CPU, a 0-dim
         # parameter's (``temp``'s) moments too; they belong on its device

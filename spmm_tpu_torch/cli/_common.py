@@ -31,3 +31,18 @@ def make_tokenizer(vocab_path: Optional[str] = None) -> SmilesTokenizer:
 
 def load_stats(path: Optional[str] = None) -> PropertyStats:
     return PropertyStats.load(path)
+
+
+def inference_devices(dev: torch.device,
+                      batch: int) -> tuple[Optional[list], int]:
+    """(every visible card, the batch rounded up to divide over them) when
+    the run is on the GPU and there are two cards or more
+    (``parallel.mesh.auto_mesh``: no flag, as JAX's CLIs); else (None,
+    batch), the unsharded path."""
+    from spmm_tpu_torch.parallel.mesh import auto_mesh
+
+    devices = auto_mesh() if dev.type == "cuda" else None
+    if devices is None:
+        return None, batch
+    print(f"data-parallel over {len(devices)} devices")
+    return devices, batch + (-batch % len(devices))

@@ -5,16 +5,19 @@ SPMM_pretrain.py), on one GPU or data-parallel over several.
         --property_cache corpus.pv.npz --output_dir ./Pretrain
     python -m torch.distributed.run --nproc_per_node 8 \\
         -m spmm_tpu_torch.cli.pretrain --data_path ... --zero1
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m spmm_tpu_torch.cli.pretrain --data_path ... --tp 2 --sp
 
 Without ``torch.distributed.run``'s environment it is one process on one
 device (the GPU unless ``--device cpu``) with no process group.  Under it
 each rank is one process on ``cuda:LOCAL_RANK`` (NCCL), or on the CPU with
 ``--device cpu`` (gloo), and the step is data-parallel
-(``training.pretrain.make_pretrain_step``).  ``--batch_size`` is per rank,
-as in the JAX CLI, so the global batch is ``batch_size x world``; it must
-divide ``--queue_size``.  Every rank builds the same global batch from the
-seed and keeps its rows (``parallel.multihost.local_rows``).  Rank 0 alone
-prints, logs and writes checkpoints.
+(``training.pretrain.make_pretrain_step``).  ``--batch_size`` is per dp
+rank, as in the JAX CLI, so the global batch is ``batch_size x dp`` (dp is
+the world without ``--tp`` or ``--fsdp``); it must divide
+``--queue_size``.  Every rank builds the same global batch from the seed
+and keeps its dp rank's rows (``parallel.multihost.local_rows``).  Global
+rank 0 alone prints, logs and writes checkpoints.
 
 The corpus is one SMILES per line; the property cache is an ``.npz`` whose
 ``pv`` [N, 53] holds the raw property vectors of those lines (the port
@@ -33,7 +36,17 @@ steps it prints the losses, samples/s and, on the GPU, MFU against the
 H100's peak for the dtype that runs (FLOPs counted per rank over the first
 step).
 
-Not here: ``--tp``, ``--fsdp`` and ``--sp`` (ROADMAP queue 1 item 5).
+``--tp T`` lays the ranks out as a dp x tp mesh (T adjacent ranks share
+one dp rank's rows) with the model Megatron-sharded over tp
+(``parallel.tp``); ``--sp`` adds sequence parallelism over the tp group
+(``parallel.sp``); ``--fsdp F`` lays them out as dp x fsdp with every
+parameter, twin and AdamW moment sharded over fsdp (``parallel.fsdp``).
+As in the JAX CLI, ``--sp`` needs ``--tp`` > 1, ``--fsdp`` excludes
+``--tp`` and ``--zero1``, ``--tp`` excludes ``--zero1``, and tp must divide
+the heads and the MLP width.  ``--batch_size`` is per dp rank and the
+global batch ``batch_size x dp``.  Checkpoints keep the plain layout, so a
+tp or fsdp run resumes in one process and the reverse.
+
 ``--donate`` (an XLA buffer flag) and ``--prng`` have no meaning in the
 port: PyTorch updates the state in place, and randomness comes from
 ``torch.Generator``.
@@ -60,7 +73,9 @@ from spmm_tpu_torch.configs import PretrainConfig, property_config, text_config
 from spmm_tpu_torch.data.datasets import PretrainDataset
 from spmm_tpu_torch.data.pipeline import batch_pretrain, prefetch
 from spmm_tpu_torch.parallel import multihost
-from spmm_tpu_torch.parallel.mesh import dp_rank, dp_size
+from spmm_tpu_torch.parallel.fsdp import dp_fsdp_mesh
+from spmm_tpu_torch.parallel.mesh import dp_rank, dp_size, is_main
+from spmm_tpu_torch.parallel.tp import assert_tp_compatible, dp_tp_mesh
 from spmm_tpu_torch.training.pretrain import (
     LOSS_KEYS, init_pretrain_state, make_pretrain_step, step_generator)
 from spmm_tpu_torch.utils.device import resolve_device
@@ -96,6 +111,17 @@ def main(argv=None):
                    help="shard the AdamW moments over the ranks (ZeRO-1; "
                         "parameters and EMA twins stay replicated); needs "
                         "torch.distributed.run")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel factor: the ranks form a dp x tp "
+                        "mesh and the blocks are Megatron-sharded over tp; "
+                        "must divide the heads (12) and the MLP width")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="fully-sharded data parallelism: the ranks form a "
+                        "dp x fsdp mesh and every parameter, twin and AdamW "
+                        "moment is sharded over fsdp")
+    p.add_argument("--sp", action="store_true",
+                   help="sequence parallelism over the tp group (needs "
+                        "--tp > 1)")
     p.add_argument("--bf16_moments", action="store_true",
                    help="bf16 AdamW first moment (optax mu_dtype)")
     p.add_argument("--async_save", action="store_true",
@@ -108,16 +134,33 @@ def main(argv=None):
                    help="torch device (default: the GPU; 'cpu' to run there)")
     args = p.parse_args(argv)
 
+    if args.sp and args.tp <= 1:
+        p.error("--sp needs --tp > 1 (sequence parallelism shards over the "
+                "tensor-parallel group)")
+    if args.fsdp > 1 and (args.tp > 1 or args.zero1):
+        p.error("--fsdp excludes --tp and --zero1 (fsdp already shards the "
+                "parameters, twins and optimizer state)")
+    if args.tp > 1 and args.zero1:
+        p.error("--tp excludes --zero1")
+    if args.tp > 1:
+        try:
+            assert_tp_compatible(text_config(), args.tp)
+            assert_tp_compatible(property_config(), args.tp)
+        except ValueError as exc:
+            p.error(str(exc))
     if multihost.launched():
         dev = multihost.initialize(args.device)
+        if args.tp > 1:
+            dp_tp_mesh(tp=args.tp)
+        elif args.fsdp > 1:
+            dp_fsdp_mesh(fsdp=args.fsdp)
     else:
-        if args.zero1:
-            p.error("--zero1 shards over ranks: run under "
+        if args.zero1 or args.tp > 1 or args.fsdp > 1:
+            p.error("--zero1, --tp and --fsdp shard over ranks: run under "
                     "torch.distributed.run")
         dev = resolve_device(args.device)
     try:
-        with contextlib.redirect_stdout(sys.stdout if dp_rank() == 0
-                                        else None):
+        with contextlib.redirect_stdout(sys.stdout if is_main() else None):
             _run(p, args, dev)
         if dist.is_initialized():
             dist.barrier()
@@ -150,14 +193,14 @@ def _run(p, args, dev) -> None:
     model = init_pretrain_state(seed, pcfg, text_config(), property_config(),
                                 device=dev)
     opt, step_fn = make_pretrain_step(model, pcfg, steps_per_epoch,
-                                      accum=args.accum)
+                                      accum=args.accum, sp=args.sp)
     start_step = 0
     if args.resume:
         start_step = restore_checkpoint(args.resume, model, opt)
         print("resumed at step", start_step)
-        if rank == 0:
+        if is_main():
             _check_run_meta(args.resume, global_bs, seed, world)
-    if rank == 0:
+    if is_main():
         os.makedirs(args.output_dir, exist_ok=True)
         with open(os.path.join(args.output_dir, "run_meta.json"), "w") as f:
             json.dump({"global_bs": global_bs, "seed": seed, "n_dev": world,
@@ -176,8 +219,8 @@ def _run(p, args, dev) -> None:
               f"skipping {start_step % steps_per_epoch} batches")
     rows = (None if world == 1 else
             multihost.local_rows(global_bs, rank, world, args.accum))
-    logger = MetricLogger(None if rank else args.metrics_log or os.path.join(
-        args.output_dir, "metrics.jsonl"))
+    logger = MetricLogger(None if not is_main() else args.metrics_log
+                          or os.path.join(args.output_dir, "metrics.jsonl"))
     saver = AsyncSaver() if args.async_save else None
     try:
         _train_loop(args, model, opt, step_fn, tok, ds, logger, saver, dev,
@@ -254,7 +297,8 @@ def _train_loop(args, model, opt, step_fn, tok, ds, logger, saver, dev,
                 m = np.mean(losses[-50:], axis=0)
                 dt = time.time() - t0
                 # FLOPs are counted per rank; mfu wants the whole step's
-                util = (mfu(flops_per_step * world, dt / 50, world, peak)
+                ranks = dist.get_world_size() if dist.is_initialized() else 1
+                util = (mfu(flops_per_step * ranks, dt / 50, ranks, peak)
                         if peak else None)
                 util_s = f" mfu {util:.1%}" if util else ""
                 print(f"step {step} lr {metrics['lr']:.2e} "

@@ -69,7 +69,7 @@ def metric_eval(refs, cands, stats, out_file, novelty_corpus=None):
 def main(argv=None):
     from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
     from spmm_tpu_torch.cli._common import (
-        load_stats, make_tokenizer, seed_everything)
+        inference_devices, load_stats, make_tokenizer, seed_everything)
     from spmm_tpu_torch.data.datasets import PretrainDataset
     from spmm_tpu_torch.inference.pv2smiles import generate_batched
     from spmm_tpu_torch.models.spmm import SPMM
@@ -98,6 +98,7 @@ def main(argv=None):
     tok = make_tokenizer()
     stats = load_stats()
     model = load_spmm_checkpoint(SPMM(), args.checkpoint).to(dev).eval()
+    devices, device_batch = inference_devices(dev, 128)
 
     ds = PretrainDataset(args.input_file, property_cache=args.property_cache,
                          data_range=args.data_range)
@@ -111,7 +112,8 @@ def main(argv=None):
           f"with k={args.k}...")
     cands = generate_batched(model, tok, np.stack(pvs), k=args.k,
                              stochastic=args.stochastic, seed=seed,
-                             kv_fp8=args.kv_fp8, device=dev)
+                             device_batch=device_batch, kv_fp8=args.kv_fp8,
+                             device=dev, devices=devices)
     metric_eval(sources, cands, stats, args.output_file,
                 novelty_corpus=args.novelty_corpus)
 

@@ -72,7 +72,7 @@ def metric_eval(prop_input, cand, prop_mask, stats, out_file):
 def main(argv=None):
     from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
     from spmm_tpu_torch.cli._common import (
-        load_stats, make_tokenizer, seed_everything)
+        inference_devices, load_stats, make_tokenizer, seed_everything)
     from spmm_tpu_torch.inference.pv2smiles import generate_with_property
     from spmm_tpu_torch.models.spmm import SPMM
     from spmm_tpu_torch.utils.device import resolve_device
@@ -96,6 +96,7 @@ def main(argv=None):
     tok = make_tokenizer()
     stats = load_stats()
     model = load_spmm_checkpoint(SPMM(), args.checkpoint).to(dev).eval()
+    devices, device_batch = inference_devices(dev, 128)
 
     prop_input, prop_mask = read_condition(args.input_csv, stats)
     # masked entries carry the learned mask vector; their values are unused
@@ -105,8 +106,8 @@ def main(argv=None):
           f"with k={args.k}...")
     samples = generate_with_property(
         model, tok, pv_norm, prop_mask, n_generate=args.n_generate, k=args.k,
-        stochastic=args.stochastic, seed=seed, kv_fp8=args.kv_fp8,
-        device=dev)
+        stochastic=args.stochastic, seed=seed, device_batch=device_batch,
+        kv_fp8=args.kv_fp8, device=dev, devices=devices)
     metric_eval(prop_input, samples, prop_mask, stats, args.output_file)
 
 

@@ -65,7 +65,7 @@ def metric_eval(refs: list[str], cands) -> float:
 
 
 def evaluate(model, tok, dataset, n_beam: int, batch_size: int,
-             device=None) -> float:
+             device=None, devices=None) -> float:
     """Decode every source of ``dataset`` (bf16 decoder) and score it
     against its target: greedy for n_beam 1, else k-beam with k = n_beam
     over whole batches (the reference decodes its beams one source at a
@@ -79,10 +79,11 @@ def evaluate(model, tok, dataset, n_beam: int, batch_size: int,
         refs.append(tgt.replace("[CLS]", ""))
     if n_beam == 1:
         cands = predict_greedy(model, tok, sources, batch_size=batch_size,
-                               device=device)
+                               device=device, devices=devices)
     else:
         cands = predict_beam(model, tok, sources, k=n_beam,
-                             batch_size=batch_size, device=device)
+                             batch_size=batch_size, device=device,
+                             devices=devices)
     return metric_eval(refs, cands)
 
 
@@ -94,7 +95,8 @@ def save_rxn_checkpoint(model, path: str) -> None:
 
 
 def main(argv=None):
-    from spmm_tpu_torch.cli._common import make_tokenizer, seed_everything
+    from spmm_tpu_torch.cli._common import (
+        inference_devices, make_tokenizer, seed_everything)
     from spmm_tpu_torch.configs import FinetuneConfig
     from spmm_tpu_torch.data.datasets import USPTODataset, USPTORetroDataset
     from spmm_tpu_torch.data.pipeline import batch_pairs, prefetch
@@ -153,6 +155,7 @@ def main(argv=None):
         _, step = make_rxn_step(model, fcfg, steps_per_epoch)
         generator = torch.Generator(device=dev).manual_seed(seed)
 
+    devices, eval_bs = inference_devices(dev, args.batch_size_eval)
     best_valid, best_test = 0.0, 0.0
     global_step = 0
     t0 = time.time()
@@ -172,12 +175,12 @@ def main(argv=None):
                     global_step += 1
                     logger.log(global_step, metrics)
             print("VALIDATION")
-            val = evaluate(model, tok, valid_ds, args.n_beam,
-                           args.batch_size_eval, device=dev)
+            val = evaluate(model, tok, valid_ds, args.n_beam, eval_bs,
+                           device=dev, devices=devices)
             print("Accuracy:", val)
             print("TEST")
-            tst = evaluate(model, tok, test_ds, args.n_beam,
-                           args.batch_size_eval, device=dev)
+            tst = evaluate(model, tok, test_ds, args.n_beam, eval_bs,
+                           device=dev, devices=devices)
             print("Accuracy:", tst)
             epochs_out.append({"epoch": epoch, "valid_acc": val,
                                "test_acc": tst})

@@ -126,7 +126,8 @@ def make_server(services: dict, host: str, port: int,
 
 def main(argv=None):
     from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
-    from spmm_tpu_torch.cli._common import load_stats, make_tokenizer
+    from spmm_tpu_torch.cli._common import (
+        inference_devices, load_stats, make_tokenizer)
     from spmm_tpu_torch.models.spmm import SPMM
     from spmm_tpu_torch.serving import Pv2SmilesService, Smiles2PvService
     from spmm_tpu_torch.utils.device import resolve_device
@@ -152,14 +153,15 @@ def main(argv=None):
     tok = make_tokenizer()
     stats = load_stats()
     model = load_spmm_checkpoint(SPMM(), args.checkpoint).to(dev).eval()
+    devices, args.batch_size = inference_devices(dev, args.batch_size)
     services = {
         "pv2smiles": Pv2SmilesService(
             model, tok, k=args.k, stochastic=args.stochastic, seed=args.seed,
             batch_size=args.batch_size, max_wait_ms=args.max_wait_ms,
-            device=dev),
+            device=dev, devices=devices),
         "smiles2pv": Smiles2PvService(
             model, tok, stats=stats, batch_size=args.batch_size,
-            max_wait_ms=args.max_wait_ms, device=dev),
+            max_wait_ms=args.max_wait_ms, device=dev, devices=devices),
     }
     server = make_server(services, args.host, args.port, stats=stats)
     print(f"serving on http://{args.host}:{server.server_address[1]} "

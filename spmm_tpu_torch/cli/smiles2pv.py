@@ -21,22 +21,40 @@ from spmm_tpu_torch.tokenizer import default_buckets
 
 
 def pv_generate(model, tok, smiles_list, stats, batch_size: int = 128,
-                bf16: bool = False, device=None) -> np.ndarray:
+                bf16: bool = False, device=None, devices=None) -> np.ndarray:
     """Denormalized PVs [N, 53] of a list of SMILES strings (reference
     d_smiles2pv.py:39-57): batches of ``batch_size``, each padded to the
-    smallest of ``default_buckets(100)`` that holds it."""
-    from spmm_tpu_torch.inference.smiles2pv import cast_params_bf16, predict_pv
+    smallest of ``default_buckets(100)`` that holds it.  With ``devices``
+    each batch is padded to ``batch_size`` rows and split over them
+    (``batch_size`` must divide over them), as JAX's ``mesh=``."""
+    from spmm_tpu_torch.inference.smiles2pv import (
+        cast_params_bf16, predict_pv, predict_pv_rows)
+    from spmm_tpu_torch.parallel.replicas import Replicas, pad_rows
 
     if bf16:
         model = cast_params_bf16(model)
+    replicas = None if devices is None else Replicas(model, devices)
     out = []
-    for start in range(0, len(smiles_list), batch_size):
-        chunk = smiles_list[start: start + batch_size]
-        texts = [s if s.startswith("[CLS]") else "[CLS]" + s for s in chunk]
-        ids, mask = tok.encode_batch(texts, max_len=100,
-                                     buckets=default_buckets(100))
-        preds = predict_pv(model, ids, mask, bf16=bf16, device=device)
-        out.append(stats.denormalize(preds.cpu().numpy()))
+    try:
+        if replicas is not None:
+            replicas.check_batch(batch_size)
+        for start in range(0, len(smiles_list), batch_size):
+            chunk = smiles_list[start: start + batch_size]
+            texts = [s if s.startswith("[CLS]") else "[CLS]" + s
+                     for s in chunk]
+            ids, mask = tok.encode_batch(texts, max_len=100,
+                                         buckets=default_buckets(100))
+            if replicas is None:
+                preds = predict_pv(model, ids, mask, bf16=bf16,
+                                   device=device).cpu().numpy()
+            else:
+                ids, mask = pad_rows(ids, mask, batch_size, tok.cls_token_id)
+                preds = predict_pv_rows(replicas, ids, mask,
+                                        bf16=bf16)[:len(chunk)]
+            out.append(stats.denormalize(preds))
+    finally:
+        if replicas is not None:
+            replicas.close()
     return np.concatenate(out)
 
 
@@ -69,7 +87,7 @@ def main(argv=None):
     from spmm_tpu_torch.checkpoint.convert import load_spmm_checkpoint
     from spmm_tpu_torch.chem.featurizer import HAS_RDKIT, canonicalize
     from spmm_tpu_torch.cli._common import (
-        load_stats, make_tokenizer, seed_everything)
+        inference_devices, load_stats, make_tokenizer, seed_everything)
     from spmm_tpu_torch.data.datasets import PretrainDataset
     from spmm_tpu_torch.models.spmm import SPMM
     from spmm_tpu_torch.utils.device import resolve_device
@@ -95,6 +113,7 @@ def main(argv=None):
     tok = make_tokenizer()
     stats = load_stats()
     model = load_spmm_checkpoint(SPMM(), args.checkpoint).to(dev).eval()
+    devices, args.batch_size = inference_devices(dev, args.batch_size)
 
     print("SMILES-to-PV generation...")
     if args.property_cache:
@@ -102,14 +121,15 @@ def main(argv=None):
                              property_cache=args.property_cache)
         refs, texts = zip(*(ds[i] for i in range(len(ds))))
         cand_denorm = pv_generate(model, tok, list(texts), stats,
-                                  args.batch_size, bf16=args.bf16, device=dev)
+                                  args.batch_size, bf16=args.bf16, device=dev,
+                                  devices=devices)
         metric_eval(np.stack(refs), stats.normalize(cand_denorm), stats)
     else:
         with open(args.input_file) as f:
             smiles = [line.strip() for line in f if line.strip()]
         smiles = [canonicalize(s) or s for s in smiles]
         cand_denorm = pv_generate(model, tok, smiles, stats, args.batch_size,
-                                  bf16=args.bf16, device=dev)
+                                  bf16=args.bf16, device=dev, devices=devices)
         print("no property cache: skipping metrics"
               + ("" if HAS_RDKIT else " (RDKit is not installed)"))
 

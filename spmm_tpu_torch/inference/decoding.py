@@ -33,7 +33,8 @@ from typing import Callable, Optional
 import torch
 
 from spmm_tpu_torch.configs import BertArchConfig
-from spmm_tpu_torch.models.bert import BertForMaskedLM, merge_heads, split_heads
+from spmm_tpu_torch.models.bert import (
+    BertForMaskedLM, local_heads, merge_heads, split_heads)
 from spmm_tpu_torch.ops.attention import multi_head_attention
 from spmm_tpu_torch.ops.decode_attention import (
     ancestry_mask,
@@ -76,10 +77,20 @@ def _top_k(x: Tensor, k: int) -> tuple[Tensor, Tensor]:
 
 
 def init_beam_cache_kv(cfg: BertArchConfig, m: int, k: int, max_len: int,
-                       dtype: torch.dtype, device) -> Tensor:
-    """Beam-search KV cache [2(kv), L, m, h, k, T, D], zero-filled."""
-    return torch.zeros((2, cfg.num_hidden_layers, m, cfg.num_attention_heads,
-                        k, max_len, cfg.head_dim), dtype=dtype, device=device)
+                       dtype: torch.dtype, device,
+                       heads: Optional[int] = None) -> Tensor:
+    """Beam-search KV cache [2(kv), L, m, h, k, T, D], zero-filled; h is
+    ``heads`` (a tensor-parallel rank's) or all of them."""
+    h = cfg.num_attention_heads if heads is None else heads
+    return torch.zeros((2, cfg.num_hidden_layers, m, h, k, max_len,
+                        cfg.head_dim), dtype=dtype, device=device)
+
+
+def decoder_heads(model: BertForMaskedLM, cfg: BertArchConfig) -> int:
+    """Heads of the decoder on this rank (``num_heads / tp`` under
+    tensor parallelism)."""
+    return local_heads(model.bert.encoder.layer[0].attention.self.query,
+                       cfg.head_dim)
 
 
 def precompute_cross_kv(model: BertForMaskedLM, cfg: BertArchConfig,
@@ -87,7 +98,7 @@ def precompute_cross_kv(model: BertForMaskedLM, cfg: BertArchConfig,
     """Cross-attention K/V for every fusion layer ([L, B, h, Le, D], zeros
     for layers without cross-attention), computed once per decode."""
     ks, vs = [], []
-    h = cfg.num_attention_heads
+    h = decoder_heads(model, cfg)
     for layer in model.bert.encoder.layer:
         if layer.has_cross:
             sa = layer.crossattention.self
@@ -122,7 +133,7 @@ def decode_step(
         raise ValueError(f"unknown attention {attention!r}")
     attend = (beam_decode_attention if attention == "kernel"
               else beam_decode_attention_reference)
-    h, d = cfg.num_attention_heads, cfg.head_dim
+    h, d = decoder_heads(model, cfg), cfg.head_dim
     m, kb, T = anc.shape
     hidden = model.bert.embeddings(token[:, None], position_offset=pos)
     xmask = ((1.0 - cross_mask.float()) * MASK_VALUE)[:, None, None, :]
@@ -227,7 +238,8 @@ def beam_search_batched(
     noise = uniforms if spec.stochastic else (lambda step: None)
 
     cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
-    cache = init_beam_cache_kv(cfg, m, k, T, cache_dtype, dev)
+    cache = init_beam_cache_kv(cfg, m, k, T, cache_dtype, dev,
+                               decoder_heads(model, cfg))
     # anc[m, b, t] = cache lane holding beam b's K/V for position t
     lane_ids = torch.arange(k, device=dev)
     anc = lane_ids[None, :, None].expand(m, k, T).contiguous()
@@ -377,7 +389,8 @@ def greedy_decode(
     b = cross_hidden.shape[0]
     T = -8 * (-(max_steps + 2) // 8)
     cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
-    cache = init_beam_cache_kv(cfg, b, 1, T, cache_dtype, dev)
+    cache = init_beam_cache_kv(cfg, b, 1, T, cache_dtype, dev,
+                               decoder_heads(model, cfg))
     anc = torch.zeros((b, 1, T), dtype=torch.int64, device=dev)
     seqs = torch.zeros((b, T), dtype=torch.int64, device=dev)
     seqs[:, 0] = cls_id

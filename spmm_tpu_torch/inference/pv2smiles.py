@@ -7,10 +7,20 @@ Two workloads over the same beam search:
   - batched/file mode (``generate_batched``): one PV per molecule, no
     property masking, deterministic k-beam with stop_count=k (reference
     d_pv2smiles_batched.py:17-59).
+
+With ``devices`` (a list of cards, e.g. ``parallel.mesh.auto_mesh()``)
+each batch's rows are split into one contiguous block per card, each
+decoded by that card's replica of the model in a worker thread of its own
+(``parallel.replicas``), and joined in row order: the counterpart of the
+JAX functions' ``mesh=``.  The batch must divide over the cards.  A
+stochastic search draws its noise for the whole batch on every card and
+keeps its own rows', so a sharded batch draws what the unsharded one
+draws.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import random
 from typing import Optional
@@ -18,9 +28,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spmm_tpu_torch.inference.decoding import BeamSpec, beam_search_batched
+from spmm_tpu_torch.inference.decoding import (
+    BeamSpec, beam_search_batched, torch_uniforms)
 from spmm_tpu_torch.models.bert import BertForMaskedLM
 from spmm_tpu_torch.models.spmm import N_PROPERTIES, SPMM
+from spmm_tpu_torch.parallel.replicas import Replicas, concat_rows
 from spmm_tpu_torch.tokenizer import SmilesTokenizer
 from spmm_tpu_torch.utils.device import check_on, resolve_device
 
@@ -49,13 +61,14 @@ def decoder_for(model, bf16: bool) -> BertForMaskedLM:
 def _beam_batch(model: SPMM, decoder: BertForMaskedLM, pv: Tensor,
                 prop_mask: Optional[Tensor], spec: BeamSpec,
                 generator: Optional[torch.Generator] = None,
-                kv_fp8: bool = False) -> dict:
+                kv_fp8: bool = False, uniforms=None) -> dict:
     """Batched beam search from normalized PVs [B, 53].
 
     ``decoder`` (see ``decoder_for``) sets the decoder's dtype: with a bf16
     decoder the encoder output enters in bf16 and the KV cache is bf16 —
     the property encoder itself stays fp32.  ``kv_fp8`` stores the KV cache
-    in float8_e4m3fn (compute stays bf16/fp32)."""
+    in float8_e4m3fn (compute stays bf16/fp32).  ``uniforms`` (step ->
+    noise) replaces the generator's draws in the stochastic mode."""
     prop_embeds = encode_pv(model, pv, prop_mask)                # [B, 54, H]
     cross_mask = torch.ones(prop_embeds.shape[:2], dtype=torch.int32,
                             device=pv.device)
@@ -63,8 +76,48 @@ def _beam_batch(model: SPMM, decoder: BertForMaskedLM, pv: Tensor,
     prop_embeds = prop_embeds.to(dtype)
     cache_dtype = torch.float8_e4m3fn if kv_fp8 else dtype
     return beam_search_batched(decoder, model.text_cfg, prop_embeds,
-                               cross_mask, spec, generator=generator,
-                               cache_dtype=cache_dtype)
+                               cross_mask, spec, uniforms=uniforms,
+                               generator=generator, cache_dtype=cache_dtype)
+
+
+def replicas_for(model: SPMM, devices, bf16: bool = True) -> Replicas:
+    """(model, its decoder) on every card of ``devices``."""
+    return Replicas(model, devices, lambda m: (m, decoder_for(m, bf16)))
+
+
+def beam_rows(replicas: Replicas, pv: np.ndarray,
+              prop_mask: Optional[np.ndarray], spec: BeamSpec,
+              generator: Optional[torch.Generator],
+              kv_fp8: bool = False) -> dict:
+    """``_beam_batch`` of normalized PVs [B, 53] (host arrays) split over
+    ``replicas``' cards; the host result in row order.
+
+    In the stochastic mode every card starts from ``generator``'s state,
+    draws the noise of all B rows at each step and keeps its own rows';
+    ``generator`` is then left where the card that ran the most steps left
+    it, which is where the unsharded batch leaves it."""
+    b = pv.shape[0]
+    state = generator.get_state() if spec.stochastic else None
+
+    def shard(pair, dev, rows, pv_s, mask_s):
+        model, decoder = pair
+        gen = uniforms = None
+        if spec.stochastic:
+            gen = torch.Generator(device=dev)
+            gen.set_state(state)
+            draw = torch_uniforms(gen, b, spec.k, model.text_cfg.vocab_size,
+                                  dev)
+
+            def uniforms(step):
+                return draw(step)[rows]
+        res = to_host(_beam_batch(model, decoder, pv_s, mask_s, spec,
+                                  kv_fp8=kv_fp8, uniforms=uniforms))
+        return res, None if gen is None else gen.get_state()
+
+    parts = replicas.map(shard, pv, prop_mask)
+    if spec.stochastic:
+        generator.set_state(max(parts, key=lambda p: p[0]["steps"])[1])
+    return concat_rows([p[0] for p in parts])
 
 
 def _decode_beams(tok: SmilesTokenizer, result: dict, i: int, k: int,
@@ -99,25 +152,48 @@ def generate_with_property(
     device_batch: int = 128,
     kv_fp8: bool = False,
     device=None,
+    devices=None,
 ) -> list[str]:
-    """Single-query workload: n_generate beam searches over one condition."""
+    """Single-query workload: n_generate beam searches over one condition.
+    With ``devices`` each batch of ``device_batch`` is split over them."""
     dev = resolve_device(device)
     check_on(model, dev)
     spec = BeamSpec(k=k, stop_count=k * k, stochastic=stochastic)
     py_rng = random.Random(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    decoder = decoder_for(model, bf16=True)
-    pv = torch.as_tensor(np.asarray(pv_normalized, np.float32), device=dev)
-    mask = torch.as_tensor(np.asarray(prop_mask, np.float32), device=dev)
-    out: list[str] = []
-    for start in range(0, n_generate, device_batch):
-        n = min(device_batch, n_generate - start)
-        result = to_host(_beam_batch(
-            model, decoder, pv.expand(device_batch, N_PROPERTIES),
-            mask.expand(device_batch, N_PROPERTIES), spec, gen, kv_fp8))
-        for i in range(n):
-            out.append(_decode_beams(tok, result, i, k, stochastic, py_rng))
+    pv = np.tile(np.asarray(pv_normalized, np.float32), (device_batch, 1))
+    mask = np.tile(np.asarray(prop_mask, np.float32), (device_batch, 1))
+    with _searcher(model, devices, device_batch, spec, gen, kv_fp8,
+                   dev) as search:
+        out: list[str] = []
+        for start in range(0, n_generate, device_batch):
+            n = min(device_batch, n_generate - start)
+            result = search(pv, mask)
+            for i in range(n):
+                out.append(_decode_beams(tok, result, i, k, stochastic,
+                                         py_rng))
     return out
+
+
+@contextlib.contextmanager
+def _searcher(model: SPMM, devices, device_batch: int, spec: BeamSpec,
+              gen: torch.Generator, kv_fp8: bool, dev: torch.device):
+    """A function (pv, mask) host arrays -> host result of one batch (bf16
+    decoder): on ``model``'s card, or split over ``devices``."""
+    if devices is None:
+        decoder = decoder_for(model, bf16=True)
+
+        def search(pv, mask):
+            return to_host(_beam_batch(
+                model, decoder, torch.as_tensor(pv, device=dev),
+                None if mask is None else torch.as_tensor(mask, device=dev),
+                spec, gen, kv_fp8))
+        yield search
+        return
+    with replicas_for(model, devices) as replicas:
+        replicas.check_batch(device_batch)
+        yield lambda pv, mask: beam_rows(replicas, pv, mask, spec, gen,
+                                         kv_fp8)
 
 
 def generate_batched(
@@ -130,25 +206,27 @@ def generate_batched(
     device_batch: int = 128,
     kv_fp8: bool = False,
     device=None,
+    devices=None,
 ) -> list[str]:
     """File-mode workload: one k-beam per molecule, stop_count=k, no
     property masking (reference d_pv2smiles_batched.py); always the best
-    beam (reference d_pv2smiles_batched.py:57)."""
+    beam (reference d_pv2smiles_batched.py:57).  With ``devices`` each
+    batch of ``device_batch`` (the last one padded to it) is split over
+    them."""
     dev = resolve_device(device)
     check_on(model, dev)
     spec = BeamSpec(k=k, stop_count=k, stochastic=stochastic)
     py_rng = random.Random(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    decoder = decoder_for(model, bf16=True)
     n_total = pvs_normalized.shape[0]
     out: list[str] = []
-    for start in range(0, n_total, device_batch):
-        n = min(device_batch, n_total - start)
-        chunk = np.zeros((device_batch, N_PROPERTIES), np.float32)
-        chunk[:n] = pvs_normalized[start: start + n]
-        result = to_host(_beam_batch(
-            model, decoder, torch.as_tensor(chunk, device=dev), None, spec,
-            gen, kv_fp8))
-        for i in range(n):
-            out.append(_decode_beams(tok, result, i, k, False, py_rng))
+    with _searcher(model, devices, device_batch, spec, gen, kv_fp8,
+                   dev) as search:
+        for start in range(0, n_total, device_batch):
+            n = min(device_batch, n_total - start)
+            chunk = np.zeros((device_batch, N_PROPERTIES), np.float32)
+            chunk[:n] = pvs_normalized[start: start + n]
+            result = search(chunk, None)
+            for i in range(n):
+                out.append(_decode_beams(tok, result, i, k, False, py_rng))
     return out

@@ -14,6 +14,12 @@ max_src_len) that holds them and never truncated, so a source longer than
 ``max_src_len`` grows its bucket in steps of 32; kernel 2 takes any number
 of keys (past 256 its long kernel, which keeps the scores in shared
 memory, runs).
+
+With ``devices`` (e.g. ``parallel.mesh.auto_mesh()``) each batch is padded
+to ``batch_size`` rows (``parallel.replicas.pad_rows``, as JAX's
+``_pad_rows``) and split into one contiguous block per card, each decoded
+by that card's replica in a worker thread of its own; the pad rows'
+outputs are dropped.  ``batch_size`` must divide over the cards.
 """
 
 from __future__ import annotations
@@ -23,9 +29,10 @@ import torch
 
 from spmm_tpu_torch.inference.decoding import (
     BeamSpec, beam_search_batched, greedy_decode)
-from spmm_tpu_torch.inference.pv2smiles import decoder_for
+from spmm_tpu_torch.inference.pv2smiles import decoder_for, to_host
 from spmm_tpu_torch.models.bert import BertForMaskedLM
 from spmm_tpu_torch.models.rxn import Rxn, encode_reactants
+from spmm_tpu_torch.parallel.replicas import Replicas, concat_rows, pad_rows
 from spmm_tpu_torch.tokenizer import SmilesTokenizer
 from spmm_tpu_torch.utils.device import DeviceLike, check_on, resolve_device
 
@@ -75,45 +82,66 @@ def _encode_sources(tok: SmilesTokenizer, batch: list[str], max_src_len: int,
     return torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
 
 
+def _decode_batches(model: Rxn, tok: SmilesTokenizer, sources: list[str],
+                    batch_size: int, max_src_len: int, bf16: bool, dev,
+                    devices, run):
+    """Yield (batch of sources, host result of ``run(model, decoder, ids,
+    mask)``) for each batch: on ``model``'s card, or padded to
+    ``batch_size`` and split over ``devices``."""
+    if devices is None:
+        decoder = decoder_for(model, bf16)
+        for start in range(0, len(sources), batch_size):
+            batch = sources[start: start + batch_size]
+            ids, mask = _encode_sources(tok, batch, max_src_len, dev)
+            yield batch, to_host(run(model, decoder, ids, mask))
+        return
+    with Replicas(model, devices,
+                  lambda m: (m, decoder_for(m, bf16))) as replicas:
+        replicas.check_batch(batch_size)
+        for start in range(0, len(sources), batch_size):
+            batch = sources[start: start + batch_size]
+            ids, mask = _encode_sources(tok, batch, max_src_len, "cpu")
+            ids, mask = pad_rows(ids.numpy(), mask.numpy(), batch_size,
+                                 tok.cls_token_id)
+            yield batch, concat_rows(replicas.map(
+                lambda pair, d, rows, i, m: to_host(run(*pair, i, m)),
+                ids, mask))
+
+
 def predict_greedy(model: Rxn, tok: SmilesTokenizer, sources: list[str],
                    batch_size: int = 32, max_src_len: int = 150,
-                   bf16: bool = True,
-                   device: DeviceLike = None) -> list[str]:
+                   bf16: bool = True, device: DeviceLike = None,
+                   devices=None) -> list[str]:
     """Batch greedy decode of raw reactant strings (no [CLS]) into product
     strings, each cut at its first [SEP].  Sources are padded, never
     truncated (module docstring)."""
     dev = resolve_device(device)
     check_on(model, dev)
-    decoder = decoder_for(model, bf16)
     out: list[str] = []
-    for start in range(0, len(sources), batch_size):
-        batch = sources[start: start + batch_size]
-        ids, mask = _encode_sources(tok, batch, max_src_len, dev)
-        seqs = _greedy_batch(model, decoder, ids, mask)["seqs"].cpu().numpy()
-        out += [tok.decode(_truncate_at_sep(seqs[i]))
+    for batch, res in _decode_batches(model, tok, sources, batch_size,
+                                      max_src_len, bf16, dev, devices,
+                                      _greedy_batch):
+        out += [tok.decode(_truncate_at_sep(res["seqs"][i]))
                 for i in range(len(batch))]
     return out
 
 
 def predict_beam(model: Rxn, tok: SmilesTokenizer, sources: list[str],
                  k: int = 3, batch_size: int = 32, max_src_len: int = 150,
-                 bf16: bool = True,
-                 device: DeviceLike = None) -> list[list[str]]:
+                 bf16: bool = True, device: DeviceLike = None,
+                 devices=None) -> list[list[str]]:
     """Per-source deterministic k-beam decode (stop_count k**2); the top-k
     candidate strings of each source, the finished ones, or all k live
     beams if none finished.  Sources are padded, never truncated (module
     docstring)."""
     dev = resolve_device(device)
     check_on(model, dev)
-    decoder = decoder_for(model, bf16)
     spec = BeamSpec(k=k, stop_count=k * k)
     out: list[list[str]] = []
-    for start in range(0, len(sources), batch_size):
-        batch = sources[start: start + batch_size]
-        ids, mask = _encode_sources(tok, batch, max_src_len, dev)
-        res = _beam_batch(model, decoder, ids, mask, spec)
-        seqs, lengths = res["seqs"].cpu().numpy(), res["lengths"].cpu().numpy()
-        n_fin = res["n_finished"].cpu().numpy()
+    for batch, res in _decode_batches(
+            model, tok, sources, batch_size, max_src_len, bf16, dev, devices,
+            lambda m, dec, ids, mask: _beam_batch(m, dec, ids, mask, spec)):
+        seqs, lengths, n_fin = res["seqs"], res["lengths"], res["n_finished"]
         for i in range(len(batch)):
             n_avail = k if n_fin[i] == 0 else min(k, int(n_fin[i]))
             out.append([tok.decode(seqs[i, j, :max(int(lengths[i, j]) - 1, 1)])

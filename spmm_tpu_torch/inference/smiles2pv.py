@@ -12,17 +12,23 @@ As in the JAX package, the SMILES section runs once, the fusion layers'
 cross-attention K/V are computed once (``precompute_cross_kv``), and the
 re-encodes run over a buffer that grows in segments 16 -> 32 -> 54: step i
 reads only slots <= i, and the mask ``positions <= i`` makes the cut exact.
+
+``predict_pv_rows`` splits a batch's rows over several cards
+(``parallel.replicas``), the counterpart of calling JAX's ``predict_pv`` on
+rows sharded over a mesh.
 """
 
 from __future__ import annotations
 
 import copy
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from spmm_tpu_torch.inference.decoding import precompute_cross_kv
 from spmm_tpu_torch.models.spmm import N_PROPERTIES, SPMM
+from spmm_tpu_torch.parallel.replicas import Replicas
 from spmm_tpu_torch.utils.device import DeviceLike, check_on, resolve_device
 
 Tensor = torch.Tensor
@@ -92,3 +98,15 @@ def predict_pv(model: SPMM, input_ids, attention_mask, *,
         if n + 1 < len(seg_sizes):              # grow the buffer
             buf = F.pad(buf, (0, 0, 0, seg_sizes[n + 1] - S))
     return torch.stack(preds, dim=1)
+
+
+def predict_pv_rows(replicas: Replicas, input_ids, attention_mask,
+                    **kwargs) -> np.ndarray:
+    """``predict_pv`` of a batch whose rows are split into one contiguous
+    block per card of ``replicas`` (each card's replica in its own worker
+    thread); the host predictions [B, n_properties] in row order."""
+    parts = replicas.map(
+        lambda model, dev, rows, ids, mask: predict_pv(
+            model, ids, mask, device=dev, **kwargs).cpu().numpy(),
+        input_ids, attention_mask)
+    return np.concatenate(parts)

@@ -31,8 +31,17 @@ forward, bit for bit.
 (``torch.utils.checkpoint``, non-reentrant), as ``encoder_forward``'s
 ``jax.checkpoint`` does (spmm_tpu/models/bert.py:256-275).
 ``checkpointed`` rewinds the caller's generator for the recompute, so
-that it draws the forward's dropout masks again.  The sequence-parallel
-hooks wait for the parallel slice.
+that it draws the forward's dropout masks again.
+
+Under tensor parallelism (``parallel.tp``) a rank's q, k and v hold
+``num_heads / tp`` whole heads: ``BertAttention`` splits by the head
+width, and the attention-probability dropout draws the mask of every head
+and keeps this rank's.  Under sequence parallelism (``parallel.sp``) the
+residual stream between the blocks holds this rank's positions:
+``BertModel`` cuts its input and gathers its output, each block gathers
+its input before the projections, and the dropouts before the residual
+adds keep this rank's positions of a whole mask.  Outside those contexts
+every hook is the identity.
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ from spmm_tpu_torch.ops.masks import (
     extend_causal_mask,
     invert_encoder_mask,
 )
+from spmm_tpu_torch.parallel import sp
+from spmm_tpu_torch.parallel.mesh import local_tensor, tp_rank
 
 Tensor = torch.Tensor
 
@@ -106,6 +117,12 @@ def checkpointed(fn: Callable, generator: Optional[torch.Generator],
 def split_heads(x: Tensor, num_heads: int) -> Tensor:
     b, l, hd = x.shape
     return x.reshape(b, l, num_heads, hd // num_heads).transpose(1, 2)
+
+
+def local_heads(linear: nn.Linear, head_dim: int) -> int:
+    """Heads whose projection ``linear`` computes on this rank: all of
+    them, or ``num_heads / tp`` once ``parallel.tp`` shards its outputs."""
+    return local_tensor(linear.weight).shape[0] // head_dim
 
 
 def merge_heads(x: Tensor) -> Tensor:
@@ -172,6 +189,7 @@ class BertAttention(nn.Module):
     def __init__(self, cfg: BertArchConfig, kv_width: int):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
+        self.head_dim = cfg.head_dim
         self.probs_dropout = cfg.attention_probs_dropout_prob
         self.hidden_dropout = cfg.hidden_dropout_prob
         self.self = BertSelfAttention(cfg, kv_width)
@@ -182,17 +200,23 @@ class BertAttention(nn.Module):
                 kv: Optional[tuple[Tensor, Tensor]] = None,
                 attention_impl: str = "plain",
                 generator: Optional[torch.Generator] = None) -> Tensor:
-        h = self.num_heads
-        q = split_heads(self.self.query(hidden), h)
+        whole = sp.gather(hidden)
+        q = self.self.query(whole)
+        h = q.shape[-1] // self.head_dim      # num_heads / tp under tp
+        q = split_heads(q, h)
         if kv is not None:
             k, v = kv
         else:
+            if kv_source is hidden:
+                kv_source = whole
             k = split_heads(self.self.key(kv_source), h)
             v = split_heads(self.self.value(kv_source), h)
+        heads = None if h == self.num_heads else (tp_rank() * h,
+                                                  self.num_heads)
         ctx = multi_head_attention(q, k, v, additive_mask, attention_impl,
-                                   self.probs_dropout, generator)
+                                   self.probs_dropout, generator, heads)
         out = self.output.dense(merge_heads(ctx))
-        out = dropout(out, self.hidden_dropout, generator)
+        out = sp.residual_dropout(out, self.hidden_dropout, generator)
         return self.output.LayerNorm(out + hidden)
 
 
@@ -229,8 +253,9 @@ class BertLayer(nn.Module):
             generator: Optional[torch.Generator] = None) -> Tensor:
         """Intermediate erf-GELU + output dense + dropout + residual LN
         (``mlp_block``)."""
-        up = F.gelu(self.intermediate.dense(hidden))
-        down = dropout(self.output.dense(up), self.hidden_dropout, generator)
+        up = F.gelu(self.intermediate.dense(sp.gather(hidden)))
+        down = sp.residual_dropout(self.output.dense(up),
+                                   self.hidden_dropout, generator)
         return self.output.LayerNorm(down + hidden)
 
     def forward(self, hidden: Tensor, self_mask: Optional[Tensor],
@@ -369,10 +394,12 @@ class BertModel(nn.Module):
                         device=dev)
                 cross_mask = invert_encoder_mask(encoder_attention_mask)
 
-        return self.encoder(hidden, self_mask, encoder_hidden_states,
-                            cross_mask, mode, cross_kv=cross_kv,
-                            attention_impl=attention_impl, generator=generator,
-                            remat=remat)
+        hidden = self.encoder(sp.scatter(hidden), self_mask,
+                              encoder_hidden_states, cross_mask, mode,
+                              cross_kv=cross_kv,
+                              attention_impl=attention_impl,
+                              generator=generator, remat=remat)
+        return sp.gather(hidden)
 
 
 class BertPredictionTransform(nn.Module):

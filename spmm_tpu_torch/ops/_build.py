@@ -72,6 +72,16 @@ def build(name: str, source: Optional[Path] = None) -> Path:
     return out
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: under a lock, since the inference
+    shards (``parallel.replicas``) launch from one thread per card."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check_no_grad(kernel: str, *tensors) -> None:
     """Raise if autograd would want a gradient through ``kernel``: grad mode
     is on and an input requires one.  The kernels have no backward, and a

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from spmm_tpu_torch.ops._build import check_no_grad
+from spmm_tpu_torch.ops._build import check_no_grad, count_launch
 from spmm_tpu_torch.ops.masks import MASK_VALUE
 
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
@@ -132,7 +132,7 @@ def beam_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"beam_decode_attention launch failed: CUDA "
                            f"error {err}")
-    beam_decode_attention.launches += 1
+    count_launch(beam_decode_attention)
     return ctx
 
 

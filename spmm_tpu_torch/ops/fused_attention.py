@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from spmm_tpu_torch.ops._build import check_no_grad
+from spmm_tpu_torch.ops._build import check_no_grad, count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -133,7 +133,7 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), b, h, lq, lk, c_strides, 1.0 / d ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"fused_mha launch failed: CUDA error {err}")
-    fused_mha.launches += 1
+    count_launch(fused_mha)
     return out
 
 

@@ -1,4 +1,6 @@
-"""Data parallelism over ``torch.distributed`` (counterpart of
-``spmm_tpu.parallel``): the data-parallel group (``mesh``) and the
-multi-process glue (``multihost``).  Tensor, sequence, fully-sharded,
-pipeline and expert parallelism are not ported yet."""
+"""Parallelism over ``torch.distributed`` (counterpart of
+``spmm_tpu.parallel``): the device mesh and its groups (``mesh``), the
+multi-process glue (``multihost``), tensor, sequence and fully-sharded
+parallelism of the pretrain step (``tp``, ``sp``, ``fsdp``) and
+data-parallel inference over several cards (``replicas``).  Pipeline and
+expert parallelism are not ported yet."""

@@ -7,7 +7,10 @@ device call per batch, and resolves each caller's
 ``concurrent.futures.Future`` with its own result.
 
 :class:`Pv2SmilesService` serves property vector -> SMILES and
-:class:`Smiles2PvService` SMILES -> property vector.
+:class:`Smiles2PvService` SMILES -> property vector.  With ``devices`` (a
+list of cards, ``parallel.mesh.auto_mesh()``) each batch's rows are split
+over one replica of the model per card, each in a worker thread of its
+own (``parallel.replicas``), as JAX's services shard over ``mesh``.
 """
 
 from __future__ import annotations
@@ -132,17 +135,24 @@ class Pv2SmilesService(BatchingService):
 
     def __init__(self, model, tok, *, k: int = 2, stochastic: bool = False,
                  batch_size: int = 128, max_wait_ms: float = 25.0,
-                 seed: int = 0, kv_fp8: bool = False, device=None):
+                 seed: int = 0, kv_fp8: bool = False, device=None,
+                 devices=None):
         from spmm_tpu_torch.inference.decoding import BeamSpec
         from spmm_tpu_torch.inference.pv2smiles import (
-            _beam_batch, _decode_beams, decoder_for, to_host)
+            _beam_batch, _decode_beams, beam_rows, decoder_for,
+            replicas_for, to_host)
         from spmm_tpu_torch.utils.device import check_on, resolve_device
 
         dev = resolve_device(device)
         check_on(model, dev)
         spec = BeamSpec(k=k, stop_count=k * k if stochastic else k,
                         stochastic=stochastic)
-        decoder = decoder_for(model, bf16=True)
+        self._replicas = None
+        if devices is None:
+            decoder = decoder_for(model, bf16=True)
+        else:
+            self._replicas = replicas_for(model, devices)
+            self._replicas.check_batch(batch_size)
         gen = torch.Generator(device=dev).manual_seed(seed)
         py_rng = random.Random(seed)
 
@@ -160,15 +170,25 @@ class Pv2SmilesService(BatchingService):
 
         def batch_fn(items: list, n: int) -> list[str]:
             pairs = [split_item(it) for it in items]
-            pv = torch.as_tensor(np.stack([p for p, _ in pairs]), device=dev)
-            msk = torch.as_tensor(np.stack([m for _, m in pairs]), device=dev)
-            result = to_host(_beam_batch(model, decoder, pv, msk, spec, gen,
-                                         kv_fp8))
+            pv = np.stack([p for p, _ in pairs])
+            msk = np.stack([m for _, m in pairs])
+            if self._replicas is not None:
+                result = beam_rows(self._replicas, pv, msk, spec, gen,
+                                   kv_fp8)
+            else:
+                result = to_host(_beam_batch(
+                    model, decoder, torch.as_tensor(pv, device=dev),
+                    torch.as_tensor(msk, device=dev), spec, gen, kv_fp8))
             # decode only the real rows
             return [_decode_beams(tok, result, i, k, stochastic, py_rng)
                     for i in range(n)]
 
         super().__init__(batch_fn, batch_size, max_wait_ms)
+
+    def close(self) -> None:
+        super().close()
+        if self._replicas is not None:
+            self._replicas.close()
 
 
 class Smiles2PvService(BatchingService):
@@ -182,25 +202,39 @@ class Smiles2PvService(BatchingService):
 
     def __init__(self, model, tok, *, stats=None, batch_size: int = 128,
                  max_wait_ms: float = 25.0, max_len: int = 100,
-                 bf16: bool = False, device=None):
+                 bf16: bool = False, device=None, devices=None):
         from spmm_tpu_torch.inference.smiles2pv import (
-            cast_params_bf16, predict_pv)
+            cast_params_bf16, predict_pv, predict_pv_rows)
+        from spmm_tpu_torch.parallel.replicas import Replicas
         from spmm_tpu_torch.utils.device import check_on, resolve_device
 
         dev = resolve_device(device)
         check_on(model, dev)
         if bf16:
             model = cast_params_bf16(model)
+        self._replicas = None
+        if devices is not None:
+            self._replicas = Replicas(model, devices)
+            self._replicas.check_batch(batch_size)
 
         def batch_fn(smiles: list[str], n: int) -> list[np.ndarray]:
             texts = [s if s.startswith("[CLS]") else "[CLS]" + s
                      for s in smiles]
             ids, mask = tok.encode_batch(texts, max_len=max_len,
                                          buckets=(max_len,))
-            preds = predict_pv(model, ids, mask, bf16=bf16,
-                               device=dev).cpu().numpy()[:n]
+            if self._replicas is not None:
+                preds = predict_pv_rows(self._replicas, ids, mask,
+                                        bf16=bf16)[:n]
+            else:
+                preds = predict_pv(model, ids, mask, bf16=bf16,
+                                   device=dev).cpu().numpy()[:n]
             if stats is not None:
                 preds = stats.denormalize(preds)
             return list(preds)
 
         super().__init__(batch_fn, batch_size, max_wait_ms)
+
+    def close(self) -> None:
+        super().close()
+        if self._replicas is not None:
+            self._replicas.close()

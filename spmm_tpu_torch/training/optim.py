@@ -22,6 +22,11 @@ state has ``torch.optim.AdamW``'s layout (``step``, ``exp_avg``,
 ``(params, **defaults)`` constructor lets
 ``torch.distributed.optim.ZeroRedundancyOptimizer`` build one per rank
 (``functools.partial(AdamW, mu_dtype=torch.bfloat16)``).
+
+The update is elementwise, so on DTensor parameters (``parallel.tp``,
+``parallel.fsdp``) it runs on each rank's local parts: the moments are
+DTensors laid out as their parameters, and no list ever mixes DTensors
+with plain tensors (which PyTorch's own foreach AdamW refuses).
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from spmm_tpu_torch.parallel.mesh import local_tensor
 
 
 class AdamW(torch.optim.Optimizer):
@@ -54,7 +61,7 @@ class AdamW(torch.optim.Optimizer):
 
     def _update(self, group: dict, params: list) -> None:
         b1, b2 = group["betas"]
-        grads = [p.grad for p in params]
+        grads = [local_tensor(p.grad) for p in params]
         mus, nus = [], []
         for p in params:
             state = self.state[p]
@@ -68,10 +75,11 @@ class AdamW(torch.optim.Optimizer):
                 # (Optimizer.load_state_dict); bf16 -> f32 -> bf16 is exact
                 state["exp_avg"] = state["exp_avg"].to(mu_dtype)
             state["step"] += 1
-            mus.append(state["exp_avg"])
-            nus.append(state["exp_avg_sq"])
+            mus.append(local_tensor(state["exp_avg"]))
+            nus.append(local_tensor(state["exp_avg_sq"]))
         # one count for the group, in float32 as optax's bias correction
         count = self.state[params[0]]["step"].to(torch.float32)
+        params = [local_tensor(p) for p in params]
         bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** count).item()
         bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** count).item()
         # b1 * mu in the moment's dtype, b1 rounded to it too (JAX's weak

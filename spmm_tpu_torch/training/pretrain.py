@@ -38,10 +38,22 @@ rank draws its own noise.  ``pcfg.zero1`` shards the AdamW moments over
 the ranks (``ZeroRedundancyOptimizer``); ``pcfg.bf16_moments`` keeps the
 first moment in bf16 (``training.optim.AdamW``).  Without a process group
 it is one process on one device.
+
+Tensor, sequence and fully-sharded parallelism: under a process-wide
+('dp', 'tp') or ('dp', 'fsdp') mesh (``parallel.mesh``) the step lays the
+model out with ``parallel.tp.apply_tp`` or ``parallel.fsdp.apply_fsdp``
+first, as JAX's CLI places its state (spmm_tpu/cli/pretrain.py:164-195),
+and is data-parallel over the mesh's ``dp`` dim only: the rows, the
+generator chunks, the gradient all-reduce, the loss reduction and the
+feature gather follow the dp rank, so tp and fsdp peers compute the same
+rows and a dp=D x tp=T or dp=D x fsdp=F run equals a 1-D dp=D run
+(spmm_tpu/training/pretrain.py:486-511).  ``sp=True`` runs the encoders
+sequence-parallel over the tp group (``parallel.sp``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Optional, Union
 
@@ -49,13 +61,16 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from spmm_tpu_torch.checkpoint.convert import pretrain_subset
 from spmm_tpu_torch.configs import (
     BertArchConfig, PretrainConfig, property_config, text_config)
 from spmm_tpu_torch.models.bert import BertForMaskedLM, BertModel, checkpointed
 from spmm_tpu_torch.models.spmm import SPMM
-from spmm_tpu_torch.parallel.mesh import dp_group
+from spmm_tpu_torch.parallel import mesh as _mesh
+from spmm_tpu_torch.parallel.mesh import local_tensor
+from spmm_tpu_torch.parallel import sp as _sp
 from spmm_tpu_torch.training.optim import AdamW
 from spmm_tpu_torch.training.schedules import reference_cosine_schedule
 from spmm_tpu_torch.utils.device import DeviceLike, fp32_matmuls, resolve_device
@@ -86,6 +101,15 @@ class PretrainModel(SPMM):
         self.register_buffer("prop_queue", torch.zeros(embed_dim, queue_size))
         self.register_buffer("text_queue", torch.zeros(embed_dim, queue_size))
         self.register_buffer("queue_ptr", torch.zeros(1, dtype=torch.long))
+
+    def forward(self, batch: dict, alpha: float, pcfg: PretrainConfig,
+                generator: Optional[torch.Generator] = None,
+                noise_override: Optional[dict] = None
+                ) -> tuple[Tensor, dict]:
+        """``pretrain_loss`` of this state: the step calls the model, so that
+        FSDP2's root unit gathers its parameters around the loss."""
+        return pretrain_loss(self, batch, alpha, pcfg, generator,
+                             noise_override)
 
     def online_parameters(self) -> list:
         """What the optimizer updates: every parameter but the twins'
@@ -374,23 +398,47 @@ def pretrain_loss(model: PretrainModel, batch: dict, alpha: float,
 LOSS_KEYS = ("loss_mlm", "loss_mpm", "loss_ita", "loss_itm")
 
 
+def _sharded(t: Tensor) -> bool:
+    """Whether ``t`` is a DTensor whose ranks hold different parts."""
+    return isinstance(t, DTensor) and any(isinstance(p, Shard)
+                                          for p in t.placements)
+
+
 @torch.no_grad()
 def ema_update(model: PretrainModel, momentum: float) -> None:
     """twin = twin * m + online * (1 - m), in place, in that order
-    (spmm_tpu/training/pretrain.py:442-445)."""
-    twins, online = model.ema_pairs()
+    (spmm_tpu/training/pretrain.py:442-445); on the local shards where tp
+    or fsdp shards both alike."""
+    twins, online = (list(map(local_tensor, ps)) for ps in model.ema_pairs())
     torch._foreach_mul_(twins, momentum)
     torch._foreach_add_(twins, torch._foreach_mul(online, 1.0 - momentum))
 
 
-def clip_by_global_norm_(grads: list, max_norm: float) -> Tensor:
+def clip_by_global_norm_(grads: list,
+                         max_norm: float,
+                         group: Optional[dist.ProcessGroup] = None) -> Tensor:
     """``optax.clip_by_global_norm``: every gradient becomes g / norm *
     max_norm where the global norm is >= max_norm (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``).  Returns the norm; no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    ``torch.nn.utils.clip_grad_norm_``).  Returns the norm; no host sync.
+
+    ``group`` holds the shards of the sharded DTensor gradients among
+    ``grads`` (the tp or fsdp peers): their squares are summed over it, and
+    each replicated gradient is counted once, so the norm is one
+    process's."""
+    parts = [local_tensor(g) for g in grads]
+    norms = torch._foreach_norm(parts)
+    if group is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        shard = torch.tensor([_sharded(g) for g in grads],
+                             device=parts[0].device)
+        sq = torch.stack(norms) ** 2
+        sharded = torch.where(shard, sq, 0.0).sum()
+        dist.all_reduce(sharded, group=group)
+        norm = torch.sqrt(torch.where(shard, 0.0, sq).sum() + sharded)
     clip = norm >= max_norm
-    torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
-    torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
+    torch._foreach_div_(parts, torch.where(clip, norm, 1.0))
+    torch._foreach_mul_(parts, torch.where(clip, max_norm, 1.0))
     return norm
 
 
@@ -401,16 +449,19 @@ def make_pretrain_optimizer(model: PretrainModel, pcfg: PretrainConfig,
     zero gradients AdamW would decay them.  The lr is set per step.
 
     ``torch.optim.AdamW`` (optax.adamw's arithmetic, finetune.py's note),
-    or with ``pcfg.bf16_moments`` the port's ``training.optim.AdamW`` with a
-    bf16 first moment (optax's ``mu_dtype``).  ``pcfg.zero1`` wraps it in a
+    or the port's ``training.optim.AdamW``: with ``pcfg.bf16_moments`` (a
+    bf16 first moment, optax's ``mu_dtype``), and over DTensor parameters
+    (tp or fsdp), whose local parts it updates.  ``pcfg.zero1`` wraps it in a
     ``ZeroRedundancyOptimizer`` over ``group``: each rank keeps the moments
     of its share of the parameters, steps them, and broadcasts them back;
     the parameters stay replicated."""
-    cls = (functools.partial(AdamW, mu_dtype=torch.bfloat16)
-           if pcfg.bf16_moments else torch.optim.AdamW)
+    params = model.online_parameters()
+    cls = torch.optim.AdamW
+    if pcfg.bf16_moments or any(isinstance(p, DTensor) for p in params):
+        cls = functools.partial(
+            AdamW, mu_dtype=torch.bfloat16 if pcfg.bf16_moments else None)
     hyper = dict(lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                  weight_decay=pcfg.weight_decay)
-    params = model.online_parameters()
     if not pcfg.zero1:
         return cls(params, **hyper)
     if group is None:
@@ -428,7 +479,8 @@ Generators = Union[torch.Generator, Callable[[int], torch.Generator], None]
 
 def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
                        steps_per_epoch: int, accum: int = 1,
-                       data_parallel: Optional[bool] = None):
+                       data_parallel: Optional[bool] = None,
+                       sp: bool = False):
     """(optimizer, step) of pretraining (``make_pretrain_step``,
     spmm_tpu/training/pretrain.py:549-653).
 
@@ -441,56 +493,81 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
       - the EMA update, before the forward;
       - alpha ramps over epoch 0;
       - ``accum`` microbatches of this rank's rows: each backpropagates its
-        loss over ``world * accum`` into one flat gradient buffer, and the
+        loss over ``world * accum`` (``world`` the dp extent), and the
         queue takes every microbatch's momentum features;
       - with a process group (``data_parallel`` None and one initialized,
-        or True): one all-reduce (sum) of the gradient buffer, one of the
-        loss and metrics, and one all-gather of the momentum features, so
-        that the queue is written in global row order on every rank.
-        Summing pre-scaled gradients makes two ranks' step the arithmetic
-        of one process at twice the ``accum``;
+        or True): one all-reduce (sum) over the dp group of this rank's
+        gradients (of its shards under tp or fsdp) as one flat buffer, one
+        of the loss and metrics, and one all-gather of the momentum
+        features, so that the queue is written in global row order on
+        every rank.  Summing pre-scaled gradients makes two ranks' step
+        the arithmetic of one process at twice the ``accum``;
       - a non-finite loss skips everything below (the EMA and the caller's
         step count still advance); it is the reduced loss, so every rank
         skips together;
       - clip by global norm ``pcfg.grad_clip`` over the whole reduced
-        gradients, then AdamW at ``reference_cosine_schedule(step_size=
-        100)`` of the step (under ``pcfg.zero1`` each rank steps its share
-        and broadcasts it);
+        gradients (the shards' squares summed over the tp or fsdp group),
+        then AdamW at ``reference_cosine_schedule(step_size=100)`` of the
+        step (under ``pcfg.zero1`` each rank steps its share and
+        broadcasts it);
       - ``temp`` clipped to [0.01, 0.5];
       - the queue written at columns (ptr + arange(B_global)) % Q.
 
     Rows: the global batch is cut into ``accum`` microbatches and each is
-    split over the ranks, as JAX does, so this rank holds
-    ``parallel.multihost.local_rows``; microbatch ``i`` of rank ``r`` is
-    chunk ``c = i * world + r`` of the global batch.  ``generator`` is one
-    ``torch.Generator`` that every microbatch draws from, or a function of
-    the chunk (``functools.partial(step_generator, seed, step, device)``):
-    then the draws depend on the chunk alone, not on how the chunks are
-    spread over ranks and microbatches.  ``noise`` fixes the loss's draws
-    (``pretrain_loss``'s ``noise_override``), as tensors over this rank's
-    rows that are split with them; ``neg_*_idx`` index within their
-    microbatch.  ``data_parallel=False`` is the one-process step even under
-    a process group."""
-    group = None if data_parallel is False else dp_group()
+    split over the dp ranks, as JAX does, so this rank holds
+    ``parallel.multihost.local_rows`` of its dp rank; microbatch ``i`` of
+    dp rank ``r`` is chunk ``c = i * world + r`` of the global batch.
+    ``generator`` is one ``torch.Generator`` that every microbatch draws
+    from, or a function of the chunk (``functools.partial(step_generator,
+    seed, step, device)``): then the draws depend on the chunk alone, not
+    on how the chunks are spread over ranks and microbatches.  ``noise``
+    fixes the loss's draws (``pretrain_loss``'s ``noise_override``), as
+    tensors over this rank's rows that are split with them; ``neg_*_idx``
+    index within their microbatch.  ``data_parallel=False`` is the
+    one-process step even under a process group.
+
+    Under a ('dp', 'tp') mesh the model is laid out by ``parallel.tp.
+    apply_tp`` here (unless it already is), under ('dp', 'fsdp') by
+    ``parallel.fsdp.apply_fsdp``; ``sp=True`` needs the tp dim and runs
+    the microbatches' forwards and backwards inside ``parallel.sp.
+    sequence_parallel``.  ``pcfg.zero1`` with either dim raises, as in
+    JAX (spmm_tpu/training/pretrain.py:494-498)."""
+    minor = None if data_parallel is False else _mesh.minor_dim()
+    if pcfg.zero1 and minor is not None:
+        raise ValueError(
+            f"zero1 and a {minor!r} mesh dim are not composed: ZeRO-1 "
+            f"shards the optimizer state over dp while {minor} shards it "
+            "with the parameters; pick one")
+    if sp and minor != _mesh.TP_AXIS:
+        raise ValueError("sp=True needs a mesh with a 'tp' dim: sequence "
+                         "parallelism shards over the tensor-parallel group")
+    group = None if data_parallel is False else _mesh.dp_group()
     if data_parallel and group is None:
         raise ValueError("data_parallel=True needs a process group "
                          "(parallel.multihost.initialize)")
     world = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
+    minor_group = None
+    if minor is not None:
+        if not any(isinstance(p, DTensor) for p in model.parameters()):
+            from spmm_tpu_torch.parallel import fsdp, tp
+
+            (tp.apply_tp if minor == _mesh.TP_AXIS else fsdp.apply_fsdp)(
+                model)
+        minor_group = _mesh.minor_mesh().get_group()
     fp32_matmuls()
     opt = make_pretrain_optimizer(model, pcfg, group)
     params = model.online_parameters()
-    # the gradients are views of one buffer: backward accumulates into
-    # them in place, and one collective reduces them all
-    flat = torch.zeros(sum(p.numel() for p in params),
-                       device=params[0].device)
-    grads, offset = [], 0
-    for p in params:
-        grads.append(flat[offset:offset + p.numel()].view_as(p))
-        offset += p.numel()
+    seq_partial = _sp.partial_parameters(model) if sp else []
+    sp_mesh = _mesh.minor_mesh() if sp else None
     schedule = reference_cosine_schedule(
         pcfg.lr, pcfg.min_lr, pcfg.warmup_lr, pcfg.epochs,
         pcfg.warmup_epochs, steps_per_epoch, step_size=100)
+
+    def context():
+        if not sp:
+            return contextlib.nullcontext()
+        return _sp.sequence_parallel(sp_mesh)
 
     def step(global_step: int, batch: dict, generator: Generators = None,
              noise: Optional[dict] = None) -> dict:
@@ -504,32 +581,38 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
         alpha = (pcfg.alpha if epoch > 0 else
                  pcfg.alpha * min(1.0, batch_idx / steps_per_epoch))
         ema_update(model, pcfg.momentum)
-        flat.zero_()
-        for p, g in zip(params, grads):
-            p.grad = g
+        for p in params:
+            p.grad = None
         mb, scale = lb // accum, world * accum
         loss = 0.0
         parts = dict.fromkeys(LOSS_KEYS, 0.0)
         feats = []
-        for i in range(accum):
-            rows = slice(i * mb, (i + 1) * mb)
-            total, aux = pretrain_loss(
-                model, {k: v[rows] for k, v in batch.items()}, alpha, pcfg,
-                generator(i * world + rank) if callable(generator)
-                else generator,
-                None if noise is None else {k: v[rows]
-                                            for k, v in noise.items()})
-            (total / scale).backward()
-            loss = loss + total.detach() / scale
-            for k in LOSS_KEYS:
-                parts[k] = parts[k] + aux[k].detach() / scale
-            feats.append(torch.stack([aux["prop_feat_m"],
-                                      aux["text_feat_m"]]))
+        with context():
+            for i in range(accum):
+                rows = slice(i * mb, (i + 1) * mb)
+                total, aux = model(
+                    {k: v[rows] for k, v in batch.items()}, alpha, pcfg,
+                    generator(i * world + rank) if callable(generator)
+                    else generator,
+                    None if noise is None else {k: v[rows]
+                                                for k, v in noise.items()})
+                (total / scale).backward()
+                loss = loss + total.detach() / scale
+                for k in LOSS_KEYS:
+                    parts[k] = parts[k] + aux[k].detach() / scale
+                feats.append(torch.stack([aux["prop_feat_m"],
+                                          aux["text_feat_m"]]))
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if seq_partial:
+            _all_reduce_flat([p.grad for p in seq_partial], minor_group)
         feats = torch.stack(feats)                  # [accum, 2, mb, E]
         if group is None:
             feats = feats[:, None]
         else:
-            dist.all_reduce(flat, group=group)
+            _all_reduce_flat([local_tensor(g) for g in grads], group)
             stats = torch.stack([loss, *(parts[k] for k in LOSS_KEYS)])
             dist.all_reduce(stats, group=group)
             loss, parts = stats[0], dict(zip(LOSS_KEYS, stats[1:]))
@@ -542,7 +625,7 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
         finite = bool(torch.isfinite(loss))
         norm = None
         if finite:
-            norm = clip_by_global_norm_(grads, pcfg.grad_clip)
+            norm = clip_by_global_norm_(grads, pcfg.grad_clip, minor_group)
             for g in opt.param_groups:
                 g["lr"] = lr
             opt.step()
@@ -560,6 +643,16 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
     return opt, step
 
 
+def _all_reduce_flat(tensors: list, group: dist.ProcessGroup) -> None:
+    """Sum ``tensors`` over ``group`` in place, as one flat buffer: one
+    collective for all of them."""
+    sizes = [t.numel() for t in tensors]
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    torch._foreach_copy_(tensors, [x.view_as(t) for x, t in
+                                   zip(flat.split(sizes), tensors)])
+
+
 def step_generator(seed: int, global_step: int, device: torch.device,
                    chunk: int = 0) -> torch.Generator:
     """The generator of one chunk of one step's global batch, seeded from
@@ -568,13 +661,14 @@ def step_generator(seed: int, global_step: int, device: torch.device,
     is chunk ``i * world + r``, as JAX folds in the dp index): a resumed
     run draws what an uninterrupted one draws, and two ranks draw what one
     process at twice the ``accum`` draws.  Chunk 0 is the one-process,
-    one-microbatch generator.  Other chunks take the splitmix64 mix of it
-    and the chunk, which reaches the low 32 bits, the only ones the CPU's
-    Mersenne Twister reads."""
+    one-microbatch generator.  The seed is the splitmix64 mix of the run's
+    seed, the step and (past chunk 0) the chunk, which reaches the low 32
+    bits, the only ones the CPU's Mersenne Twister reads: so two seeds draw
+    differently on the CPU too, as on the card's Philox generator."""
     value = ((seed + 1) << 32) + int(global_step)
     if chunk:
-        value = _splitmix64(value ^ _splitmix64(chunk))
-    return torch.Generator(device=device).manual_seed(value)
+        value ^= _splitmix64(chunk)
+    return torch.Generator(device=device).manual_seed(_splitmix64(value))
 
 
 def _splitmix64(x: int) -> int:

@@ -80,9 +80,11 @@ def worker_env() -> dict:
     return env
 
 
-def run_ranks(workdir, world: int = 2) -> None:
+def run_ranks(workdir, world: int = 2, mode: str = "steps") -> None:
+    """``world`` ranks of tests/torch_dist_worker.py ``mode`` over
+    ``workdir``; each must exit 0 within TIMEOUT."""
     procs = [subprocess.Popen(
-        [sys.executable, WORKER, "steps", str(workdir), str(r), str(world)],
+        [sys.executable, WORKER, mode, str(workdir), str(r), str(world)],
         cwd=REPO, env=worker_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     outs = []
@@ -250,9 +252,11 @@ def test_without_a_process_group_the_step_is_one_process(tmp_path):
 
 
 def test_chunk_0_generator_is_the_one_process_generator():
-    """A one-process, accum-1 run draws what it drew before chunks."""
+    """A one-process, accum-1 run draws from the generator seeded with the
+    mix of the run's seed and the step, and chunk 0 is that generator."""
     cpu = torch.device("cpu")
-    want = torch.Generator().manual_seed(((7 + 1) << 32) + 5)
+    want = torch.Generator().manual_seed(
+        pretrain._splitmix64(((7 + 1) << 32) + 5))
     got = pretrain.step_generator(7, 5, cpu)
     assert torch.equal(torch.rand(8, generator=got),
                        torch.rand(8, generator=want))
@@ -260,6 +264,17 @@ def test_chunk_0_generator_is_the_one_process_generator():
     assert not torch.equal(torch.rand(8, generator=other),
                            torch.rand(8, generator=pretrain.step_generator(
                                7, 5, cpu)))
+
+
+@pytest.mark.parametrize("chunk", [0, 1, 3])
+def test_cpu_generators_of_two_seeds_differ(chunk):
+    """The run's seed reaches the CPU's generator: seeds 1 and 2 draw
+    different dropout, property masks and negatives at one step and chunk
+    (the Mersenne Twister reads only the low 32 bits of its seed)."""
+    cpu = torch.device("cpu")
+    a, b = (torch.rand(16, generator=pretrain.step_generator(
+        seed, 3, cpu, chunk=chunk)) for seed in (1, 2))
+    assert not torch.equal(a, b)
 
 
 def test_two_ranks_equal_one_process_at_twice_the_accum(dist_run):

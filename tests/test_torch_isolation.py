@@ -46,7 +46,9 @@ def test_importing_every_module_loads_no_jax():
                 "cli.classification", "cli.classification_multilabel",
                 "cli.regression", "training.pretrain", "checkpoint.io",
                 "utils.profiling", "cli.pretrain", "cli.convert_checkpoint",
-                "parallel.mesh", "parallel.multihost", "training.optim"):
+                "parallel.mesh", "parallel.multihost", "training.optim",
+                "parallel.tp", "parallel.sp", "parallel.fsdp",
+                "parallel.replicas", "models.introspect"):
         assert f"spmm_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

@@ -299,9 +299,9 @@ def test_pretrain_config_fields_reach_the_cli_step(tmp_path, corpus,
     seen = {}
     real = cli.make_pretrain_step
 
-    def spy(model, pcfg, steps_per_epoch, accum=1):
+    def spy(model, pcfg, steps_per_epoch, accum=1, **kwargs):
         seen.update(dataclasses.asdict(pcfg), accum=accum)
-        return real(model, pcfg, steps_per_epoch, accum=accum)
+        return real(model, pcfg, steps_per_epoch, accum=accum, **kwargs)
 
     monkeypatch.setattr(cli, "make_pretrain_step", spy)
     path, cache = corpus

@@ -13,6 +13,13 @@ noise, and a list of scenarios), runs each scenario's data-parallel steps
 on this rank's rows and writes ``WORKDIR/<scenario>_rank<RANK>.pt`` (the
 state dict, the losses, the optimizer state's element count);
 
+    python tests/torch_dist_worker.py parallel WORKDIR RANK WORLD
+
+joins the group likewise and runs each scenario of ``WORKDIR/input.pt``
+on the process-wide mesh it names (``run_parallel``: pretrain steps under
+dp x tp, dp x tp with sp, or dp x fsdp; an MLM forward; ``predict_pv``),
+writing ``WORKDIR/<scenario>_rank<RANK>.pt``;
+
     python -m torch.distributed.run --standalone --nproc_per_node 2 \\
         tests/torch_dist_worker.py cli TEXT_CFG_JSON PROP_CFG_JSON ARGS...
 
@@ -20,6 +27,8 @@ runs ``spmm_tpu_torch.cli.pretrain.main(ARGS)`` with those tiny configs
 in place of the full-width ones.
 """
 
+import contextlib
+import functools
 import json
 import sys
 
@@ -27,7 +36,7 @@ import torch
 
 from spmm_tpu_torch.checkpoint.io import restore_checkpoint, save_checkpoint
 from spmm_tpu_torch.configs import BertArchConfig, PretrainConfig
-from spmm_tpu_torch.parallel import multihost
+from spmm_tpu_torch.parallel import mesh, multihost
 from spmm_tpu_torch.parallel.mesh import dp_rank, dp_size
 from spmm_tpu_torch.training import pretrain
 
@@ -85,6 +94,105 @@ def steps(workdir: str, rank: int, world: int) -> None:
         torch.distributed.destroy_process_group()
 
 
+def local_elements(tensors) -> int:
+    """Elements this rank holds of ``tensors`` (its shard of a DTensor)."""
+    return sum((x.to_local() if hasattr(x, "to_local") else x).numel()
+               for x in tensors)
+
+
+def run_parallel(inp: dict, sc: dict, workdir: str) -> dict:
+    """``sc``: name, kind ("pretrain", "mlm" or "predict_pv"), mesh [dp,
+    minor, "tp" | "fsdp"] or None, and per kind:
+
+    - pretrain: accum, steps, sp, dropout (a generator per chunk from
+      seed 11, else the fixed noise), optionally pcfg (PretrainConfig
+      fields over ``inp["pcfg"]``), resume and save_at;
+    - mlm: the BertForMaskedLM of the state's text encoder on ``mlm``'s
+      ids, mask and encoder states, dropout on from a generator seeded 5;
+    - predict_pv: ``predict_pv`` of this dp rank's rows of ``s2p``.
+    """
+    from spmm_tpu_torch.checkpoint.io import whole
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv
+    from spmm_tpu_torch.models.spmm import SPMM
+    from spmm_tpu_torch.parallel import sp as sp_mod
+    from spmm_tpu_torch.parallel import tp
+
+    mesh.clear_mesh()
+    if sc["mesh"] is not None:
+        mesh.set_mesh(*sc["mesh"])
+    rank, world = dp_rank(), dp_size()
+    cpu = torch.device("cpu")
+    if sc["kind"] == "predict_pv":
+        model = SPMM(*inp["configs"])
+        model.load_state_dict(inp["spmm"], strict=True)
+        tp.apply_tp(model.eval())
+        ids, mask = inp["s2p"]
+        rows = multihost.process_rows(ids.shape[0], rank, world)
+        rows = torch.arange(rows.start, rows.stop)
+        return {"rows": rows, "pv": predict_pv(model, ids[rows], mask[rows],
+                                               n_properties=5, device=cpu)}
+    pcfg = PretrainConfig(**inp["pcfg"], **sc.get("pcfg", {}))
+    model = pretrain.PretrainModel(*inp["configs"], pcfg.embed_dim,
+                                   pcfg.queue_size)
+    model.load_state_dict(inp["state"], strict=True)
+    if sc["kind"] == "mlm":
+        tp.apply_tp(model)
+        ids, mask, enc = inp["mlm"]
+        gen = torch.Generator().manual_seed(5)
+        ctx = (sp_mod.sequence_parallel(mesh.minor_mesh()) if sc.get("sp")
+               else contextlib.nullcontext())
+        with ctx, torch.no_grad():
+            logits = model.text_encoder(input_ids=ids, attention_mask=mask,
+                                        encoder_hidden_states=enc,
+                                        is_decoder=True, generator=gen)
+        return {"logits": logits}
+    opt, step = pretrain.make_pretrain_step(
+        model, pcfg, inp["steps_per_epoch"], accum=sc["accum"],
+        sp=sc.get("sp", False))
+    first = 0
+    if sc.get("resume"):
+        first = restore_checkpoint(sc["resume"], model, opt)
+    batches, noises = inp[sc["batches"]]
+    losses = []
+    for s in range(first, sc["steps"]):
+        n = batches[s]["prop"].shape[0]
+        rows = multihost.local_rows(n, rank, world, sc["accum"])
+        gen = noise = None
+        if sc["dropout"]:
+            gen = functools.partial(pretrain.step_generator, 11, s, cpu)
+        else:
+            noise = rows_of(noises[s], rows)
+        m = step(s, rows_of(batches[s], rows), gen, noise)
+        losses.append(m["loss"].item())
+        if sc.get("save_at") == s + 1:
+            save_checkpoint(f"{workdir}/{sc['name']}_step{s + 1}.pt", model,
+                            opt, s + 1)
+    twins, online = model.ema_pairs()[0], model.online_parameters()
+    moments = [st[k] for st in opt.state.values()
+               for k in ("exp_avg", "exp_avg_sq")]
+    return {"state": whole(model.state_dict()), "losses": losses,
+            "held": {"params": local_elements(online),
+                     "twins": local_elements(twins),
+                     "moments": local_elements(moments)},
+            "placements": {name: str(getattr(p, "placements", None))
+                           for name, p in model.named_parameters()}}
+
+
+def parallel(workdir: str, rank: int, world: int) -> None:
+    torch.set_num_threads(1)
+    multihost.initialize("cpu", init_method=f"file://{workdir}/store",
+                         world_size=world, rank=rank)
+    try:
+        inp = torch.load(f"{workdir}/input.pt", weights_only=True)
+        inp["configs"] = [BertArchConfig(**c) for c in inp["configs"]]
+        for sc in inp["scenarios"]:
+            torch.save(run_parallel(inp, sc, workdir),
+                       f"{workdir}/{sc['name']}_rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def cli(text_cfg: str, prop_cfg: str, argv: list) -> None:
     from spmm_tpu_torch.cli import pretrain as cli_pretrain
 
@@ -96,7 +204,8 @@ def cli(text_cfg: str, prop_cfg: str, argv: list) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1] == "steps":
-        steps(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    if sys.argv[1] in ("steps", "parallel"):
+        {"steps": steps, "parallel": parallel}[sys.argv[1]](
+            sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     else:
         cli(sys.argv[2], sys.argv[3], sys.argv[4:])
