@@ -22,7 +22,10 @@ against its plain PyTorch version:
     (with or without sequence parallelism) and fully sharded: it launches
     neither kernel;
   - data-parallel inference over several replicas (``devices=``) and the
-    fusion layers' cross-attention maps.
+    fusion layers' cross-attention maps;
+  - pipeline parallelism over the text section (kernel 2 in its forward
+    under no_grad), the mixture-of-experts block, the multi-process dry
+    run of every parallel path, entry() and the native tokenizer.
 
 Phases, in order; any failure exits non-zero:
 
@@ -151,6 +154,22 @@ Phases, in order; any failure exits non-zero:
               each shard launching what the unsharded batch launches; and
               cross_attention_maps at full width, card against CPU within
               1e-5, every row summing to 1;
+  pp_ep       under a NCCL group of one: the pipeline forward of the
+              full-width text section (layers [0, 6), 768 wide) on one
+              stage, 4 microbatches, over the embeddings of 128 example
+              SMILES (L=100) against the sequential section (1e-6), the
+              gradient of sum(out^2) (1e-4 of its norm), and under no_grad
+              through kernel 2 (1e-5 of the plain run; a main path, 24
+              launches), both forwards timed in turns; the GShard MoE block
+              (H=768, F=3072, 8 experts, top-2, capacity factor 1.25) over
+              [64, 100, 768] in 8 groups, card against CPU (1e-5, aux and
+              dropped fraction too), expert-parallel at world 1 against the
+              dense block, and its forward and forward + backward timed
+              against the dense MLP block's; then
+              parallel.dryrun --n 4 --device cpu as a subprocess (four
+              gloo ranks, every stage), entry()'s full-width loss on the
+              card, and the native tokenizer in use, equal to the Python
+              path over 10,000 lines, both in lines/s;
   shapes      over phases 5, rxn and finetune, every call of a kernel
               wrapper was recorded (KernelCalls); each kernel is held to its plain
               version at every launch shape those main paths passed it:
@@ -233,6 +252,12 @@ DP_WARMUP, DP_TURN = 1, 5
 # tp + sp, fsdp, then back); the heads of a tp rank at tp=2 and tp=4
 PAR_TURN = 2
 TP_HEADS = (6, 3)
+# pp_ep: microbatches of the full-width pipeline and forwards a turn; the
+# MoE block's (batch of L=100 rows, experts, groups) and calls a turn;
+# lines the tokenizers encode
+PP_MICRO, PP_ITERS = 4, 5
+MOE, MOE_ITERS = (64, 8, 8), 10
+TOKENIZE_LINES = 10000
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1838,11 +1863,14 @@ def dp_gate(dev) -> dict:
     from one full-width state by the one-process step, the data-parallel
     step (replicated) and the data-parallel step with zero1, each on its
     own copy: replicated equals one-process, and zero1 equals replicated,
-    bitwise (parameters, twins, queues, queue_ptr, the loss).  Then the
+    bitwise (parameters, twins, queues, queue_ptr, the loss); between
+    steps zero1 keeps only its share of the twins (at world 1 all of them,
+    in one flat buffer, the twins themselves released).  Then the
     bf16_moments step on the card against the CPU's at the pretrain gate's
     bars (``pretrain_gate``)."""
     import torch
 
+    from spmm_tpu_torch.checkpoint.io import model_state
     from spmm_tpu_torch.configs import PretrainConfig
     from spmm_tpu_torch.training.pretrain import (
         init_pretrain_state, make_pretrain_step)
@@ -1863,9 +1891,14 @@ def dp_gate(dev) -> dict:
         if res["skipped"]:
             fail(f"the {name} step of the dp gate was skipped")
         losses[name] = res["loss"].item()
+    shards = models["zero1"].twin_shards
+    twins = shards.resident_elements()
+    if shards.gathered or twins != shards.padded:
+        fail(f"zero1 keeps {twins} twin elements between steps, not its "
+             f"share of {shards.padded}")
     for name, want in (("replicated", "one_process"),
                        ("zero1", "replicated")):
-        got, ref = models[name].state_dict(), models[want].state_dict()
+        got, ref = (model_state(models[k]) for k in (name, want))
         differ = [k for k, v in ref.items() if not torch.equal(got[k], v)]
         if differ or losses[name] != losses[want]:
             fail(f"the {name} step differs from the {want} step: loss "
@@ -1874,6 +1907,7 @@ def dp_gate(dev) -> dict:
     del models, start
     torch.cuda.empty_cache()
     return {"losses": losses, "bitwise_equal": True,
+            "zero1_twin_elements_between_steps": twins,
             "bf16_moments_gate": pretrain_gate(dev, bf16_moments=True)}
 
 
@@ -2375,6 +2409,290 @@ def parallel_phase(dev, workdir: str, model) -> dict:
         t0 = time.perf_counter()
         out[name] = fn()
         out["part_s"][name] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase pp_ep: pipeline and expert parallelism at full width, the dry run of
+# every parallel path, entry(), the native tokenizer
+# --------------------------------------------------------------------------- #
+
+
+def event_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms of fn() over ``iters`` eager calls, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def grad_share(got: list, want: list) -> float:
+    """The worst gradient's distance from its reference, as a share of
+    1e-4 of the reference's norm plus a floor of 1e-6 of the largest."""
+    floor = 1e-6 * max(w.norm().item() for w in want)
+    return max((g - w).norm().item() / (1e-4 * w.norm().item() + floor)
+               for g, w in zip(got, want))
+
+
+def pp_full_width(dev, model) -> dict:
+    """pp_ep (1): the text section (layers [0, 6), 768 wide, h=12) of the
+    full-width model on the embeddings of 128 example SMILES (L=100),
+    through ``pipeline_encoder_forward`` on a pipeline group of one stage
+    with PP_MICRO microbatches: equal to the sequential BertEncoder
+    section within 1e-6; the gradient of sum(out ** 2) by every layer
+    parameter within 1e-4 of its norm; under no_grad with "kernel" within
+    1e-5 of the plain run, kernel 2 launched 6 x PP_MICRO times (a main
+    path: counts from 0 just before, read just after); the pp and the
+    sequential forward timed in turns (sequential, pp, pp, sequential);
+    kernel 2 at a microbatch's shape (B=32, 100 x 100, padding) against
+    its plain version and timed beside its bound and SDPA, as phase 3."""
+    import torch
+
+    from spmm_tpu_torch.ops.masks import extend_attention_mask
+    from spmm_tpu_torch.parallel import pp
+
+    cfg = model.text_cfg
+    bert = model.text_encoder.bert
+    layers = bert.encoder.layer[:cfg.fusion_layer]
+    group = pp.pp_mesh(1)
+    stage = pp.stage_layers(layers, 1, 0)
+    _, ids, mask = s2p_batch()
+    ids, mask = (torch.as_tensor(x, device=dev) for x in (ids, mask))
+    with torch.no_grad():
+        hidden = bert.embeddings(ids)
+    add = extend_attention_mask(mask)
+
+    def sequential():
+        return bert.encoder(hidden, add, mode="text")
+
+    def pipelined(impl: str = "plain"):
+        return pp.pipeline_encoder_forward(stage, cfg, hidden, add, group,
+                                           PP_MICRO, attention_impl=impl)
+
+    with torch.no_grad():
+        want, got = sequential(), pipelined()
+    err = (got - want).abs().max().item()
+    params = [p for layer in layers for p in layer.parameters()]
+    grads = []
+    for fn in (sequential, pipelined):
+        for p in params:
+            p.grad = None
+        (fn() ** 2).sum().backward()
+        grads.append([p.grad for p in params])
+    share = grad_share(grads[1], grads[0])
+    for p in params:
+        p.grad = None
+    del grads
+    reset_launch_counts()
+    with torch.no_grad():
+        kern, _, l1, l2 = run_counted(dev, lambda: pipelined("kernel"))
+    kerr = (kern - got).abs().max().item()
+    if not err <= 1e-6 or not share <= 1 or not kerr <= 1e-5 or l1 != 0 \
+            or l2 != cfg.fusion_layer * PP_MICRO:
+        fail(f"pp at full width: {err:.2e} from the sequential section (bar "
+             f"1e-6), worst gradient at {share:.3f} of its bar, kernel run "
+             f"{kerr:.2e} from the plain one (bar 1e-5), launches {l1}, "
+             f"{l2} (want 0, {cfg.fusion_layer * PP_MICRO})")
+    turns = {"sequential": [], "pp": []}
+    with torch.no_grad():
+        for name in ("sequential", "pp", "pp", "sequential"):
+            fn = sequential if name == "sequential" else pipelined
+            turns[name].append(event_ms(fn, PP_ITERS))
+    del want, got, kern
+    # kernel 2 at a microbatch's shape, as phase 3 times every launch class
+    inputs = mha_inputs(dev, hidden.shape[0] // PP_MICRO, 12, 100, 100, 64,
+                        torch.float32, "padding", seed=300)
+    check_mha(dev, "pp text", "padding", inputs, {})
+    kernel = {"shape": f"B={inputs[0].shape[0]} text 100x100 (a pp "
+                       f"microbatch)", "launches_per_batch": l2,
+              **time_mha_on(dev, inputs)}
+    return {"batch": list(hidden.shape), "micro": PP_MICRO,
+            "max_abs_diff": err, "grad_worst_share_of_bar": share,
+            "kernel_vs_plain_max_abs": kerr, "kernel2_launches": l2,
+            "kernel2": kernel, "turns_ms": turns,
+            "ms": {k: sum(v) / len(v) for k, v in turns.items()}}
+
+
+def moe_full_width(dev) -> dict:
+    """pp_ep (2): the GShard MoE block at the text config's width (H=768,
+    F=3072), E=8, top-2, capacity factor 1.25, over [64, 100, 768] fp32 in
+    8 groups (800 tokens, 250 slots an expert a group): the card against a
+    CPU copy within 1e-5, aux_loss and dropped_frac included;
+    ``expert_parallel_moe_block`` on an expert group of one equal to
+    ``moe_block(n_groups=1)`` within 1e-5; then the block's forward and
+    forward + backward and the dense BertLayer.mlp's on the same tokens,
+    timed by CUDA events in turns (dense, MoE, MoE, dense)."""
+    import torch
+
+    from spmm_tpu_torch.configs import text_config
+    from spmm_tpu_torch.models.bert import BertLayer
+    from spmm_tpu_torch.parallel import ep
+
+    cfg = text_config()
+    n, experts, groups = MOE
+    block = ep.init_moe_params(SEED, cfg, experts, device=dev)
+    x = torch.randn(n, 100, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(SEED + 40))
+    tg = n // groups * 100
+    capacity = ep.expert_capacity(tg, experts, 2, 1.25)
+    with torch.no_grad():
+        out, aux = ep.moe_block(block, cfg, x.to(dev), n_groups=groups)
+        cpu, cpu_aux = ep.moe_block(copy.deepcopy(block).cpu(), cfg, x,
+                                    n_groups=groups)
+        err = (out.cpu() - cpu).abs().max().item()
+        aux_err = max(abs(aux[k].item() - cpu_aux[k].item()) for k in aux)
+        one, one_aux = ep.expert_parallel_moe_block(block, cfg, x.to(dev),
+                                                    ep.ep_mesh(1))
+        dense_one, dense_aux = ep.moe_block(block, cfg, x.to(dev))
+        ep_err = max([(one - dense_one).abs().max().item()]
+                     + [abs(one_aux[k].item() - dense_aux[k].item())
+                        for k in one_aux])
+    if not err <= 1e-5 or not aux_err <= 1e-5 or not ep_err <= 1e-5:
+        fail(f"MoE at full width: card vs CPU {err:.2e}, aux {aux_err:.2e}, "
+             f"expert-parallel at world 1 vs dense {ep_err:.2e} (bars 1e-5)")
+    del one, dense_one, cpu
+    dense = BertLayer(cfg, has_cross=False).to(dev)
+    xd = x.to(dev).requires_grad_(True)
+
+    def fwd(moe: bool):
+        with torch.no_grad():
+            return (ep.moe_block(block, cfg, xd, n_groups=groups) if moe
+                    else dense.mlp(xd))
+
+    def fwd_bwd(moe: bool):
+        for p in list(block.parameters()) + list(dense.parameters()) + [xd]:
+            p.grad = None
+        if moe:
+            y, a = ep.moe_block(block, cfg, xd, n_groups=groups)
+            (y.sum() + a["aux_loss"]).backward()
+        else:
+            dense.mlp(xd).sum().backward()
+
+    turns = {f"{k}_{m}": [] for k in ("fwd", "fwd_bwd")
+             for m in ("dense", "moe")}
+    for kind, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        for moe in (False, True, True, False):
+            turns[f"{kind}_{'moe' if moe else 'dense'}"].append(
+                event_ms(lambda: fn(moe), MOE_ITERS))
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    del dense, xd, block
+    torch.cuda.empty_cache()
+    return {"shape": [n, 100, cfg.hidden_size], "experts": experts,
+            "groups": groups, "tokens_per_group": tg, "capacity": capacity,
+            "dispatch_mb": n * 100 * experts * capacity * 4 / 1e6,
+            "aux_loss": aux["aux_loss"].item(),
+            "dropped_frac": aux["dropped_frac"].item(),
+            "card_vs_cpu_max_abs": err, "aux_card_vs_cpu": aux_err,
+            "ep_world1_vs_dense": ep_err, "turns_ms": turns, "ms": ms,
+            "fwd_over_dense": ms["fwd_moe"] / ms["fwd_dense"],
+            "fwd_bwd_over_dense": ms["fwd_bwd_moe"] / ms["fwd_bwd_dense"]}
+
+
+def dryrun_cpu() -> dict:
+    """pp_ep (3): ``python -m spmm_tpu_torch.parallel.dryrun --n 4
+    --device cpu`` (four gloo ranks: the card's machine has one GPU, and
+    NCCL refuses two ranks on one device): every stage OK, its summary
+    line; the wall of the subprocess."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spmm_tpu_torch.parallel.dryrun", "--n", "4",
+         "--device", "cpu"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    stages = [line for line in lines if line.startswith("dryrun stage ")]
+    summary = [line for line in lines
+               if line.startswith("dryrun_multichip(4) OK")]
+    if proc.returncode != 0 or len(stages) != 7 or len(summary) != 1:
+        fail(f"the dry run on 4 gloo ranks: rc {proc.returncode}\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return {"stages": stages, "summary": summary[0], "wall_s": wall}
+
+
+def entry_loss(dev) -> dict:
+    """pp_ep (4): ``dryrun.entry()``'s full-width loss on the card."""
+    import math
+
+    import torch
+
+    from spmm_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry(dev)
+    with torch.no_grad():
+        loss = fn(*args).item()
+    secs = time.perf_counter() - t0
+    if not math.isfinite(loss) or args[0].text_queue.device.type != "cuda":
+        fail(f"entry(): loss {loss} on {args[0].text_queue.device}")
+    del fn, args
+    torch.cuda.empty_cache()
+    return {"loss": loss, "seconds": secs}
+
+
+def tokenizer_paths() -> dict:
+    """pp_ep (5): the native wordpiece is built and in use, and equals the
+    Python path on the example SMILES cycled to TOKENIZE_LINES lines (L=100,
+    the service's bucket); both timed in lines/s on this host."""
+    import numpy as np
+
+    from spmm_tpu_torch.tokenizer import (
+        SmilesTokenizer, native_build_error, native_library)
+
+    t0 = time.perf_counter()
+    lib = native_library()
+    build_s = time.perf_counter() - t0
+    tok = SmilesTokenizer()
+    if lib is None or tok.native_encoder() is None:
+        fail(f"the native tokenizer did not build: {native_build_error()}")
+    texts = ["[CLS]" + s for s in example_smiles(TOKENIZE_LINES)]
+    out, secs = {}, {}
+    for name, t in (("native", tok), ("python", SmilesTokenizer(
+            native=False))):
+        t0 = time.perf_counter()
+        out[name] = t.encode_batch(texts, max_len=100, buckets=(100,))
+        secs[name] = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(out["native"],
+                                                     out["python"])):
+        fail("the native tokenizer differs from the Python path")
+    return {"lines": len(texts), "build_s": build_s,
+            "lines_per_s": {k: len(texts) / v for k, v in secs.items()}}
+
+
+def pp_ep_phase(dev, workdir: str, model) -> dict:
+    """The phase: parts (1) and (2) under a NCCL group of one (a file
+    store in ``workdir``), destroyed at the end; then (3), (4) and (5)."""
+    import torch.distributed as dist
+
+    from spmm_tpu_torch.parallel import multihost
+
+    out = {"part_s": {}}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out["part_s"][name] = time.perf_counter() - t0
+
+    multihost.initialize(dev, init_method=f"file://{workdir}/store",
+                         world_size=1, rank=0)
+    try:
+        part("pp", lambda: pp_full_width(dev, model))
+        part("moe", lambda: moe_full_width(dev))
+    finally:
+        dist.destroy_process_group()
+    part("dryrun", dryrun_cpu)
+    part("entry", lambda: entry_loss(dev))
+    part("tokenizer", tokenizer_paths)
     return out
 
 
@@ -2968,7 +3286,9 @@ def main(argv=None) -> int:
         f"width, batch {PRETRAIN_GATE[0]}, queue {PRETRAIN_GATE[1]}, noise "
         f"fixed: the data-parallel step equals the one-process step and "
         f"zero1 equals replicated, bitwise (parameters, twins, queues, ptr; "
-        f"loss {gate['losses']['one_process']:.6f}); bf16_moments card vs "
+        f"loss {gate['losses']['one_process']:.6f}), zero1 keeping "
+        f"{gate['zero1_twin_elements_between_steps']} twin elements between "
+        f"steps in its shard; bf16_moments card vs "
         f"CPU: loss rel diff {bf['loss_rel_diff']:.2e}, worst gradient at "
         f"{bf['grad_worst_share_of_bar']:.3f} of its bar, parameters within "
         f"{bf['param_max_abs_diff']:.2e} ({bf['params_past_1e-6']} past "
@@ -3056,6 +3376,50 @@ def main(argv=None) -> int:
         f"sum to 1 within {row['row_sum_max_abs_err']:.2e} (bars 1e-5); "
         + ", ".join(f"{k} {v:.1f} s" for k, v in par["part_s"].items()))
 
+    # ---- pp_ep: pp and ep at full width, the dry run, entry(), tokenizer ----
+    mark("pp_ep")
+    with tempfile.TemporaryDirectory() as workdir:
+        ppe = pp_ep_phase(dev, workdir, model)
+    row = ppe["pp"]
+    log(f"[pp_ep] pipeline over the text section (6 layers, 768 wide), "
+        f"{row['batch']} fp32, one stage, {row['micro']} microbatches: max "
+        f"|diff| from the sequential section {row['max_abs_diff']:.2e} (bar "
+        f"1e-6), worst gradient of sum(out^2) at "
+        f"{row['grad_worst_share_of_bar']:.3f} of its bar (1e-4 of its "
+        f"norm); under no_grad through kernel 2 "
+        f"{row['kernel_vs_plain_max_abs']:.2e} from the plain run (bar "
+        f"1e-5), {row['kernel2_launches']} kernel-2 launches; forward "
+        + ", ".join(f"{k} {row['ms'][k]:.3f} ms (turns "
+                    + ", ".join(f"{t:.3f}" for t in row["turns_ms"][k]) + ")"
+                    for k in row["ms"]) + f"; {card}")
+    log_mha_timing(ppe["pp"]["kernel2"]["shape"], ppe["pp"]["kernel2"])
+    row = ppe["moe"]
+    log(f"[pp_ep] MoE block, {row['shape']} fp32, {row['experts']} experts, "
+        f"top-2, capacity factor 1.25, {row['groups']} groups of "
+        f"{row['tokens_per_group']} tokens, capacity {row['capacity']}, "
+        f"dispatch {row['dispatch_mb']:.1f} MB: card vs CPU "
+        f"{row['card_vs_cpu_max_abs']:.2e}, aux "
+        f"{row['aux_card_vs_cpu']:.2e} (aux_loss {row['aux_loss']:.5f}, "
+        f"dropped {row['dropped_frac']:.5f}); expert-parallel at world 1 vs "
+        f"dense {row['ep_world1_vs_dense']:.2e} (bars 1e-5); "
+        + ", ".join(f"{k} {v:.3f} ms (turns "
+                    + ", ".join(f"{t:.3f}" for t in row["turns_ms"][k])
+                    + ")" for k, v in row["ms"].items())
+        + f": forward x{row['fwd_over_dense']:.2f} the dense block, forward"
+        f"+backward x{row['fwd_bwd_over_dense']:.2f}; {card}")
+    for line in ppe["dryrun"]["stages"]:
+        log(f"[pp_ep] {line}")
+    log(f"[pp_ep] {ppe['dryrun']['summary']} (subprocess wall "
+        f"{ppe['dryrun']['wall_s']:.1f} s)")
+    row = ppe["tokenizer"]
+    log(f"[pp_ep] entry(): full-width pretrain loss on the card "
+        f"{ppe['entry']['loss']:.5f} ({ppe['entry']['seconds']:.1f} s with "
+        f"the state); native tokenizer built in {row['build_s']:.2f} s, "
+        f"equal to the Python path over {row['lines']} lines: native "
+        f"{row['lines_per_s']['native']:.0f} lines/s, Python "
+        f"{row['lines_per_s']['python']:.0f} lines/s; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in ppe["part_s"].items()))
+
     # ---- shapes: every launch shape of the main paths vs plain ----
     mark("shapes")
     log("[shapes] each kernel against its plain version, and timed, at every "
@@ -3102,7 +3466,7 @@ def main(argv=None) -> int:
 
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
                       "exact": exact, "rxn": rxn_run, "finetune": ft,
-                      "pretrain": pt, "parallel": par,
+                      "pretrain": pt, "parallel": par, "pp_ep": ppe,
                       "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   rxn_launches=rxn_run["greedy_launches"][0],
@@ -3137,6 +3501,8 @@ def main(argv=None) -> int:
                    tp_heads_max_abs_err=par["kernels"]["max_abs_err"][
                        KERNEL2["name"]],
                    tp_predict_pv_launches=par["tp_predict_pv"]["launches"],
+                   pp_launches=ppe["pp"]["kernel2_launches"],
+                   pp_microbatch=ppe["pp"]["kernel2"],
                    sharded_launches=par["sharded"]["smiles2pv"]["launches"],
                    sum_launches_x_ms=mha_batch_ms,
                    profile_ms=in_profile,

@@ -14,7 +14,8 @@ the port's ``nn.Module`` trees reproduce, so both load with ``strict=True``):
     ``downstream_state_dict_from_jax_tree`` for a MoleculeNet one, and
     ``pretrain_state_dict_from_jax`` for a JAX pretrain state (the twins
     named as ``export_spmm_state_dict`` names ``params["momentum"]``, plus
-    ``temp``, the queues and ``queue_ptr``).
+    ``temp``, the queues and ``queue_ptr``), and
+    ``moe_state_dict_from_jax_tree`` for a MoE block (``parallel.ep``).
   - ``load_reference_checkpoint``: a reference ``{"state_dict": ...}`` (or
     ``{"model": ...}``) ``.ckpt`` with the ``_unk`` -> ``_mask`` rename
     (reference d_regression.py:157-161); ``spmm_subset`` keeps what an
@@ -182,6 +183,20 @@ def downstream_state_dict_from_jax_tree(
     _put_linear(out, "l1", tree["head"]["l1"])
     _put_linear(out, "l2", tree["head"]["l2"])
     return out
+
+
+def moe_state_dict_from_jax_tree(tree: Params) -> dict[str, torch.Tensor]:
+    """A ``spmm_tpu`` MoE block (``init_moe_params``, numpy leaves) -> the
+    names of ``parallel.ep.MoEBlock``.  Every leaf keeps JAX's layout: the
+    router [H, E] (not transposed: the block multiplies ``tokens @
+    router``), the expert slabs [E, H, F] and [E, F, H] with their biases,
+    the LayerNorm's scale and bias."""
+    return {"router": _t(tree["router"]["w"]),
+            "up_weight": _t(tree["up"]["w"]), "up_bias": _t(tree["up"]["b"]),
+            "down_weight": _t(tree["down"]["w"]),
+            "down_bias": _t(tree["down"]["b"]),
+            "LayerNorm.weight": _t(tree["ln"]["scale"]),
+            "LayerNorm.bias": _t(tree["ln"]["bias"])}
 
 
 def load_reference_checkpoint(path: str) -> dict[str, torch.Tensor]:

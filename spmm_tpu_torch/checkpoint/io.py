@@ -15,7 +15,9 @@ So a checkpoint written by N ranks with ``zero1`` resumes in one process
 without it, and the reverse, as JAX's Orbax checkpoints do.  The same
 holds for tensor and fully-sharded parallelism: a DTensor parameter or
 moment is written whole (``full_tensor``), and a whole tensor read back
-into one is cut to this rank's part.  Under a process group every rank
+into one is cut to this rank's part; the EMA twins that ZeRO-1 keeps as
+per-rank shards (``training.pretrain.TwinShards``) are written whole and
+read back into this rank's share.  Under a process group every rank
 calls ``save_checkpoint`` / ``AsyncSaver.save`` (the gathers are
 collectives) and global rank 0 writes; every rank restores.
 """
@@ -72,6 +74,15 @@ def _like(value: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
                              target.device_mesh, target.placements)
 
 
+def model_state(model: torch.nn.Module) -> dict:
+    """``model``'s state dict with every DTensor whole and, under ZeRO-1,
+    the twins gathered: a collective that every rank calls."""
+    from spmm_tpu_torch.training.pretrain import whole_twins
+
+    with whole_twins(model):
+        return whole(model.state_dict())
+
+
 def _write(path: str, state: dict) -> None:
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -85,9 +96,9 @@ def save_checkpoint(path: str, model: torch.nn.Module,
     """Write {"state_dict", "optimizer", "step"} to ``path`` atomically
     (rank 0 writes; every rank of a process group calls it)."""
     opt_state = optimizer_state(optimizer)
-    model_state = whole(model.state_dict())
+    state = model_state(model)
     if is_main():
-        _write(path, {"state_dict": model_state,
+        _write(path, {"state_dict": state,
                       "optimizer": opt_state, "step": int(step)})
 
 
@@ -114,10 +125,10 @@ class AsyncSaver:
              optimizer: torch.optim.Optimizer, step: int) -> None:
         self.wait()
         opt_state = optimizer_state(optimizer)
-        model_state = whole(model.state_dict())
+        weights = model_state(model)
         if not is_main():
             return
-        state = self._to_host({"state_dict": model_state,
+        state = self._to_host({"state_dict": weights,
                                "optimizer": opt_state}, "")
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
@@ -176,10 +187,19 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    own = model.state_dict()
-    model.load_state_dict({k: _like(v, own[k]) if k in own else v
-                           for k, v in ckpt["state_dict"].items()},
-                          strict=True)
+    shards = getattr(model, "twin_shards", None)
+    if shards is not None:
+        shards.materialize()
+    try:
+        own = model.state_dict()
+        model.load_state_dict({k: _like(v, own[k]) if k in own else v
+                               for k, v in ckpt["state_dict"].items()},
+                              strict=True)
+        if shards is not None:
+            shards.take()
+    finally:
+        if shards is not None:
+            shards.release()
     if optimizer is not None:
         state = ckpt["optimizer"]
         params = [p for g in optimizer.param_groups for p in g["params"]]

@@ -1,17 +1,21 @@
-"""RDKit-gated chemistry helpers (the part of ``spmm_tpu.chem.featurizer``
-that the port's CLIs and datasets need).
+"""RDKit-gated chemistry helpers (counterpart of
+``spmm_tpu.chem.featurizer``).
 
 Every function works without RDKit, as in the JAX package:
   - ``canonicalize`` and ``randomized_smiles`` fall back to the identity for
     syntactically valid SMILES and None otherwise;
   - ``is_valid_smiles`` falls back to the pure-Python syntax parser;
   - ``calculate_property`` (the 53 descriptors, reference
-    calc_property.py:14-28) raises RuntimeError: property vectors then come
-    from a precomputed cache (``data.datasets.PretrainDataset``).
+    calc_property.py:14-28) and ``calculate_properties_batch`` (the same
+    over a process pool, spmm_tpu/chem/featurizer.py:76-104) raise
+    RuntimeError: property vectors then come from a precomputed cache
+    (``data.datasets.PretrainDataset``).
 """
 
 from __future__ import annotations
 
+import multiprocessing
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -52,6 +56,34 @@ def calculate_property(smiles: str,
         raise ValueError(f"invalid SMILES: {smiles!r}")
     return np.asarray([f(mol) for f in _descriptor_fns(stats.names)],
                       np.float32)
+
+
+def _worker(args: tuple) -> Optional[np.ndarray]:
+    """One molecule's raw vector, None where RDKit rejects the SMILES."""
+    smiles, names = args
+    mol = Chem.MolFromSmiles(smiles)
+    if mol is None:
+        return None
+    return np.asarray([f(mol) for f in _descriptor_fns(names)], np.float32)
+
+
+def calculate_properties_batch(smiles_list: Sequence[str],
+                               stats: Optional[PropertyStats] = None,
+                               n_workers: Optional[int] = None
+                               ) -> list[Optional[np.ndarray]]:
+    """Raw vectors of many SMILES, None for those RDKit rejects: in this
+    process below 64 molecules or with one worker, else over a pool of
+    ``n_workers`` (at most 16 by default) spawned processes, as the 53
+    descriptors are CPU-heavy and must not starve the training loop."""
+    require_rdkit()
+    stats = stats or PropertyStats.load()
+    if n_workers is None:
+        n_workers = min(os.cpu_count() or 1, 16)
+    work = [(s, stats.names) for s in smiles_list]
+    if n_workers <= 1 or len(smiles_list) < 64:
+        return [_worker(w) for w in work]
+    with multiprocessing.get_context("spawn").Pool(n_workers) as pool:
+        return pool.map(_worker, work, chunksize=64)
 
 
 def canonicalize(smiles: str, isomeric: bool = False) -> Optional[str]:

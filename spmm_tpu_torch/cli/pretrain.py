@@ -108,9 +108,9 @@ def main(argv=None):
                    help="gradient-accumulation microbatches per step "
                         "(in-batch negatives become microbatch-local)")
     p.add_argument("--zero1", action="store_true",
-                   help="shard the AdamW moments over the ranks (ZeRO-1; "
-                        "parameters and EMA twins stay replicated); needs "
-                        "torch.distributed.run")
+                   help="shard the AdamW moments and, between steps, the "
+                        "EMA twins over the ranks (ZeRO-1; the parameters "
+                        "stay replicated); needs torch.distributed.run")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel factor: the ranks form a dp x tp "
                         "mesh and the blocks are Megatron-sharded over tp; "

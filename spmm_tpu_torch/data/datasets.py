@@ -1,5 +1,4 @@
-"""Dataset loaders (the part of ``spmm_tpu.data.datasets`` that the port's
-CLIs need).
+"""Dataset loaders (counterpart of ``spmm_tpu.data.datasets``).
 
 Every loader yields texts as ``'[CLS]' + smiles``: the literal prefix is
 what anchors wordpiece tokenization.
@@ -16,8 +15,10 @@ what anchors wordpiece tokenization.
     (dataset.py:128), every other loader raises on one.
 
   - ``PretrainDataset`` reads SMILES lines and their raw property vectors
-    from a precomputed ``.npz`` property cache.  Without a cache the JAX
-    package featurizes with RDKit; the port has no featurizer there, so an
+    from a precomputed ``.npz`` property cache, which
+    ``build_property_cache`` writes with RDKit (``chem.featurizer.
+    calculate_properties_batch``).  Without a cache the JAX package
+    featurizes each item with RDKit; the port reads caches only, so an
     item then raises.
   - ``USPTODataset`` / ``USPTORetroDataset``: the reaction pairs of
     USPTO-480k (forward) and USPTO-50k (retro), with the reference's
@@ -75,6 +76,18 @@ class PretrainDataset:
         s = self.smiles[i]
         text = "[CLS]" + (canonicalize(s) or s)
         return self.stats.normalize(self._pv_cache[i]), text
+
+    def build_property_cache(self, out_path: str, n_workers: int = 8) -> None:
+        """Write the raw property table of the canonical SMILES to
+        ``out_path`` (``.npz``, array ``pv`` [N, 53]): one-off, RDKit
+        required (spmm_tpu/data/datasets.py:126-134)."""
+        from spmm_tpu_torch.chem.featurizer import calculate_properties_batch
+
+        canon = [_canon(s) for s in self.smiles]
+        pvs = calculate_properties_batch(canon, self.stats, n_workers)
+        if any(p is None for p in pvs):
+            raise ValueError("the corpus holds SMILES that RDKit rejects")
+        np.savez_compressed(out_path, pv=np.stack(pvs))
 
 
 # (mean, std) label stats hard-coded by the reference (dataset.py)

@@ -3,27 +3,24 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes``.  Libraries go to ``build/spmm_tpu_torch/``
 beside the package, named by a hash of the source, so a changed source is
-rebuilt and an unchanged one is loaded as it is.  Two builds of one source
-write separate temporary files and rename them into place, so concurrent
-builds are safe.
+rebuilt and an unchanged one is loaded as it is (``ops._host_build``, which
+builds the host libraries the same way).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "spmm_tpu_torch"
+from spmm_tpu_torch.ops._host_build import (
+    BUILD_DIR, CSRC, compile_library, hashed_path)
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,10 +40,7 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str, source: Optional[Path] = None) -> Path:
-    source = source or CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return hashed_path(name, source or CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
 def build(name: str, source: Optional[Path] = None) -> Path:
@@ -56,20 +50,8 @@ def build(name: str, source: Optional[Path] = None) -> Path:
     ``<lib>.log``."""
     source = source or CSRC / f"{name}.cu"
     out = library_path(name, source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / (f"{out.stem}.{os.getpid()}.{threading.get_ident()}"
-                       ".tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)
-    return out
+    return out if out.exists() else compile_library(name, source,
+                                                    nvcc_path(), NVCC_FLAGS)
 
 
 _count_lock = threading.Lock()

@@ -15,7 +15,8 @@ fastest, so its peers are adjacent ranks.
 - :func:`minor_dim` names the mesh's minor dim, :func:`minor_mesh` is its
   1-D sub-mesh, :func:`tp_rank` this rank's place along ``tp``.
 - :func:`local_tensor` is this rank's part of a DTensor (tp or fsdp
-  shards), which elementwise updates work on;
+  shards), which elementwise updates work on; :func:`all_reduce_flat`
+  sums a list of tensors over a group as one flat buffer;
 - :func:`is_main` says whether this process is the one that prints and
   writes files (global rank 0).
 - :func:`auto_mesh` lists the cards the inference entry points shard
@@ -127,6 +128,16 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+def all_reduce_flat(tensors: list, group: dist.ProcessGroup) -> None:
+    """Sum ``tensors`` over ``group`` in place, as one flat buffer: one
+    collective for all of them."""
+    sizes = [t.numel() for t in tensors]
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    torch._foreach_copy_(tensors, [x.view_as(t) for x, t in
+                                   zip(flat.split(sizes), tensors)])
 
 
 def is_main() -> bool:

@@ -1,4 +1,4 @@
-"""Wordpiece SMILES tokenizer (pure-Python copy of ``spmm_tpu.tokenizer``).
+"""Wordpiece SMILES tokenizer (the port's copy of ``spmm_tpu.tokenizer``).
 
 Greedy longest-match wordpiece with ``##`` continuation prefixes over the
 300-token vocab (reference SPMM_pretrain.py:19-20), exactly as the JAX
@@ -11,14 +11,22 @@ package tokenizes:
   - ``encode`` adds [CLS] ... [SEP], truncating to ``max_len`` if asked;
   - ``decode``: " ".join(tokens).replace(" ##", "").strip().
 
-The native C++ encoder of the JAX package is not carried over.
+``encode_batch`` runs the native C++ encoder when it truncates, as JAX's
+does (spmm_tpu/tokenizer.py:155-187): ``NativeWordpiece``, a ctypes
+binding of the port's copy of the JAX package's wordpiece
+(``csrc/wordpiece.cpp``), which ``ops._host_build`` compiles with the host
+C++ compiler at the first native encode (never at import) into
+``build/spmm_tpu_torch/``.  Its output is the Python path's; where no
+compiler exists (``native_available()`` is False) the Python path runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
-from typing import Iterable, Sequence
+import threading
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -41,10 +49,11 @@ def load_vocab(path: str | None = None) -> dict[str, int]:
 
 
 class SmilesTokenizer:
-    """Greedy longest-match wordpiece tokenizer over the SMILES fragment vocab."""
+    """Greedy longest-match wordpiece tokenizer over the SMILES fragment
+    vocab.  ``native=False`` keeps ``encode_batch`` on the Python path."""
 
     def __init__(self, vocab: dict[str, int] | None = None,
-                 max_input_chars_per_word: int = 250):
+                 max_input_chars_per_word: int = 250, native: bool = True):
         self.vocab = vocab if vocab is not None else load_vocab()
         self.inv_vocab = {i: t for t, i in self.vocab.items()}
         self.max_input_chars_per_word = max_input_chars_per_word
@@ -57,6 +66,19 @@ class SmilesTokenizer:
         self._max_piece_len = max(
             len(t[2:]) if t.startswith("##") else len(t) for t in self.vocab
         )
+        self._want_native = native
+        self._native: Optional[NativeWordpiece] = None
+
+    def native_encoder(self) -> Optional["NativeWordpiece"]:
+        """The native encoder over this vocab, built at the first call;
+        None with ``native=False`` or where it cannot be built."""
+        if self._want_native and self._native is None:
+            self._want_native = False          # one attempt
+            if native_available():
+                self._native = NativeWordpiece(
+                    self.vocab,
+                    max_input_chars_per_word=self.max_input_chars_per_word)
+        return self._native
 
     def _wordpiece(self, word: str) -> list[str]:
         if len(word) > self.max_input_chars_per_word:
@@ -124,7 +146,26 @@ class SmilesTokenizer:
 
         ``drop_leading_cls`` mirrors the reference scripts' ``input_ids[:, 1:]``:
         the string-token [CLS] the datasets prepend plays the role of BOS.
+        With truncation the native encoder runs where it is built, with the
+        Python path's output (spmm_tpu/tokenizer.py:174-193).
         """
+        native = (self.native_encoder() if truncation and max_len is not None
+                  else None)
+        if native is not None:
+            raw, lens = native.encode_batch_padded(list(texts), max_len)
+            if drop_leading_cls:
+                raw, lens = raw[:, 1:], lens - 1
+            longest = int(lens.max())
+            if buckets:
+                longest = next((b for b in sorted(buckets) if b >= longest),
+                               max(buckets))
+            if longest > raw.shape[1]:
+                # a bucket wider than the raw buffer: pad zeros
+                raw = np.pad(raw, [(0, 0), (0, longest - raw.shape[1])])
+            ids = np.ascontiguousarray(raw[:, :longest])
+            mask = (np.arange(longest)[None, :]
+                    < lens[:, None]).astype(np.int32)
+            return ids * mask, mask
         seqs = [self.encode(t, max_len=max_len, truncation=truncation)
                 for t in texts]
         if drop_leading_cls:
@@ -153,3 +194,100 @@ def default_buckets(max_len: int = 100) -> tuple[int, ...]:
     """Static pad buckets: powers-of-two-ish steps up to max_len."""
     b = [16, 24, 32, 48, 64, 80, max_len]
     return tuple(x for x in b if x <= max_len) or (max_len,)
+
+
+# --------------------------------------------------------------------------- #
+# the native encoder (csrc/wordpiece.cpp)
+# --------------------------------------------------------------------------- #
+
+_native_lock = threading.Lock()
+_native_build: dict = {}        # "path" or "error", after the one attempt
+
+
+def native_library() -> Optional[str]:
+    """Path of the built wordpiece library: built by ``ops._host_build``
+    at the first call (one attempt a process); None where it cannot be
+    built (no compiler), the reason in ``native_build_error()``."""
+    from spmm_tpu_torch.ops._host_build import build_host
+
+    with _native_lock:
+        if not _native_build:
+            try:
+                _native_build["path"] = str(build_host("wordpiece"))
+            except (RuntimeError, OSError) as exc:
+                _native_build["error"] = str(exc)
+    return _native_build.get("path")
+
+
+def native_build_error() -> Optional[str]:
+    return _native_build.get("error")
+
+
+def native_available() -> bool:
+    """Whether the native encoder is built (building it if not yet tried)."""
+    return native_library() is not None
+
+
+class NativeWordpiece:
+    """ctypes binding of ``csrc/wordpiece.cpp`` (JAX's ``NativeWordpiece``,
+    spmm_tpu/tokenizer.py:223-296), with ``SmilesTokenizer.encode`` /
+    ``encode_batch``'s semantics.  ``lib_path`` defaults to the port's
+    build (``native_library``)."""
+
+    def __init__(self, vocab: dict[str, int] | None = None,
+                 lib_path: str | None = None,
+                 max_input_chars_per_word: int = 250):
+        path = lib_path or native_library()
+        if path is None:
+            raise RuntimeError(f"the native wordpiece did not build: "
+                               f"{native_build_error()}")
+        self._lib = lib = ctypes.CDLL(path)
+        lib.wp_create.restype = ctypes.c_void_p
+        lib.wp_create.argtypes = [ctypes.POINTER(ctypes.c_char_p),
+                                  ctypes.c_int32, ctypes.c_int32]
+        lib.wp_free.restype = None
+        lib.wp_free.argtypes = [ctypes.c_void_p]
+        lib.wp_encode.restype = ctypes.c_int32
+        lib.wp_encode.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]
+        lib.wp_encode_batch.restype = None
+        lib.wp_encode_batch.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+        vocab = vocab if vocab is not None else load_vocab()
+        tokens = sorted(vocab, key=vocab.get)
+        arr = (ctypes.c_char_p * len(tokens))(
+            *[t.encode("utf-8") for t in tokens])
+        self._handle = lib.wp_create(arr, len(tokens),
+                                     max_input_chars_per_word)
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.wp_free(self._handle)
+            self._handle = None
+
+    def encode(self, text: str, max_len: int | None = None,
+               truncation: bool = False) -> list[int]:
+        cap = 4096
+        out = (ctypes.c_int32 * cap)()
+        n = self._lib.wp_encode(
+            self._handle, text.encode("utf-8"),
+            1 if (truncation and max_len) else 0, max_len or 0, out, cap)
+        if n < 0:
+            raise ValueError("sequence too long for native encode buffer")
+        return list(out[:n])
+
+    def encode_batch_padded(self, texts: Sequence[str], max_len: int
+                            ) -> tuple[np.ndarray, np.ndarray]:
+        """[n, max_len] ids (0-padded, truncated) and the lengths."""
+        n = len(texts)
+        arr = (ctypes.c_char_p * n)(*[t.encode("utf-8") for t in texts])
+        ids = np.zeros((n, max_len), np.int32)
+        lens = np.zeros((n,), np.int32)
+        self._lib.wp_encode_batch(
+            self._handle, arr, n, 1, max_len,
+            ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return ids, lens

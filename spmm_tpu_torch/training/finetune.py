@@ -23,6 +23,15 @@ points keep the parameters equal to JAX's step for step:
 The step writes ``schedule(global_step)`` into the param group before
 ``step()``, as ``optax.inject_hyperparams`` does.  Metrics are numpy: the
 card's machine has no sklearn.
+
+Under a process-wide ('dp', 'tp') mesh (``parallel.mesh``) the MoleculeNet
+step is JAX's step on its dp x tp mesh (tests/test_tensor_parallel.py:
+96-143): the truncated encoder is laid out by ``parallel.tp.apply_tp``, each
+dp rank trains on its own rows (tp peers on the same ones), its loss is
+backpropagated over the dp size and the gradients are summed over the dp
+group as one flat buffer, and AdamW updates each rank's local shards
+(``training.optim.AdamW``: the card's torch refuses foreach lists that mix
+DTensors and tensors).  Without a mesh the step is the one-process step.
 """
 
 from __future__ import annotations
@@ -31,11 +40,16 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from spmm_tpu_torch.configs import FinetuneConfig
 from spmm_tpu_torch.models.downstream import (
     Downstream, downstream_forward, downstream_loss)
 from spmm_tpu_torch.models.rxn import Rxn, rxn_loss
+from spmm_tpu_torch.parallel import mesh as _mesh
+from spmm_tpu_torch.parallel.mesh import all_reduce_flat, local_tensor
+from spmm_tpu_torch.training.optim import AdamW
 from spmm_tpu_torch.training.schedules import reference_cosine_schedule
 from spmm_tpu_torch.utils.device import fp32_matmuls
 
@@ -43,12 +57,15 @@ Tensor = torch.Tensor
 
 
 def make_finetune_optimizer(model: torch.nn.Module,
-                            fcfg: FinetuneConfig) -> torch.optim.AdamW:
+                            fcfg: FinetuneConfig) -> torch.optim.Optimizer:
     """AdamW over every parameter (each tied one once); the lr is set per
-    step."""
-    return torch.optim.AdamW(list(model.parameters()), lr=0.0,
-                             betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=fcfg.weight_decay)
+    step.  ``torch.optim.AdamW``, or the port's ``training.optim.AdamW``
+    (local shards) where the model holds a DTensor."""
+    params = list(model.parameters())
+    cls = (AdamW if any(isinstance(p, DTensor) for p in params)
+           else torch.optim.AdamW)
+    return cls(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+               weight_decay=fcfg.weight_decay)
 
 
 def _schedule(fcfg: FinetuneConfig, steps_per_epoch: int):
@@ -58,20 +75,29 @@ def _schedule(fcfg: FinetuneConfig, steps_per_epoch: int):
 
 
 def _step(opt: torch.optim.Optimizer, lr: float,
-          loss_fn: Callable[[], Tensor]) -> Tensor:
-    """Zeroed (not None) gradients, backward, lr into the group, step."""
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            else:
-                p.grad.zero_()
+          loss_fn: Callable[[], Tensor],
+          dp: Optional[dist.ProcessGroup] = None) -> Tensor:
+    """Zeroed (not None) gradients, backward, lr into the group, step.
+    Over a data-parallel group ``dp`` each rank's loss is backpropagated
+    over its size and the gradients and the loss are summed over it."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        else:
+            p.grad.zero_()
     loss = loss_fn()
+    if dp is not None:
+        loss = loss / dist.get_world_size(dp)
     loss.backward()
+    loss = loss.detach()
+    if dp is not None:
+        all_reduce_flat([local_tensor(p.grad) for p in params], dp)
+        dist.all_reduce(loss, group=dp)
     for group in opt.param_groups:
         group["lr"] = lr
     opt.step()
-    return loss.detach()
+    return loss
 
 
 def make_downstream_step(model: Downstream, fcfg: FinetuneConfig,
@@ -79,8 +105,23 @@ def make_downstream_step(model: Downstream, fcfg: FinetuneConfig,
     """(optimizer, step) for ``model``'s task; ``step(global_step, batch,
     generator=None)`` trains on one batch {"ids", "mask", "target"} of
     tensors on the model's device and returns {"loss": tensor, "lr": float}.
-    Dropout is on where a generator is passed (the JAX step's rng)."""
+    Dropout is on where a generator is passed (the JAX step's rng).
+
+    Under a ('dp', 'tp') mesh the model is laid out by ``parallel.tp.
+    apply_tp`` here (unless it already is), ``batch`` holds this dp rank's
+    rows (``parallel.multihost.process_rows`` of the global batch, as many
+    on every rank) and the loss returned is the global batch's."""
     fp32_matmuls()
+    dp = None
+    if _mesh.get_mesh() is not None:
+        if _mesh.minor_dim() != _mesh.TP_AXIS:
+            raise ValueError("a fine-tune step shards over a ('dp', 'tp') "
+                             f"mesh, not a {_mesh.minor_dim()!r} one")
+        if not any(isinstance(p, DTensor) for p in model.parameters()):
+            from spmm_tpu_torch.parallel import tp
+
+            tp.apply_tp(model)
+        dp = _mesh.dp_group()
     opt = make_finetune_optimizer(model, fcfg)
     schedule = _schedule(fcfg, steps_per_epoch)
 
@@ -88,7 +129,8 @@ def make_downstream_step(model: Downstream, fcfg: FinetuneConfig,
              generator: Optional[torch.Generator] = None) -> dict:
         lr = schedule(global_step)
         loss = _step(opt, lr, lambda: downstream_loss(
-            model, batch["ids"], batch["mask"], batch["target"], generator))
+            model, batch["ids"], batch["mask"], batch["target"], generator),
+            dp)
         return {"loss": loss, "lr": lr}
 
     return opt, step

@@ -35,7 +35,8 @@ step's ``shard_map`` over ``dp``: each rank computes the loss on its own
 rows, the gradients, loss and metrics are reduced, the momentum features
 are gathered into the replicated queues in global row order, and each
 rank draws its own noise.  ``pcfg.zero1`` shards the AdamW moments over
-the ranks (``ZeroRedundancyOptimizer``); ``pcfg.bf16_moments`` keeps the
+the ranks (``ZeroRedundancyOptimizer``) and the EMA twins at rest
+(``TwinShards``); ``pcfg.bf16_moments`` keeps the
 first moment in bf16 (``training.optim.AdamW``).  Without a process group
 it is one process on one device.
 
@@ -69,7 +70,7 @@ from spmm_tpu_torch.configs import (
 from spmm_tpu_torch.models.bert import BertForMaskedLM, BertModel, checkpointed
 from spmm_tpu_torch.models.spmm import SPMM
 from spmm_tpu_torch.parallel import mesh as _mesh
-from spmm_tpu_torch.parallel.mesh import local_tensor
+from spmm_tpu_torch.parallel.mesh import all_reduce_flat, local_tensor
 from spmm_tpu_torch.parallel import sp as _sp
 from spmm_tpu_torch.training.optim import AdamW
 from spmm_tpu_torch.training.schedules import reference_cosine_schedule
@@ -98,6 +99,7 @@ class PretrainModel(SPMM):
         self.text_proj_m = nn.Linear(h, embed_dim)
         for key in EMA_KEYS:
             getattr(self, f"{key}_m").requires_grad_(False)
+        self.twin_shards = None           # ZeRO-1 over the twins (TwinShards)
         self.register_buffer("prop_queue", torch.zeros(embed_dim, queue_size))
         self.register_buffer("text_queue", torch.zeros(embed_dim, queue_size))
         self.register_buffer("queue_ptr", torch.zeros(1, dtype=torch.long))
@@ -408,10 +410,124 @@ def _sharded(t: Tensor) -> bool:
 def ema_update(model: PretrainModel, momentum: float) -> None:
     """twin = twin * m + online * (1 - m), in place, in that order
     (spmm_tpu/training/pretrain.py:442-445); on the local shards where tp
-    or fsdp shards both alike."""
-    twins, online = (list(map(local_tensor, ps)) for ps in model.ema_pairs())
+    or fsdp shards both alike, on this rank's share under ZeRO-1
+    (``TwinShards``)."""
+    if model.twin_shards is not None:
+        twins, online = model.twin_shards.pairs()
+    else:
+        twins, online = (list(map(local_tensor, ps))
+                         for ps in model.ema_pairs())
     torch._foreach_mul_(twins, momentum)
     torch._foreach_add_(twins, torch._foreach_mul(online, 1.0 - momentum))
+
+
+class TwinShards:
+    """ZeRO-1 over the EMA twins, as JAX's ``zero1`` shards them over dp at
+    rest (``_zero1_spec``, spmm_tpu/training/pretrain.py:159-195, 563-568).
+
+    The twins, in ``ema_pairs`` order, are one flat buffer padded to a
+    multiple of the dp size; this rank keeps its contiguous ``1/world`` of
+    it (``shard``), and between steps the twins themselves hold no storage.
+    ``ema_update`` updates the share against the same elements of the
+    online parameters (the update is elementwise, so the result is bitwise
+    the replicated one); ``gather`` all-gathers the whole twins for a
+    step's momentum forwards (every dp rank calls it), ``release`` frees
+    them again.  ``whole_twins`` gathers them around a state-dict read, as
+    ``checkpoint.io`` does, so checkpoints keep whole twins."""
+
+    def __init__(self, model: PretrainModel, group: dist.ProcessGroup):
+        self.twins, self.online = model.ema_pairs()
+        self.group = group
+        self.shapes = [p.shape for p in self.twins]
+        self.sizes = [p.numel() for p in self.twins]
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        total = sum(self.sizes)
+        per = -(-total // world)
+        lo, hi = rank * per, min((rank + 1) * per, total)
+        # (twin, first, last element in the twin, first in the shard)
+        self.segments, off = [], 0
+        for i, n in enumerate(self.sizes):
+            a, b = max(lo, off), min(hi, off + n)
+            if a < b:
+                self.segments.append((i, a - off, b - off, a - lo))
+            off += n
+        ref = self.twins[0]
+        self.shard = torch.zeros(per, dtype=ref.dtype, device=ref.device)
+        self.padded = per * world
+        self.gathered = True
+        self.take()
+        self.release()
+
+    def _views(self, params: list) -> tuple[list, list]:
+        mine = [self.shard[o:o + b - a] for _, a, b, o in self.segments]
+        theirs = [params[i].detach().reshape(-1)[a:b]
+                  for i, a, b, _ in self.segments]
+        return mine, theirs
+
+    def pairs(self) -> tuple[list, list]:
+        """(this rank's share of the twins, the same elements of the online
+        parameters), as views."""
+        return self._views(self.online)
+
+    @torch.no_grad()
+    def take(self) -> None:
+        """Copy this rank's share of the whole twins into the shard."""
+        mine, twins = self._views(self.twins)
+        torch._foreach_copy_(mine, twins)
+
+    def _point(self, flat: Tensor) -> None:
+        off = 0
+        for p, n, shape in zip(self.twins, self.sizes, self.shapes):
+            p.data = flat[off:off + n].view(shape)
+            off += n
+        self.gathered = True
+
+    def materialize(self) -> None:
+        """Whole twins with uninitialized storage (for a load into them)."""
+        self._point(self.shard.new_empty(self.padded))
+
+    def gather(self) -> None:
+        """Whole twins from every rank's share: one all-gather over dp."""
+        flat = self.shard.new_empty(self.padded)
+        dist.all_gather_into_tensor(flat, self.shard, group=self.group)
+        self._point(flat)
+
+    def release(self) -> None:
+        for p in self.twins:
+            p.data = p.data.new_empty(0)
+        self.gathered = False
+
+    def resident_elements(self) -> int:
+        """Twin elements this rank holds now: its share, plus the whole
+        twins while they are gathered."""
+        return self.shard.numel() + sum(p.numel() for p in self.twins)
+
+
+@contextlib.contextmanager
+def whole_twins(model: PretrainModel):
+    """Inside the block the model's twins are whole: under ZeRO-1 they are
+    gathered (a collective that every dp rank enters) and released after;
+    otherwise nothing happens.  State-dict reads that must hold the twins
+    (``checkpoint.io``) run inside it."""
+    shards = getattr(model, "twin_shards", None)
+    if shards is None or shards.gathered:
+        yield
+        return
+    shards.gather()
+    try:
+        yield
+    finally:
+        shards.release()
+
+
+def _shard_twins(model: PretrainModel,
+                 group: Optional[dist.ProcessGroup]) -> None:
+    """Make ``model``'s twins ZeRO-1 shards over ``group``, or whole again
+    with None (the twins of an earlier zero1 step gathered)."""
+    old = model.twin_shards
+    if old is not None and not old.gathered:
+        old.gather()
+    model.twin_shards = None if group is None else TwinShards(model, group)
 
 
 def clip_by_global_norm_(grads: list,
@@ -490,7 +606,9 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
     lr, the gradients' global norm before the clip (None on a skipped step)
     and whether the step was skipped.  In order:
 
-      - the EMA update, before the forward;
+      - the EMA update, before the forward (under ``pcfg.zero1`` on this
+        rank's share of the twins, which are then gathered whole for the
+        step and released after it: ``TwinShards``);
       - alpha ramps over epoch 0;
       - ``accum`` microbatches of this rank's rows: each backpropagates its
         loss over ``world * accum`` (``world`` the dp extent), and the
@@ -557,6 +675,7 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
         minor_group = _mesh.minor_mesh().get_group()
     fp32_matmuls()
     opt = make_pretrain_optimizer(model, pcfg, group)
+    _shard_twins(model, group if pcfg.zero1 else None)
     params = model.online_parameters()
     seq_partial = _sp.partial_parameters(model) if sp else []
     sp_mesh = _mesh.minor_mesh() if sp else None
@@ -581,6 +700,8 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
         alpha = (pcfg.alpha if epoch > 0 else
                  pcfg.alpha * min(1.0, batch_idx / steps_per_epoch))
         ema_update(model, pcfg.momentum)
+        if model.twin_shards is not None:
+            model.twin_shards.gather()      # whole for the momentum forwards
         for p in params:
             p.grad = None
         mb, scale = lb // accum, world * accum
@@ -607,12 +728,12 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if seq_partial:
-            _all_reduce_flat([p.grad for p in seq_partial], minor_group)
+            all_reduce_flat([p.grad for p in seq_partial], minor_group)
         feats = torch.stack(feats)                  # [accum, 2, mb, E]
         if group is None:
             feats = feats[:, None]
         else:
-            _all_reduce_flat([local_tensor(g) for g in grads], group)
+            all_reduce_flat([local_tensor(g) for g in grads], group)
             stats = torch.stack([loss, *(parts[k] for k in LOSS_KEYS)])
             dist.all_reduce(stats, group=group)
             loss, parts = stats[0], dict(zip(LOSS_KEYS, stats[1:]))
@@ -637,20 +758,12 @@ def make_pretrain_step(model: PretrainModel, pcfg: PretrainConfig,
                 model.text_queue.index_copy_(1, cols, feats[1].t())
                 model.queue_ptr.copy_((model.queue_ptr + gb)
                                       % pcfg.queue_size)
+        if model.twin_shards is not None:
+            model.twin_shards.release()
         return {"loss": loss, **parts, "lr": lr, "grad_norm": norm,
                 "skipped": not finite}
 
     return opt, step
-
-
-def _all_reduce_flat(tensors: list, group: dist.ProcessGroup) -> None:
-    """Sum ``tensors`` over ``group`` in place, as one flat buffer: one
-    collective for all of them."""
-    sizes = [t.numel() for t in tensors]
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=group)
-    torch._foreach_copy_(tensors, [x.view_as(t) for x, t in
-                                   zip(flat.split(sizes), tensors)])
 
 
 def step_generator(seed: int, global_step: int, device: torch.device,

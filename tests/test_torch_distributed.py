@@ -16,8 +16,9 @@ test's temporary directory; each writes its state there.  One 2-rank run
 - against the JAX oracle of tests/test_torch_pretrain.py (``jax_oracle_
   steps``): its bars, parameters within 1e-6 + 1e-5 relative, EMA twins
   too, queues within 1e-5, ``queue_ptr`` equal;
-- ZeRO-1 against replicated, and checkpoints resumed across world sizes
-  and across ``zero1``: bitwise;
+- ZeRO-1 (the AdamW moments and, at rest, the EMA twins sharded) against
+  replicated, and checkpoints resumed across world sizes and across
+  ``zero1``: bitwise;
 - bf16 moments against optax's ``mu_dtype=bfloat16`` AdamW (``make_
   optimizer(bf16_moments=True)``): parameters at the step bar, the stored
   first moment in bf16 within one bf16 ulp of optax's; through three
@@ -325,6 +326,18 @@ def test_zero1_shards_the_optimizer_state(dist_run):
     held = [r["opt_elements"] for r in dist_run["out"]["zero1"]]
     assert all(0 < h < repl["opt_elements"] for h in held)
     assert sum(held) == repl["opt_elements"]
+
+
+def test_zero1_shards_the_ema_twins(dist_run):
+    """Between steps a zero1 rank keeps its half of the twins (one flat
+    buffer padded to a multiple of the 2 ranks) and no whole twin; a
+    replicated rank keeps all of them, as JAX's ``_zero1_spec`` shards the
+    EMA over dp at rest (spmm_tpu/training/pretrain.py:159-195)."""
+    repl = dist_run["out"]["dp"][0]
+    total = repl["twin_total"]
+    assert repl["twin_elements"] == total
+    for rank in dist_run["out"]["zero1"] + dist_run["out"]["zero1_resume"]:
+        assert rank["twin_elements"] == -(-total // 2)
 
 
 def test_zero1_checkpoint_resumes_in_one_process(dist_run):

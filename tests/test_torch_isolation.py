@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax():
                 "utils.profiling", "cli.pretrain", "cli.convert_checkpoint",
                 "parallel.mesh", "parallel.multihost", "training.optim",
                 "parallel.tp", "parallel.sp", "parallel.fsdp",
-                "parallel.replicas", "models.introspect"):
+                "parallel.replicas", "models.introspect", "parallel.pp",
+                "parallel.ep", "parallel.dryrun", "ops._host_build"):
         assert f"spmm_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -58,7 +59,9 @@ def test_importing_every_module_loads_no_jax():
         "n.startswith(('jax.', 'jaxlib')) or n == 'spmm_tpu' or "
         "n.startswith('spmm_tpu.') or "
         f"n.split('.')[0] in {_ABSENT!r})\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "import spmm_tpu_torch.tokenizer as tok\n"
+        "assert not tok._native_build, 'importing built the tokenizer'\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -136,6 +139,10 @@ def test_entry_points_need_a_gpu_unless_told_otherwise():
         generate_batched(model, tok, pvs, device="meta")
     with pytest.raises(ValueError, match="is on"):
         predict_pv(model, ids, mask, device="meta")
+    from spmm_tpu_torch.parallel.ep import init_moe_params
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_moe_params(0, tc, 4)
 
 
 def test_rxn_entry_points_need_a_gpu_unless_told_otherwise(tmp_path):

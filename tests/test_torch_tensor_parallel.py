@@ -17,7 +17,11 @@ result; each test reads its part.  Bars:
   (tests/test_torch_distributed.py): loss 1e-5, parameters 2e-5, queues
   1e-5, ``queue_ptr`` equal, as tests/test_tensor_parallel.py:146-193;
 - a tp checkpoint resumes in one process: its third step equals the tp
-  run's third step at the same bars.
+  run's third step at the same bars;
+- two AdamW steps of the classification fine-tune at dp=2 x tp=2 (each dp
+  rank on its 4 rows of a batch of 8, dropout off) against JAX's
+  single-device ``make_downstream_step``: losses and parameters 1e-5, as
+  tests/test_tensor_parallel.py:96-143.
 """
 
 import dataclasses
@@ -31,12 +35,16 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
+from spmm_tpu.configs import FinetuneConfig as JaxFcfg
 from spmm_tpu.inference.smiles2pv import predict_pv as jax_predict_pv
+from spmm_tpu.models.downstream import init_downstream_params
 from spmm_tpu.models.spmm import init_spmm_params
 from spmm_tpu.parallel import tp as jtp
+from spmm_tpu.training.finetune import make_downstream_step
 
 from spmm_tpu_torch.checkpoint.convert import (
-    pretrain_state_dict_from_jax, state_dict_from_jax_tree)
+    downstream_state_dict_from_jax_tree, pretrain_state_dict_from_jax,
+    state_dict_from_jax_tree)
 from spmm_tpu_torch.checkpoint.io import restore_checkpoint
 from spmm_tpu_torch.models.spmm import SPMM
 from spmm_tpu_torch.parallel import mesh, multihost, tp
@@ -81,6 +89,28 @@ def spmm_tree() -> dict:
     return jax.tree.map(np.asarray, tree)
 
 
+FCFG = dict(epochs=2, batch_size_train=8)
+FT_STEPS_PER_EPOCH = 4
+
+
+def downstream_tree() -> dict:
+    return jax.tree.map(np.asarray, init_downstream_params(
+        jax.random.PRNGKey(3), "classification", cfg=JTEXT))
+
+
+def ft_batches() -> list:
+    """Two batches of 8 x 10 (tests/test_tensor_parallel.py:108-116)."""
+    out = []
+    for i in range(2):
+        k = jax.random.PRNGKey(10 + i)
+        out.append({
+            "ids": np.asarray(jax.random.randint(k, (8, 10), 4, 300)),
+            "mask": np.ones((8, 10), np.int32),
+            "target": np.asarray(jax.random.randint(
+                jax.random.fold_in(k, 1), (8,), 0, 2))})
+    return out
+
+
 def dropout_steps(model, batches, accum: int, steps, opt_step=None):
     """The port's one-process step with dropout on, a generator per chunk
     from seed 11 (as the worker's), over ``steps``; the losses."""
@@ -101,7 +131,8 @@ def tp_run(tmp_path_factory):
         dict(name="mlm", kind="mlm", mesh=[2, 2, "tp"]),
         dict(name="pv", kind="predict_pv", mesh=[2, 2, "tp"]),
         dict(name="step", kind="pretrain", mesh=[2, 2, "tp"], accum=1,
-             steps=3, dropout=True, batches="data4", save_at=2)]
+             steps=3, dropout=True, batches="data4", save_at=2),
+        dict(name="finetune", kind="finetune", mesh=[2, 2, "tp"])]
     torch.save({"state": pretrain_state_dict_from_jax(st, TTEXT, TPROP),
                 "spmm": state_dict_from_jax_tree(spmm_tree(), TTEXT, TPROP),
                 "configs": [dataclasses.asdict(TTEXT),
@@ -110,6 +141,11 @@ def tp_run(tmp_path_factory):
                 "mlm": mlm_inputs(), "s2p": (torch.tensor(ids),
                                              torch.tensor(mask)),
                 "data4": tuple([torch_tree(x) for x in d] for d in data4),
+                "downstream": downstream_state_dict_from_jax_tree(
+                    downstream_tree(), TTEXT),
+                "fcfg": FCFG, "ft_steps_per_epoch": FT_STEPS_PER_EPOCH,
+                "ft_batches": [{k: torch.tensor(v) for k, v in b.items()}
+                               for b in ft_batches()],
                 "scenarios": scenarios}, workdir / "input.pt")
     run_ranks(workdir, world=4, mode="parallel")
     out = {sc["name"]: [torch.load(workdir / f"{sc['name']}_rank{r}.pt",
@@ -263,6 +299,50 @@ def test_zero1_with_tp_raises(tmp_path):
             pretrain.make_pretrain_step(port_state(jax_state(0)),
                                         pcfgs(zero1=True)[1],
                                         STEPS_PER_EPOCH)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert mesh.get_mesh() is None
+
+
+def test_downstream_train_step_tp_matches_jax_single_device(tp_run):
+    """Two AdamW steps of the classification fine-tune on the dp=2 x tp=2
+    mesh (the truncated encoder under the tp plan, the port's AdamW on
+    local shards, the gradients summed over dp) equal JAX's single-device
+    step: every rank's losses and whole parameters within 1e-5."""
+    tx, step = make_downstream_step("classification", JaxFcfg(**FCFG),
+                                    steps_per_epoch=FT_STEPS_PER_EPOCH,
+                                    cfg=JTEXT)
+    params = jax.tree.map(jnp.asarray, downstream_tree())
+    opt_state = tx.init(params)
+    losses = []
+    for gs, batch in enumerate(ft_batches()):
+        params, opt_state, m = step(params, opt_state, jnp.asarray(gs),
+                                    jax.tree.map(jnp.asarray, batch), None)
+        losses.append(float(m["loss"]))
+    want = downstream_state_dict_from_jax_tree(
+        jax.tree.map(np.asarray, params), TTEXT)
+    for rank in tp_run["out"]["finetune"]:
+        np.testing.assert_allclose(rank["losses"], losses, atol=1e-5, rtol=0)
+        assert rank["state"].keys() == want.keys()
+        for name, val in want.items():
+            torch.testing.assert_close(rank["state"][name], val, atol=1e-5,
+                                       rtol=0, msg=name)
+
+
+def test_finetune_step_refuses_an_fsdp_mesh(tmp_path):
+    """The fine-tune step shards over ('dp', 'tp') only, as JAX's test
+    runs it; a ('dp', 'fsdp') mesh raises instead of training unsharded."""
+    from spmm_tpu_torch.configs import FinetuneConfig
+    from spmm_tpu_torch.models.downstream import Downstream
+    from spmm_tpu_torch.training.finetune import make_downstream_step
+
+    multihost.initialize("cpu", init_method=f"file://{tmp_path}/s",
+                         world_size=1, rank=0)
+    try:
+        mesh.set_mesh(1, 1, "fsdp")
+        with pytest.raises(ValueError, match="'dp', 'tp'"):
+            make_downstream_step(Downstream("classification", TTEXT),
+                                 FinetuneConfig(**FCFG), FT_STEPS_PER_EPOCH)
     finally:
         torch.distributed.destroy_process_group()
     assert mesh.get_mesh() is None

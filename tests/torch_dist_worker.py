@@ -1,9 +1,10 @@
-"""One rank of the port's data-parallel tests
-(tests/test_torch_distributed.py).
+"""One rank of the port's multi-process tests (tests/test_torch_distributed.py,
+the tp, sp and fsdp tests, tests/test_torch_pipeline_parallel.py and
+tests/test_torch_expert_parallel.py).
 
 It imports torch and spmm_tpu_torch only: a rank started by
 ``torch.multiprocessing.spawn`` would re-import the test module, and with
-it jax and spmm_tpu.  Two ways to run it:
+it jax and spmm_tpu.  Four ways to run it:
 
     python tests/torch_dist_worker.py steps WORKDIR RANK WORLD
 
@@ -20,6 +21,12 @@ on the process-wide mesh it names (``run_parallel``: pretrain steps under
 dp x tp, dp x tp with sp, or dp x fsdp; an MLM forward; ``predict_pv``),
 writing ``WORKDIR/<scenario>_rank<RANK>.pt``;
 
+    python tests/torch_dist_worker.py blocks WORKDIR RANK WORLD
+
+joins the group likewise and runs each scenario of ``WORKDIR/input.pt``
+through the pipeline (``parallel.pp``) or the expert-parallel MoE block
+(``parallel.ep``), forward and backward (``run_block``);
+
     python -m torch.distributed.run --standalone --nproc_per_node 2 \\
         tests/torch_dist_worker.py cli TEXT_CFG_JSON PROP_CFG_JSON ARGS...
 
@@ -34,7 +41,8 @@ import sys
 
 import torch
 
-from spmm_tpu_torch.checkpoint.io import restore_checkpoint, save_checkpoint
+from spmm_tpu_torch.checkpoint.io import (
+    model_state, restore_checkpoint, save_checkpoint)
 from spmm_tpu_torch.configs import BertArchConfig, PretrainConfig
 from spmm_tpu_torch.parallel import mesh, multihost
 from spmm_tpu_torch.parallel.mesh import dp_rank, dp_size
@@ -73,10 +81,15 @@ def run_scenario(inp: dict, sc: dict, workdir: str) -> dict:
     inner = getattr(opt, "optim", opt)
     held = sum(st[k].numel() for st in inner.state.values()
                for k in ("exp_avg", "exp_avg_sq"))
-    return {"state": model.state_dict(), "losses": losses,
+    twins = model.ema_pairs()[0]
+    resident = (sum(p.numel() for p in twins) if model.twin_shards is None
+                else model.twin_shards.resident_elements())
+    return {"state": model_state(model), "losses": losses,
             "opt_elements": held,
             "param_elements": sum(p.numel()
-                                  for p in model.online_parameters())}
+                                  for p in model.online_parameters()),
+            "twin_elements": resident,
+            "twin_total": sum(p.numel() for p in model.ema_pairs()[1])}
 
 
 def steps(workdir: str, rank: int, world: int) -> None:
@@ -101,15 +114,18 @@ def local_elements(tensors) -> int:
 
 
 def run_parallel(inp: dict, sc: dict, workdir: str) -> dict:
-    """``sc``: name, kind ("pretrain", "mlm" or "predict_pv"), mesh [dp,
-    minor, "tp" | "fsdp"] or None, and per kind:
+    """``sc``: name, kind ("pretrain", "mlm", "predict_pv" or "finetune"),
+    mesh [dp, minor, "tp" | "fsdp"] or None, and per kind:
 
     - pretrain: accum, steps, sp, dropout (a generator per chunk from
       seed 11, else the fixed noise), optionally pcfg (PretrainConfig
       fields over ``inp["pcfg"]``), resume and save_at;
     - mlm: the BertForMaskedLM of the state's text encoder on ``mlm``'s
       ids, mask and encoder states, dropout on from a generator seeded 5;
-    - predict_pv: ``predict_pv`` of this dp rank's rows of ``s2p``.
+    - predict_pv: ``predict_pv`` of this dp rank's rows of ``s2p``;
+    - finetune: the classification step of ``make_downstream_step`` on
+      ``downstream`` (a Downstream state) over ``ft_batches``, this dp
+      rank's rows of each.
     """
     from spmm_tpu_torch.checkpoint.io import whole
     from spmm_tpu_torch.inference.smiles2pv import predict_pv
@@ -122,6 +138,21 @@ def run_parallel(inp: dict, sc: dict, workdir: str) -> dict:
         mesh.set_mesh(*sc["mesh"])
     rank, world = dp_rank(), dp_size()
     cpu = torch.device("cpu")
+    if sc["kind"] == "finetune":
+        from spmm_tpu_torch.configs import FinetuneConfig
+        from spmm_tpu_torch.models.downstream import Downstream
+        from spmm_tpu_torch.training.finetune import make_downstream_step
+
+        model = Downstream("classification", inp["configs"][0])
+        model.load_state_dict(inp["downstream"], strict=True)
+        _, step = make_downstream_step(model, FinetuneConfig(**inp["fcfg"]),
+                                       inp["ft_steps_per_epoch"])
+        losses = []
+        for gs, batch in enumerate(inp["ft_batches"]):
+            rows = multihost.process_rows(batch["ids"].shape[0], rank, world)
+            losses.append(step(gs, {k: v[rows.start:rows.stop]
+                                    for k, v in batch.items()})["loss"].item())
+        return {"losses": losses, "state": whole(model.state_dict())}
     if sc["kind"] == "predict_pv":
         model = SPMM(*inp["configs"])
         model.load_state_dict(inp["spmm"], strict=True)
@@ -193,6 +224,71 @@ def parallel(workdir: str, rank: int, world: int) -> None:
         torch.distributed.destroy_process_group()
 
 
+def run_block(inp: dict, sc: dict) -> dict:
+    """``sc``: name, kind and per kind:
+
+    - pp: stages and micro; the text stack of ``inp["pp"]`` (a
+      BertEncoder's state, its config, the hidden states and the additive
+      mask) through ``pipeline_encoder_forward`` on the first ``stages``
+      ranks, then the backward of sum(out ** 2) into the stage's layers and
+      the input;
+    - ep: top_k; the MoE block of ``inp["ep"]`` (its state, config and the
+      hidden states) through ``expert_parallel_moe_block`` over every rank,
+      this rank's rows, then the backward of sum(out ** 2) + 0.01 *
+      aux_loss / ep (the ranks' losses summed count aux_loss once).
+    """
+    from spmm_tpu_torch.models.bert import BertEncoder
+    from spmm_tpu_torch.parallel import ep, pp
+
+    rank, world = torch.distributed.get_rank(), \
+        torch.distributed.get_world_size()
+    if sc["kind"] == "pp":
+        d = inp["pp"]
+        cfg = BertArchConfig(**d["cfg"])
+        enc = BertEncoder(cfg)
+        enc.load_state_dict(d["state"], strict=True)
+        group = pp.pp_mesh(sc["stages"])
+        if rank >= sc["stages"]:
+            return {}
+        stage = pp.stage_layers(enc.layer, sc["stages"], rank)
+        first = rank * len(stage)
+        hidden = d["hidden"].clone().requires_grad_(True)
+        out = pp.pipeline_encoder_forward(stage, cfg, hidden, d["mask"],
+                                          group, sc["micro"])
+        (out ** 2).sum().backward()
+        return {"out": out.detach(), "hidden_grad": hidden.grad,
+                "grads": {f"layer.{first + i}.{name}": p.grad
+                          for i, layer in enumerate(stage)
+                          for name, p in layer.named_parameters()}}
+    d = inp["ep"]
+    cfg = BertArchConfig(**d["cfg"])
+    block = ep.MoEBlock(cfg, d["n_experts"])
+    block.load_state_dict(d["state"], strict=True)
+    group = ep.ep_mesh(world)
+    local = ep.expert_shard(block, rank, world)
+    rows = ep.ep_rows(d["hidden"].shape[0], rank, world)
+    out, aux = ep.expert_parallel_moe_block(local, cfg, d["hidden"][rows],
+                                            group, top_k=sc["top_k"])
+    ((out ** 2).sum() + 0.01 * aux["aux_loss"] / world).backward()
+    return {"rows": (rows.start, rows.stop), "out": out.detach(),
+            "aux": {k: v.detach() for k, v in aux.items()},
+            "grads": {name: p.grad for name, p in local.named_parameters()}}
+
+
+def blocks(workdir: str, rank: int, world: int) -> None:
+    torch.set_num_threads(1)
+    multihost.initialize("cpu", init_method=f"file://{workdir}/store",
+                         world_size=world, rank=rank)
+    try:
+        inp = torch.load(f"{workdir}/input.pt", weights_only=True)
+        for sc in inp["scenarios"]:
+            torch.save(run_block(inp, sc),
+                       f"{workdir}/{sc['name']}_rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def cli(text_cfg: str, prop_cfg: str, argv: list) -> None:
     from spmm_tpu_torch.cli import pretrain as cli_pretrain
 
@@ -204,8 +300,8 @@ def cli(text_cfg: str, prop_cfg: str, argv: list) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1] in ("steps", "parallel"):
-        {"steps": steps, "parallel": parallel}[sys.argv[1]](
-            sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    if sys.argv[1] in ("steps", "parallel", "blocks"):
+        {"steps": steps, "parallel": parallel, "blocks": blocks}[
+            sys.argv[1]](sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     else:
         cli(sys.argv[2], sys.argv[3], sys.argv[4:])
