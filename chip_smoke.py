@@ -20,7 +20,8 @@ against its plain PyTorch version:
   - SPMM pretraining (four objectives, momentum twins, feature queues) on
     the plain attention, in one process, data-parallel, tensor-parallel
     (with or without sequence parallelism) and fully sharded: it launches
-    neither kernel;
+    neither kernel; its checkpoint into both fine-tune CLIs (the evidence
+    chain);
   - data-parallel inference over several replicas (``devices=``) and the
     fusion layers' cross-attention maps;
   - pipeline parallelism over the text section (kernel 2 in its forward
@@ -49,7 +50,9 @@ Phases, in order; any failure exits non-zero:
               largest shared memory); greedy k=1 bf16 at m=128 on the
               greedy mask (one lane, holes where a row emitted token 0);
               k=5 bf16/fp8 at m=32 on random and shared ancestry; the file
-              CLIs' m=16 at k=1, 2 (bf16) and 3 (bf16, fp8).  fused_mha
+              CLIs' m=16 at k=1, 2 (bf16) and 3 (bf16, fp8); the evidence
+              run's greedy eval, k=1 bf16 at m=48 and 16, positions to 8
+              (timed at m=48, pos 8).  fused_mha
               vs its plain version at the five shapes of
               tests/test_pallas_attention.py, its bf16 case, every launch
               class of SMILES->PV at full width (B=128, h=12, D=64; S in
@@ -123,6 +126,16 @@ Phases, in order; any failure exits non-zero:
               of the example SMILES with raw properties from the seed, and
               cli.convert_checkpoint --to_torch of the result, loaded
               strictly into an inference SPMM;
+  chain       the evidence chain at smoke size from that resumed
+              step_4.pt: load_rxn_checkpoint and the downstream
+              load_encoder_from_pretrain put its text encoder into a
+              full-width Rxn and a classification Downstream bit for bit;
+              then, each a main path, cli.rxn_prediction one epoch over 64
+              reactions of scripts/torch_run_finetune_evidence.py's
+              make_rxn_data with its greedy eval (batches of 48 and 16, as
+              the evidence run's 48) and cli.classification (bbbp) one
+              epoch over 64 rows of its make_cls_data: result.json and
+              finite losses;
   pretrain_dp data-parallel pretraining through a NCCL process group of
               one (the card's machine has one GPU): at the gate's size the
               data-parallel step equals the one-process step and zero1
@@ -170,7 +183,7 @@ Phases, in order; any failure exits non-zero:
               gloo ranks, every stage), entry()'s full-width loss on the
               card, and the native tokenizer in use, equal to the Python
               path over 10,000 lines, both in lines/s;
-  shapes      over phases 5, rxn and finetune, every call of a kernel
+  shapes      over phases 5, rxn, finetune and chain, every call of a kernel
               wrapper was recorded (KernelCalls); each kernel is held to its plain
               version at every launch shape those main paths passed it:
               kernel 1 on the masks they passed at steps 0, 1, 33, 100 and
@@ -488,7 +501,9 @@ def compare_kernel(dev) -> dict:
     ancestry on both sides of the kernel's 32-row tile edges, the largest
     shared-memory case (T=300, k=8, fp32), and reaction prediction's
     launches: greedy k=1 at m=128 on the greedy mask, beam k=5 at m=32, and
-    the file CLIs' batch of 16 at k=1, 2 (bf16) and 3 (bf16, fp8)."""
+    the file CLIs' batch of 16 at k=1, 2 (bf16) and 3 (bf16, fp8); the
+    evidence run's greedy eval (k=1, batches of 48 and 16, products of at
+    most 8 tokens: positions up to 8) on the greedy mask."""
     import torch
 
     h, d, T, L = 12, 64, 104, 2
@@ -498,6 +513,8 @@ def compare_kernel(dev) -> dict:
     cases += [("random", 64, 1, T, f32, pos) for pos in (1, 33, 103)]
     cases += [("random", 16, 5, T, f32, pos) for pos in (1, 33, 103)]
     cases += [("greedy", 128, 1, T, bf16, pos) for pos in (1, 33, 100, 103)]
+    cases += [("greedy", m, 1, T, bf16, pos) for m in (48, 16)
+              for pos in (1, 4, 8)]
     cases += [(kind, 32, 5, T, dt, pos) for kind in ("random", "shared")
               for dt in (bf16, fp8) for pos in (1, 33, 100)]
     cases += [("random", 16, k, T, bf16, pos) for k in (1, 2)
@@ -1857,6 +1874,116 @@ def pretrain_cli(dev, workdir: str) -> dict:
             "checkpoint_gib": ckpt_gib, "mfu_line": mfu_line[:1]}
 
 
+def evidence_script():
+    """scripts/torch_run_finetune_evidence.py, loaded by path (its data
+    generators)."""
+    import importlib.util
+
+    path = os.path.join(REPO, "scripts", "torch_run_finetune_evidence.py")
+    spec = importlib.util.spec_from_file_location(
+        "torch_run_finetune_evidence", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def chain_loads(dev, ckpt: str) -> dict:
+    """``load_rxn_checkpoint`` and the downstream ``load_encoder_from_pretrain``
+    put the text encoder of the port's own pretrain checkpoint into a
+    full-width ``Rxn`` and a classification ``Downstream`` on the card:
+    every transferred tensor equal, bit for bit, to the saved one."""
+    import torch
+
+    from spmm_tpu_torch.checkpoint.convert import load_reference_checkpoint
+    from spmm_tpu_torch.cli.rxn_prediction import load_rxn_checkpoint
+    from spmm_tpu_torch.models.downstream import (
+        Downstream, load_encoder_from_pretrain)
+    from spmm_tpu_torch.models.rxn import Rxn
+
+    saved = torch.load(ckpt, map_location="cpu",
+                       weights_only=True)["state_dict"]
+    # the reactant encoder: text_encoder.* without the upper layers; its
+    # tied LM head is the word table, the head's bias cls.predictions.bias
+    tied = {"cls.predictions.decoder.weight":
+            "text_encoder.bert.embeddings.word_embeddings.weight",
+            "cls.predictions.decoder.bias": "text_encoder.cls.predictions.bias"}
+    rxn = load_rxn_checkpoint(Rxn.random_init(SEED + 2, device=dev), ckpt)
+    pairs = [(v, saved[tied.get(k, "text_encoder." + k)])
+             for k, v in rxn.text_encoder2.state_dict().items()]
+    n_rxn = len(pairs)
+    del rxn
+    ds = load_encoder_from_pretrain(
+        Downstream.random_init(SEED + 2, "classification", device=dev),
+        load_reference_checkpoint(ckpt))
+    pairs += [(v, saved["text_encoder.bert." + k])
+              for k, v in ds.text_encoder.bert.state_dict().items()]
+    del ds
+    unequal = sum(not (got.dtype == want.dtype and torch.equal(
+        bits(got.cpu()), bits(want))) for got, want in pairs)
+    if unequal:
+        fail(f"chain: {unequal} of {len(pairs)} encoder tensors differ from "
+             "the pretrain checkpoint's")
+    return {"rxn_encoder_tensors": n_rxn,
+            "downstream_encoder_tensors": len(pairs) - n_rxn}
+
+
+def chain_phase(dev, workdir: str, calls) -> dict:
+    """The evidence chain at smoke size, from the port's own pretrain
+    checkpoint: the resumed step_4.pt that ``pretrain_cli`` leaves in
+    ``workdir``.  Bitwise encoder loads (``chain_loads``), then, each a
+    main path with its kernel calls recorded, cli.rxn_prediction (one
+    epoch over 64 reactions of the evidence script's ``make_rxn_data``,
+    greedy eval of 64 per split at --batch_size_eval 48: batches of 48 and
+    16) and cli.classification --name bbbp (one epoch over 64 rows of
+    ``make_cls_data``, eval of 64 per split): both end with result.json and
+    finite losses."""
+    import numpy as np
+
+    from spmm_tpu_torch.cli import classification, rxn_prediction
+
+    t_start = time.perf_counter()
+    ckpt = os.path.join(workdir, "second", "step_4.pt")
+    out = {"loads": chain_loads(dev, ckpt)}
+    ev = evidence_script()
+    rxn_data = ev.make_rxn_data(os.path.join(workdir, "chain_rxn"),
+                                n_train=64, n_eval=64)
+    cls_data = ev.make_cls_data(os.path.join(workdir, "chain_cls"),
+                                n_train=64, n_eval=64)
+    runs = (
+        ("rxn_prediction", rxn_prediction, [
+            "--mode", "forward", "--data_dir", rxn_data, "--epoch", "1",
+            "--n_beam", "1", "--batch_size", "16", "--batch_size_eval", "48",
+            "--seed", str(SEED)],
+         # per split a greedy batch of 48 and one of 16: 6 launches each
+         lambda n1, n2: n1 > 0 and n1 % 12 == 0 and n2 == 4 * RXN_ENC_LAYERS),
+        ("classification", classification, [
+            "--name", "bbbp", "--data_dir", cls_data, "--epoch", "1",
+            "--batch_size", "16"],
+         # one eval batch of 64 per split
+         lambda n1, n2: n1 == 0 and n2 == 2 * 6),
+    )
+    for name, cli, argv, launches_ok in runs:
+        result_dir = os.path.join(workdir, f"chain_{name}_out")
+        reset_launch_counts()                   # the main path starts here
+        with calls.recording(f"chain: cli.{name}"):
+            _, secs, n1, n2 = run_counted(dev, lambda: cli.main(
+                ["--checkpoint", ckpt, "--output_dir", result_dir,
+                 "--device", dev.type] + argv))   # ... and ends here
+        with open(os.path.join(result_dir, "result.json")) as f:
+            result = json.load(f)
+        losses = [r["loss"] for r in _metrics(
+            os.path.join(result_dir, "metrics.jsonl"))]
+        if not launches_ok(n1, n2) or result["steps"] != 4 or \
+                len(losses) != 4 or not np.all(np.isfinite(losses)):
+            fail(f"chain: cli.{name} launches ({n1}, {n2}), losses {losses}, "
+                 f"result {result}")
+        out[name] = {"wall_s": secs, "launches": [n1, n2], "losses": losses,
+                     **{k: result[k] for k in result
+                        if k.startswith("best_")}}
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
 def dp_gate(dev) -> dict:
     """pretrain_dp (a), under the NCCL group of one: at PRETRAIN_GATE's
     batch and queue, dropout off, the noise fixed, global step 12, one step
@@ -3067,6 +3194,8 @@ def main(argv=None) -> int:
     log_bda_timing("rxn greedy mask", timing_greedy)
     timing_k5 = time_kernel(dev, m=32, pos=100, k=5)
     log_bda_timing("rxn beam, random mask", timing_k5)
+    timing_evidence = time_kernel(dev, m=48, pos=8, k=1, kind="greedy")
+    log_bda_timing("rxn evidence greedy mask", timing_evidence)
     log("[kernels] fused_mha vs plain version")
     worst2 = compare_mha(dev)
     timing2 = time_mha(dev, sorted(s2p_launch_classes(),
@@ -3268,14 +3397,30 @@ def main(argv=None) -> int:
             log(f"  {top['ms']:9.3f} ms {top['count']:6d}x  {top['name']}")
     with tempfile.TemporaryDirectory() as workdir:
         pt["cli"] = pretrain_cli(dev, workdir)
-    row = pt["cli"]
-    log(f"[pretrain] cli.pretrain --max_steps 4 --save_every 2 "
-        f"{row['wall_s'][0]:.1f} s, --resume from step_2.pt "
-        f"{row['wall_s'][1]:.1f} s (steps 3-4 losses within "
-        f"{row['resume_loss_max_abs_diff']:.2e} of the first run's), "
-        f"checkpoint {row['checkpoint_gib']:.2f} GiB; "
-        f"cli.convert_checkpoint --to_torch {row['wall_s'][2]:.1f} s, "
-        f"loaded strictly into an SPMM; {row['mfu_line']}")
+        row = pt["cli"]
+        log(f"[pretrain] cli.pretrain --max_steps 4 --save_every 2 "
+            f"{row['wall_s'][0]:.1f} s, --resume from step_2.pt "
+            f"{row['wall_s'][1]:.1f} s (steps 3-4 losses within "
+            f"{row['resume_loss_max_abs_diff']:.2e} of the first run's), "
+            f"checkpoint {row['checkpoint_gib']:.2f} GiB; "
+            f"cli.convert_checkpoint --to_torch {row['wall_s'][2]:.1f} s, "
+            f"loaded strictly into an SPMM; {row['mfu_line']}")
+
+        # ---- chain: the resumed checkpoint into both fine-tune CLIs ----
+        mark("chain")
+        chain = chain_phase(dev, workdir, calls)
+    row = chain["loads"]
+    log(f"[chain] the resumed step_4.pt's text encoder into a full-width Rxn "
+        f"({row['rxn_encoder_tensors']} tensors) and a classification "
+        f"Downstream ({row['downstream_encoder_tensors']}): bit for bit")
+    for name in ("rxn_prediction", "classification"):
+        row = chain[name]
+        log(f"[chain] cli.{name} from it, one epoch: {row['wall_s']:.1f} s, "
+            f"losses " + ", ".join(f"{x:.4f}" for x in row["losses"])
+            + f", launches {row['launches']}, "
+            + ", ".join(f"{k} {v}" for k, v in row.items()
+                        if k.startswith("best_")) + ", result.json written")
+    log(f"[chain] phase {chain['wall_s']:.1f} s")
 
     # ---- pretrain_dp: the data-parallel step through NCCL at world 1 ----
     mark("pretrain_dp")
@@ -3466,14 +3611,17 @@ def main(argv=None) -> int:
 
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
                       "exact": exact, "rxn": rxn_run, "finetune": ft,
-                      "pretrain": pt, "parallel": par, "pp_ep": ppe,
+                      "pretrain": pt, "chain": chain, "parallel": par,
+                      "pp_ep": ppe,
                       "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   rxn_launches=rxn_run["greedy_launches"][0],
+                  chain_launches=chain["rxn_prediction"]["launches"][0],
                   max_abs_err=worst["bfloat16"],
                   max_abs_err_by_cache_dtype=worst, **timing,
                   decoder_mask=timing_decoder, small_batch=timing_small,
                   rxn_greedy_k1=timing_greedy, rxn_beam_k5=timing_k5,
+                  evidence_greedy_k1=timing_evidence,
                   main_path_shapes=[row for row in main_shapes
                                     if row["kernel"] == KERNEL["name"]],
                   tp_heads=par["kernels"]["beam_decode_attention"],
@@ -3491,6 +3639,8 @@ def main(argv=None) -> int:
                        "library_ms")},
                    rxn_launches=rxn_run["greedy_launches"][1],
                    finetune_eval_launches=ft["eval"]["launches"],
+                   chain_launches={name: chain[name]["launches"][1] for name
+                                   in ("rxn_prediction", "classification")},
                    per_shape=timing2 + timing_enc,
                    mixed_eval=timing_mixed, stream_kernel=timing_stream,
                    long_kernel_reach=reach,

@@ -1,9 +1,11 @@
-"""Port boundary: spmm_tpu_torch imports neither jax nor anything of
-spmm_tpu, nor pandas, sklearn, optax or orbax (the GPU machine has none of
-them; RDKit only behind chem.featurizer's guard), and its entry points
-never drop to the CPU unasked."""
+"""Port boundary: spmm_tpu_torch and the port's scripts (scripts/torch_*.py,
+chip_smoke.py) import neither jax nor anything of spmm_tpu, nor pandas,
+sklearn, optax or orbax (the GPU machine has none of them; RDKit only
+behind chem.featurizer's guard), and their entry points never drop to the
+CPU unasked."""
 
 import ast
+import glob
 import os
 import pkgutil
 import subprocess
@@ -69,6 +71,28 @@ def test_importing_every_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def _offending_imports(path: str, rdkit_ok: bool = False) -> list:
+    """(path, name) of each import statement in ``path`` that names jax,
+    spmm_tpu or a package absent where the port runs; rdkit too unless
+    ``rdkit_ok``."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    offenders = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        offenders += [(path, n) for n in names if _forbidden(n)
+                      or n.split(".")[0] in _ABSENT]
+        if not rdkit_ok:
+            offenders += [(path, n) for n in names
+                          if n.split(".")[0] == "rdkit"]
+    return offenders
+
+
 def test_no_import_statement_names_jax_or_spmm_tpu():
     offenders = []
     for root, _, files in os.walk(PKG):
@@ -76,23 +100,51 @@ def test_no_import_statement_names_jax_or_spmm_tpu():
             if not f.endswith(".py"):
                 continue
             path = os.path.join(root, f)
-            with open(path) as fh:
-                tree = ast.parse(fh.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    names = [node.module or ""]
-                else:
-                    continue
-                offenders += [(path, n) for n in names if _forbidden(n)
-                              or n.split(".")[0] in _ABSENT]
-                rdkit = [n for n in names if n.split(".")[0] == "rdkit"]
-                if rdkit and not path.endswith(
-                        os.path.join("chem", "featurizer.py")) and not \
-                        path.endswith(os.path.join("data", "datasets.py")):
-                    offenders += [(path, n) for n in rdkit]
+            offenders += _offending_imports(path, rdkit_ok=path.endswith((
+                os.path.join("chem", "featurizer.py"),
+                os.path.join("data", "datasets.py"))))
     assert not offenders
+
+
+# the port's scripts beside the package: the evidence runs and the smoke run
+PORT_SCRIPTS = sorted(
+    [os.path.relpath(p, REPO) for p in glob.glob(
+        os.path.join(REPO, "scripts", "torch_*.py"))] + ["chip_smoke.py"])
+
+
+@pytest.mark.parametrize("script", PORT_SCRIPTS)
+def test_port_scripts_import_no_jax_or_spmm_tpu(script):
+    assert not _offending_imports(os.path.join(REPO, script))
+
+
+def test_port_scripts_are_listed():
+    assert {"scripts/torch_run_convergence.py",
+            "scripts/torch_run_finetune_evidence.py",
+            "chip_smoke.py"} <= set(PORT_SCRIPTS)
+
+
+@pytest.mark.parametrize("script", ["torch_run_convergence",
+                                    "torch_run_finetune_evidence"])
+def test_evidence_scripts_need_a_gpu_unless_told_otherwise(tmp_path, script):
+    """Both evidence scripts raise without a GPU before they write a file,
+    unless given --device cpu."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        script, os.path.join(REPO, "scripts", f"{script}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+
+    def no_cli(module_name, argv):
+        raise AssertionError(f"{module_name} ran")
+
+    work = tmp_path / "work"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.main(["--workdir", str(work), "--evidence_dir",
+                     str(tmp_path / "evidence")], run=no_cli)
+    assert not work.exists() and not (tmp_path / "evidence").exists()
 
 
 def test_entry_points_need_a_gpu_unless_told_otherwise():
