@@ -38,10 +38,13 @@ Phases, in order; any failure exits non-zero:
               kernel's registers and spills (ptxas) and, from the CUDA
               occupancy API, the blocks per SM and shared memory of its
               launches on the paths (reaction prediction's included: k=1
-              and k=5, 96x96, 160x160; past 256 keys 288, 512, 1000 and
-              2000 keys), and the largest Lk that kernel 2's long kernel
-              (scores resident in shared memory) takes before its streaming
-              kernel does;
+              and k=5, 96x96, 160x160; past 256 keys every case below, with
+              kernel 2's route and cluster size), the largest Lk that
+              kernel 2's long kernel (scores resident in shared memory)
+              takes before its streaming kernel does (failing unless it is
+              1,152 in f32 and 1,408 in bf16), the tensor-core instructions
+              of each streaming instantiation (cuobjdump -sass: every bf16
+              one has HMMA, no f32 one) and no ptxas spill in any of them;
   3. kernels  beam_decode_attention vs its plain version at the serving
               shapes (m=128, h=12, k=2, D=64, T=104) for f32/bf16/fp8
               caches on random ancestry, plus k=1 and k=5; on the decoder's
@@ -58,8 +61,10 @@ Phases, in order; any failure exits non-zero:
               class of SMILES->PV at full width (B=128, h=12, D=64; S in
               16/32/54; L=100) and the reactant encoder's (96x96 and
               160x160, per-row padding), and past 256 keys (Lk 257, 288,
-              512, 1000, 1300, 2000; padding, causal, none; f32 within
-              1e-5, bf16 within 2e-2), and a fine-tune eval batch of 64 with
+              512, 1000, 1300, 1500, 2000, 4000; padding, causal, none;
+              40x1500, 1500x1500 and 1x4000 past both reaches; f32 within
+              1e-5, bf16 within 2e-2; each case asserts its route), and a
+              fine-tune eval batch of 64 with
               one long molecule (a 505-token text among 63 SMILES, Lk 512,
               the eval's own padding mask).  Times each kernel, its plain
               version and one scaled_dot_product_attention call from the
@@ -68,7 +73,11 @@ Phases, in order; any failure exits non-zero:
               m=16, greedy k=1 (m=128) and beam k=5 (m=32), kernel 2 at
               every launch class with its launches per batch, at the
               mixed eval batch, and its streaming kernel (past 1,152 keys
-              in f32) at B=8 40x1300 causal and 33x2000 padding;
+              in f32, 1,408 in bf16) at every case past 1,152 keys at B=8,
+              in f32 and, past 1,408, in bf16, with its cluster size; and
+              the streaming kernel forced (fmha_launch_route) at the long
+              kernel's two main-path inputs (B=64 512x512 with 505 live
+              keys, B=16 288x288), timed in turns with the long kernel;
   4. exact    captures the mask that inference/decoding.py passes kernel 1
               at the last step of a full-width bf16 batch of 128 (by
               wrapping the name it calls), holds kernel 1 to its plain
@@ -191,9 +200,10 @@ Phases, in order; any failure exits non-zero:
               shape is timed as in phase 3 (kernel 1 on the last mask it
               was passed, bf16 caches; kernel 2 on those inputs); with
               --parent, kernel 2 at every input past 256 keys (the eval's
-              512x512, the rxn training CLI's 288x288, the mixed batch)
-              timed in turns with the other commit's library in its place
-              (parent, this, this, parent);
+              512x512, the rxn training CLI's 288x288, the mixed batch, the
+              streaming kernel's rows of phase 3) timed in turns with the
+              other commit's library in its place (parent, this, this,
+              parent);
   6. profile  one bf16 PV->SMILES batch, one fp32 SMILES->PV batch and one
               bf16 rxn greedy batch of 128 under torch.profiler: device
               busy share and the kernels that take the device time;
@@ -248,16 +258,28 @@ PT_WARMUP, PT_TIMED = 3, 20
 PT_CLI_LINES = 384
 # (Lq, Lk, mask) past kernel 2's 256 keys: one key past, a 257-token source
 # in a bucket grown by 32, 512 (32-row items of the long kernel), 1000
-# (16-row items), 1300 (the long kernel in bf16, the streaming one in f32)
-# and 2000 (past the long kernel in both: the streaming kernel)
+# (16-row items), 1300 (the long kernel in bf16, the streaming one in f32),
+# 1500 and 2000 (past the long kernel in both: the streaming kernel, at a
+# small Lq, a many-item Lq = Lk and a decode-shaped query at 4000)
 LONG_KEY_CASES = ((37, 257, "padding"), (288, 288, "padding"),
                   (288, 288, "causal"), (64, 512, "padding"),
                   (512, 512, "causal"), (16, 1000, "padding"),
                   (70, 1000, "none"), (40, 1300, "causal"),
-                  (33, 2000, "padding"))
-# the LONG_KEY_CASES past fused_mha_long_kernel's reach in f32 (B=8, h=12,
-# D=64): fused_mha_stream_kernel, timed in phase 3
-STREAM_CASES = ((40, 1300, "causal"), (33, 2000, "padding"))
+                  (33, 2000, "padding"), (40, 1500, "causal"),
+                  (1500, 1500, "causal"), (1, 4000, "padding"))
+# the first Lk of kernel 2's streaming kernel at D=64, per dtype (the long
+# kernel's reach + 1; phase 2 prints the switch points it finds)
+STREAM_FROM = {"float32": 1153, "bfloat16": 1409}
+# the LONG_KEY_CASES past fused_mha_long_kernel's reach (B=8, h=12, D=64):
+# fused_mha_stream_kernel, timed in phase 3 in f32 and, where its route is
+# the streaming one, in bf16
+STREAM_CASES = tuple(c for c in LONG_KEY_CASES if c[1] >= STREAM_FROM["float32"])
+# the long kernel's two main-path inputs (the fine-tune eval's 505-token
+# text, B=64 512x512; a 275-token source among short ones in the rxn
+# training CLI, B=16 288x288), where phase 3 also times the streaming kernel
+# forced (fmha_launch_route) beside it
+FORCED_STREAM_CASES = (("eval 505-token text", 64, 512, (505,) * 64),
+                       ("rxn 275-token source", 16, 288, (275,) + (96,) * 15))
 # pretrain_dp: warm-up steps of each step, then timed steps per turn (turns:
 # one process, data parallel, data parallel, one process)
 DP_WARMUP, DP_TURN = 1, 5
@@ -274,6 +296,7 @@ TOKENIZE_LINES = 10000
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
@@ -358,7 +381,7 @@ def occupancy() -> dict:
 
     from spmm_tpu_torch.ops import decode_attention, fused_attention
 
-    info = (ctypes.c_int * 2)()
+    info = (ctypes.c_int * 4)()
     rows = {}
 
     def ask(label, query, *args) -> None:
@@ -366,6 +389,11 @@ def occupancy() -> dict:
         if err:
             fail(f"occupancy of {label}: CUDA error {err}")
         rows[label] = {"blocks_per_sm": info[0], "dynamic_smem_bytes": info[1]}
+
+    def ask2(label, *args) -> None:
+        ask(label, lib2.fmha_occupancy, *args)
+        rows[label].update(route=fused_attention.ROUTES[info[2]],
+                           cluster=info[3])
 
     lib1, lib2 = decode_attention._library(), fused_attention._library()
     for label, code, k, pos in (("bf16 k=2 pos=103", 1, 2, 103),
@@ -376,39 +404,42 @@ def occupancy() -> dict:
         ask(f"beam_decode_attention {label}", lib1.bda_occupancy, code, k, 64,
             pos)
     for label, lq, lk, *_ in s2p_launch_classes() + RXN_ENCODER_CLASSES:
-        ask(f"fused_mha f32 {label}", lib2.fmha_occupancy, 0, 64, lq, lk)
-    for lq, lk in ((288, 288), (512, 512), (70, 1000), (33, 2000)):
+        ask2(f"fused_mha f32 {label}", -1, 0, 64, 128, 12, lq, lk)
+    for lq, lk, _ in LONG_KEY_CASES:
         for code, name in ((0, "f32"), (1, "bf16")):
-            ask(f"fused_mha {name} {lq}x{lk} (past 256 keys)",
-                lib2.fmha_occupancy, code, 64, lq, lk)
+            ask2(f"fused_mha {name} B=8 {lq}x{lk} (past 256 keys)", -1, code,
+                 64, 8, 12, lq, lk)
     return rows
 
 
 def long_kernel_reach() -> dict:
-    """Where kernel 2's routes past 256 keys switch, per dtype at D=64, from
-    the shared memory fmha_occupancy reports at Lk = 320, 384, ... 4096:
-    the long kernel's grows with Lk (its resident scores) and drops where
-    its items go from 32 rows to 16 (Lq > 16); the streaming kernel's does
-    not depend on Lk.  So the Lk before the first drop is the last with
-    32-row items, and the last Lk at which it grew the last the long
-    kernel takes."""
+    """Where kernel 2's routes past 256 keys switch, per dtype at D=64 (Lq
+    64, B=8, h=12), from the route fmha_occupancy reports at Lk = 257 ...
+    4096: the last Lk of the long kernel, and, from its shared memory (which
+    grows with its resident scores and drops where its items go from 32
+    rows to 16), the last Lk with 32-row items.  Fails unless the streaming
+    kernel starts at STREAM_FROM."""
     import ctypes
 
     from spmm_tpu_torch.ops import fused_attention
 
-    lib, info, reach = fused_attention._library(), (ctypes.c_int * 2)(), {}
-    for code, name in ((0, "f32"), (1, "bf16")):
+    lib, info, reach = fused_attention._library(), (ctypes.c_int * 4)(), {}
+    for code, name in ((0, "float32"), (1, "bfloat16")):
         prev, top, rows32 = None, None, None
-        for lk in range(320, 4097, 64):
-            err = lib.fmha_occupancy(code, 64, 64, lk, info)
+        for lk in range(257, 4097):
+            err = lib.fmha_occupancy(-1, code, 64, 8, 12, 64, lk, info)
             if err:
                 fail(f"occupancy at Lk {lk}: CUDA error {err}")
-            if prev is not None and info[1] > prev:
-                top = lk
+            if info[2] != 1:
+                continue
+            top = lk
             if prev is not None and info[1] < prev and rows32 is None:
-                rows32 = lk - 64
+                rows32 = lk - 1
             prev = info[1]
         reach[name] = {"rows_32_up_to": rows32, "long_kernel_up_to": top}
+        if top is None or top + 1 != STREAM_FROM[name]:
+            fail(f"kernel 2's streaming route starts past Lk {top} in {name}, "
+                 f"not at {STREAM_FROM[name]}")
     return reach
 
 
@@ -739,8 +770,27 @@ def compare_mha(dev) -> dict:
     for n, (label, b, h, lq, lk, dt, kind, kv_contig) in enumerate(cases):
         q, k, v, mask = mha_inputs(dev, b, h, lq, lk, 64, dt, kind, seed=n,
                                    kv_contiguous=kv_contig)
+        if label == "long-keys":
+            expect_route(dt, b, h, lq, lk)
         check_mha(dev, label, kind, (q, k, v, mask), worst)
     return worst
+
+
+def expect_route(dtype, b, h, lq, lk, route: int = -1) -> dict:
+    """The launch fmha_occupancy reports for kernel 2 at D=64, failing
+    unless its route is the one these key lengths must take: the streaming
+    kernel from STREAM_FROM on (or when forced), the long kernel past 256
+    keys, else the short one."""
+    from spmm_tpu_torch.ops import fused_attention
+
+    name = str(dtype).replace("torch.", "")
+    info = fused_attention.launch_info(dtype, 64, b, h, lq, lk, route)
+    want = ("stream" if route == fused_attention.STREAM
+            or lk >= STREAM_FROM[name] else "long" if lk > 256 else "short")
+    if info["route"] != want:
+        fail(f"kernel 2 at {name} B={b} {lq}x{lk} takes the {info['route']} "
+             f"route, not {want}")
+    return info
 
 
 def check_mha(dev, label, kind, inputs, worst) -> float:
@@ -804,7 +854,8 @@ def time_mha(dev, classes, h: int = 12) -> list:
 
 def time_mha_on(dev, inputs) -> dict:
     """Kernel 2, its plain version and one SDPA call with the same float
-    mask on the given (q, k, v, mask), and the bound."""
+    mask on the given (q, k, v, mask), and the bound (operations at the
+    fp32 rate for fp32 inputs, at the bf16 tensor-core rate for bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -830,7 +881,8 @@ def time_mha_on(dev, inputs) -> dict:
               + (0 if mask is None else mask.numel() * mask.element_size()))
     flops = 4 * h * d * int(valid.sum().item())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / (FP32_FLOPS if q.dtype == torch.float32 else
+                     BF16_FLOPS) * 1e3
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -838,20 +890,121 @@ def time_mha_on(dev, inputs) -> dict:
             "sdpa_vs_kernel_max_abs": sdpa_err}
 
 
-def time_stream(dev) -> list:
-    """fused_mha_stream_kernel (kernel 2 past the long kernel's reach) at
-    STREAM_CASES, f32, B=8, h=12, D=64, on phase 3's inputs: kernel, plain,
-    SDPA and the bound as ``time_mha_on`` computes them.  No main path
-    reaches it."""
+def stream_inputs(dev) -> list:
+    """(label, inputs) of each STREAM_CASES row, B=8, h=12, D=64: f32, and
+    bf16 where its route is the streaming one."""
     import torch
 
     rows = []
-    for lq, lk, kind in STREAM_CASES:
-        inputs = mha_inputs(dev, 8, 12, lq, lk, 64, torch.float32, kind,
-                            seed=lq + lk)
-        rows.append({"shape": f"stream B=8 {lq}x{lk} {kind}",
-                     "launches_per_batch": 0, **time_mha_on(dev, inputs)})
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        for lq, lk, kind in STREAM_CASES:
+            if lk >= STREAM_FROM[name]:
+                rows.append((f"stream B=8 {lq}x{lk} {kind}",
+                             mha_inputs(dev, 8, 12, lq, lk, 64, dt, kind,
+                                        seed=lq + lk)))
     return rows
+
+
+def time_stream(dev) -> list:
+    """fused_mha_stream_kernel (kernel 2 past the long kernel's reach) at
+    ``stream_inputs``: kernel, plain, SDPA and the bound as ``time_mha_on``
+    computes them, with the route and cluster size of the launch.  No main
+    path reaches it."""
+    rows = []
+    for label, inputs in stream_inputs(dev):
+        q, k = inputs[0], inputs[1]
+        info = expect_route(q.dtype, *q.shape[:3], k.shape[2])
+        rows.append({"shape": label, "launches_per_batch": 0,
+                     "dtype": str(q.dtype).replace("torch.", ""),
+                     "route": info["route"], "cluster": info["cluster"],
+                     **time_mha_on(dev, inputs)})
+    return rows
+
+
+def padded_inputs(dev, b, lk, lens, seed):
+    """Random f32 split_heads q, k, v (h=12, D=64, Lq = Lk) and the padding
+    mask of rows of the given lengths."""
+    import torch
+
+    from spmm_tpu_torch.ops.masks import extend_attention_mask
+
+    q, k, v, _ = mha_inputs(dev, b, 12, lk, lk, 64, torch.float32, "none",
+                            seed=seed)
+    lens = torch.tensor(lens, device=dev)
+    mask = (torch.arange(lk, device=dev)[None] < lens[:, None]).int()
+    return q, k, v, extend_attention_mask(mask)
+
+
+def time_forced_stream(dev, worst) -> list:
+    """The streaming kernel forced (fmha_launch_route) at the long kernel's
+    two main-path inputs, FORCED_STREAM_CASES, held to the plain version
+    (1e-5) and timed in turns with the long kernel (long, stream, stream,
+    long): whether the cluster split would beat the long kernel there.  The
+    wrapper's route does not change."""
+    import torch
+
+    from spmm_tpu_torch.ops.fused_attention import (
+        STREAM, fused_mha, fused_mha_reference, fused_mha_stream)
+
+    rows = []
+    for label, b, lk, lens in FORCED_STREAM_CASES:
+        q, k, v, mask = padded_inputs(dev, b, lk, lens, seed=lk + b)
+        expect_route(torch.float32, b, 12, lk, lk)
+        info = expect_route(torch.float32, b, 12, lk, lk, route=STREAM)
+        got = fused_mha_stream(q, k, v, mask)
+        err = (got - fused_mha_reference(q, k, v, mask)).abs().max().item()
+        if not err <= 1e-5:
+            fail(f"the forced streaming kernel disagrees with its plain "
+                 f"version at {label} ({err:.3e})")
+        worst["float32"] = max(worst.get("float32", 0.0), err)
+        turns = [cuda_ms(lambda i: fn(q, k, v, mask), iters=50)
+                 for fn in (fused_mha, fused_mha_stream, fused_mha_stream,
+                            fused_mha)]
+        rows.append({"shape": f"{label} B={b} {lk}x{lk}", "max_abs_err": err,
+                     "cluster": info["cluster"],
+                     "stream_ms": (turns[1] + turns[2]) / 2,
+                     "long_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns})
+    return rows
+
+
+def stream_sass(path) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each instantiation of
+    fused_mha_stream_kernel, from ``cuobjdump -sass`` of the built library;
+    fails unless every bf16 one has some and no f32 one has any."""
+    import re
+    import shutil
+
+    from spmm_tpu_torch.ops._build import nvcc_path
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300)
+    if dump.returncode != 0:
+        fail(f"cuobjdump -sass: {dump.stderr.strip()[-500:]}")
+    counts, name = {}, None
+    for line in dump.stdout.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            if "fused_mha_stream_kernel" not in name:
+                name = None
+            else:
+                counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    readable = list(counts)                  # mangled names still name the type
+    if shutil.which("c++filt"):
+        readable = subprocess.run(["c++filt"], input="\n".join(counts),
+                                  capture_output=True, text=True).stdout.split("\n")
+    out = {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", r): n
+           for r, n in zip(readable, counts.values())}
+    bf16 = {k: n for k, n in out.items() if "bfloat16" in k}
+    f32 = {k: n for k, n in out.items() if "bfloat16" not in k}
+    if len(bf16) != 4 or len(f32) != 4 or min(bf16.values()) == 0 \
+            or max(f32.values()) != 0:
+        fail(f"fused_mha_stream_kernel's tensor-core instructions: {out}")
+    return out
 
 
 def mixed_eval_inputs(dev) -> tuple:
@@ -916,7 +1069,9 @@ def long_rows_vs_parent(dev, rows: list, parent_lib) -> list:
             fused_attention._lib = own
             diff = (theirs.float() - fused_mha(q, k, v, mask).float()).abs()
             sync(dev)
-            out.append({"shape": label, "ms": (turns[1] + turns[2]) / 2,
+            out.append({"shape": label,
+                        "dtype": str(q.dtype).replace("torch.", ""),
+                        "ms": (turns[1] + turns[2]) / 2,
                         "parent_ms": (turns[0] + turns[3]) / 2,
                         "turns_ms": turns,
                         "parent_vs_kernel_max_abs": diff.max().item()})
@@ -3018,8 +3173,8 @@ def log_bda_timing(label: str, tm: dict) -> None:
         f"attended; all-lane bound {tm['bound_ms_all_lanes']:.4f} ms)")
 
 
-def log_mha_timing(label: str, row: dict) -> None:
-    log(f"  {label:26s} f32: kernel {row['ms']:.4f} ms, plain "
+def log_mha_timing(label: str, row: dict, dtype: str = "f32") -> None:
+    log(f"  {label:26s} {dtype}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
         f"(kernel/sdpa {row['ms'] / row['library_ms']:.3f}), bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}) = "
@@ -3171,14 +3326,24 @@ def main(argv=None) -> int:
         report = _build.library_path(name).with_suffix(".log")
         for entry, usage in ptxas_usage(report.read_text()):
             log(f"  ptxas {entry}: {usage}")
+            if ("fused_mha_stream_kernel" in entry and
+                    "0 bytes spill stores, 0 bytes spill loads" not in usage):
+                fail(f"ptxas spills in {entry}: {usage}")
+    sass = stream_sass(_build.library_path("fused_attention"))
+    for entry, n in sass.items():
+        log(f"  cuobjdump -sass {entry}: {n} tensor-core instructions "
+            f"(HMMA/HGMMA)")
     occ = occupancy()
     for label, row in occ.items():
         log(f"  occupancy {label}: {row['blocks_per_sm']} blocks per SM, "
-            f"{row['dynamic_smem_bytes']} B dynamic shared memory")
+            f"{row['dynamic_smem_bytes']} B dynamic shared memory"
+            + (f", route {row['route']}, cluster {row['cluster']}"
+               if "route" in row else ""))
     reach = long_kernel_reach()
     for name, row in reach.items():
-        log(f"  fused_mha {name} D=64: fused_mha_long_kernel with 32-row "
-            f"items up to Lk {row['rows_32_up_to']}, 16-row items up to "
+        log(f"  fused_mha {name} D=64 (B=8, h=12, Lq=64): "
+            f"fused_mha_long_kernel with 32-row items up to Lk "
+            f"{row['rows_32_up_to']}, 16-row items up to "
             f"{row['long_kernel_up_to']}; past it fused_mha_stream_kernel")
 
     # ---- 3. kernels vs plain ----
@@ -3210,7 +3375,15 @@ def main(argv=None) -> int:
     log_mha_timing("mixed eval B=64 512x512", timing_mixed)
     timing_stream = time_stream(dev)
     for row in timing_stream:
-        log_mha_timing(row["shape"], row)
+        log_mha_timing(f"{row['shape']} (cluster {row['cluster']})", row,
+                       row["dtype"])
+    forced = time_forced_stream(dev, worst2)
+    for row in forced:
+        log(f"  {row['shape']}, f32: the streaming kernel forced (cluster "
+            f"{row['cluster']}) {row['stream_ms']:.4f} ms, the long kernel "
+            f"{row['long_ms']:.4f} ms (turns "
+            + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
+            + f"); forced vs plain {row['max_abs_err']:.2e}")
     mha_batch_ms = sum(r["launches_per_batch"] * r["ms"] for r in timing2)
     log(f"  sum over classes of launches x ms: {mha_batch_ms:.2f} ms of "
         f"kernel 2 per SMILES->PV batch")
@@ -3577,12 +3750,13 @@ def main(argv=None) -> int:
                      for key, inputs in calls.mha.items()
                      if inputs[1].shape[2] > 256]
         long_rows.append(("mixed eval B=64 512x512", mixed))
+        long_rows += stream_inputs(dev)
         log(f"[shapes] kernel 2 past 256 keys against the library built "
             f"from {args.parent} (turns: parent, this, this, parent)")
         vs_parent = long_rows_vs_parent(dev, long_rows, parent_lib)
         for row in vs_parent:
-            log(f"  {row['shape']}: this {row['ms']:.4f} ms, parent "
-                f"{row['parent_ms']:.4f} ms (turns "
+            log(f"  {row['shape']} {row['dtype']}: this {row['ms']:.4f} ms, "
+                f"parent {row['parent_ms']:.4f} ms (turns "
                 + ", ".join(f"{t:.4f}" for t in row["turns_ms"])
                 + f"); parent vs this {row['parent_vs_kernel_max_abs']:.2e}")
     del calls, mixed
@@ -3643,6 +3817,8 @@ def main(argv=None) -> int:
                                    in ("rxn_prediction", "classification")},
                    per_shape=timing2 + timing_enc,
                    mixed_eval=timing_mixed, stream_kernel=timing_stream,
+                   stream_forced_at_long_shapes=forced,
+                   stream_sass_tensor_core_instructions=sass,
                    long_kernel_reach=reach,
                    long_rows_vs_parent=vs_parent,
                    main_path_shapes=[row for row in main_shapes

@@ -100,10 +100,8 @@
 //     shared memory less the per-block reserve): 32-row items to 512 keys
 //     and 16-row items to 1,152 in fp32 at D=64 (bf16: 704 and 1,408), so
 //     at least twice the 512-row position table.  Past that a third
-//     kernel, fused_mha_stream_kernel (two passes over streamed 128-key
-//     tiles, one tile in flight; it computes q.k twice), takes any Lk.  The
-//     switch is on Lk alone; fmha_occupancy() reports which launch a shape
-//     gets.
+//     kernel, fused_mha_stream_kernel (below), takes any Lk.  The switch is
+//     on Lk alone; fmha_occupancy() reports which launch a shape gets.
 //   - Micro-tiles: a warp is 4 row groups x 8 key (or column) groups, a
 //     thread 2 rows x 4 keys of the scores (keys 8 apart, so that the 8
 //     groups' 16-byte K reads hit distinct banks) and 2 rows x D/16
@@ -124,17 +122,78 @@
 //     its masks are equal).  With resident scores this also bounds the
 //     scores written, so a short row costs one K and one V tile.
 //
-// Left for later work: padding waste (an item computes 16 * TM query rows
-// and 16 * TN keys, so 54 x 100 does 26% more FMAs than it needs, Lq = 16
-// twice); the bf16 path on tensor cores (mma.sync / wgmma), as both long
-// kernels run bf16 on CUDA cores; and for the long kernel, score tiles of
-// 8 x 8 a thread as in an SGEMM, and a P.V split over keys, which would
-// change its order of summation.
+// Past the long kernel's reach (1,153 keys in fp32, 1,409 in bf16, at D=64)
+// fused_mha_stream_kernel takes any Lk.  It replaces the same Pallas kernel,
+// which holds the whole (b, h) block in VMEM at any Lk.  What bounds it:
+// at B=8, h=12, 40 x 1300 causal the FMAs of the keys the mask lets through
+// take 0.01 ms at 67 TFLOP/s and the bytes of the attended K/V rows about
+// as long, so a kernel near its bound must spread one (b, h) slice's few
+// query rows over many SMs, hide its loads and do each product once.  What
+// the design does about it (the numbers are the launch's, launch_stream):
+//
+//   - Keys split over a thread-block cluster.  A work item is 16 or 32
+//     query rows of one (b, h) slice (32 only where they pad Lq no more
+//     than 16-row items do: Lq = 33 or 40 take 16-row items, 25% and 17%
+//     padding).  A cluster of C CTAs (cudaLaunchKernelEx with a cluster
+//     dimension, C <= 8) takes an item, CTA `rank` a contiguous run of its
+//     live 64-key tiles, the runs even to one tile.  C is the least that
+//     keeps every run resident in two CTAs' share of an SM, raised while
+//     the launch has fewer than two CTAs per SM (B=8, h=12, Lq=40: 288
+//     items, C=2); a launch of many items (Lq ~ Lk) splits only as far as
+//     residency needs.
+//   - q.k once, scores resident.  Each CTA writes its run's fp32 scores (d
+//     ascending in fp32) to its shared memory and takes each row's max; the
+//     cluster exchanges the maxima through distributed shared memory
+//     (cluster.sync, map_shared_rank) and every CTA merges them in rank
+//     order; each CTA sums exp(s - M) against the global M, the sums are
+//     exchanged and added in rank order; each CTA writes P = exp(s - M) / S
+//     rounded to v's dtype (the plain version's rounding point) and forms
+//     its partial P.V (fp32).  The C partial outputs are added through
+//     DSMEM in rank order, each CTA a share of the elements, and stored
+//     once: deterministic.  A split-K with an online softmax would round
+//     unnormalised probabilities in bf16; one without it needs a second q.k
+//     pass or a trip through device memory.  Past what the cluster holds
+//     resident (a run longer than R tiles), a CTA walks its run in chunks
+//     of R tiles twice, as the earlier streaming kernel did: scores for the
+//     max and a running sum (rescaled when a chunk raises the max), then,
+//     after the exchange, scores again, P and P.V.  No Lk is refused.
+//   - Loads hidden.  K, V and the K tile's mask tile go through a ring of
+//     kStreamStages stages with 16-byte cp.async (a mask with a row per
+//     query staged as a [rows][64] tile beside its K tile, 16-byte pieces
+//     where its keys are contiguous and aligned), one commit group a load,
+//     so load l + 1 lands while load l computes; the V tiles start landing
+//     during the exchange.  Two CTAs of 4 warps share an SM.
+//   - bf16 on tensor cores: q.k and P.V are mma.sync.m16n8k16 (bf16 in, fp32
+//     accumulate); Q's A fragments are loaded once an item, P is rounded to
+//     bf16 before it is packed.  fp32 stays exact fp32 FMAs on register
+//     micro-tiles (2 * TM rows x 4 keys a thread for the scores, 2 * TM rows
+//     x D/16 columns for P.V, as the long kernel's): TF32 keeps 3 digits.
+//   - The padding-row skip, for every mask: only the tiles up to the item's
+//     last live key (over its rows; kSkipGap, as above) are split, loaded
+//     and computed, so causal rows and short rows pay for the keys they
+//     attend.  The scan is one pass (each thread keeps its largest mask and
+//     its last key within kSkipGap of it, which can only overstate the
+//     live tiles) with 16-byte loads, shared by the cluster's CTAs (a
+//     padding row by keys, per-query rows a warp a row) and merged through
+//     DSMEM.  A CTA with no tile contributes max -inf and sum 0, which the
+//     merge takes without a NaN (every row has a live key elsewhere); a
+//     fully masked row keeps every tile and comes out uniform.
+//
+// Left for later work: padding waste in the first two kernels (an item
+// computes 16 * TM query rows and 16 * TN keys, so 54 x 100 does 26% more
+// FMAs than it needs, Lq = 16 twice); the bf16 path on tensor cores in the
+// short and long kernels, which run bf16 on CUDA cores; for the long
+// kernel, score tiles of 8 x 8 a thread as in an SGEMM, and a P.V split
+// over keys, which would change its order of summation; for the streaming
+// kernel, TMA for the K/V tiles, wgmma over 64-row tiles, and live ranges
+// per row (an item's rows share its last live key, so under a causal mask
+// its first rows compute keys their mask hides).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (spmm_tpu_torch/ops/_build.py); plain C interface,
 //        bound with ctypes.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -142,11 +201,17 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxKeys = 256;           // Lk <= 256: fused_mha_kernel
 constexpr int kLongTileKeys = 64;       // keys per K/V tile of fused_mha_long_kernel
-constexpr int kStreamTileKeys = 128;    // keys per tile of fused_mha_stream_kernel
+constexpr int kStreamThreads = 128;     // fused_mha_stream_kernel: threads of a CTA,
+constexpr int kStreamWarps = kStreamThreads / 32;
+constexpr int kStreamTileKeys = 64;     // keys per K/V tile,
+constexpr int kStreamStages = 2;        // stages of its ring,
+constexpr int kMaxCluster = 8;          // CTAs of a cluster at most (the portable limit)
 constexpr float kSkipGap = 1000.f;      // masks this far below the row's max add 0
 
 // probabilities take v's dtype before the V product
@@ -220,6 +285,7 @@ struct Args {
   // element strides: q, k, v, out as (b, h, l); mask as (b, query row, key)
   long long qs[3], ks[3], vs[3], os[3], ms[3];
   float scale;
+  int clusters, res_tiles;          // the streaming kernel: C and R (launch_stream)
 };
 
 // Shared memory, in order: K [Lk][D+pad] and Q [16*TM][D+pad] in T, which
@@ -746,257 +812,595 @@ fused_mha_long_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
 }
 
-// Shared memory of the streaming kernel, in order: the K tile
-// [kStreamTileKeys][D+pad] in T, which the tile's fp32 scores S / P
-// [16*TM][kStreamTileKeys] overwrite once the products are done; the V tile
-// [kStreamTileKeys][D+pad] in T; the item's Q rows [16*TM][D+pad] in T,
-// kept over both passes; the tile's mask row [kStreamTileKeys] fp32 that a
-// padding mask gives every query row; the warps' mask maxima [kWarps] fp32
-// and the item's last live key (an int).  All of it is dynamic: the launch
-// opts in to the whole of shared memory, and so do the other kernels'.
+// Shared memory of the streaming kernel, in order: the ring of kStreamStages
+// stages, each a K or V tile [kStreamTileKeys][D+pad] in T and, for a K
+// tile, its mask tile, [16*TM][kStreamTileKeys+8] fp32 for a mask with a row
+// per query (rows padded by 8 floats, so that a warp's reads fall in
+// distinct banks) or its first row for a padding mask; the item's Q rows
+// [16*TM][D+pad] in T, kept to the end; the rows' maxima and sums that the
+// cluster exchanges [2][16*TM] fp32; the mask scan's largest masks
+// [kStreamWarps + 1] fp32 and last live keys [kStreamWarps + 1] int (the
+// warps', then the CTA's, which the cluster reads); then the resident scores, then
+// probabilities, S / P [16*TM][score_stride(R)] fp32 of R tiles, which hold
+// the CTA's partial output [16*TM][D] fp32 at the end.
 template <typename T, int D, int TM>
 struct StreamLayout {
   static constexpr int kRow = D + 16 / (int)sizeof(T);
   static constexpr int kRows = 16 * TM;
+  static constexpr int kMaskRow = kStreamTileKeys + 8;
   static constexpr size_t kTile = (size_t)kStreamTileKeys * kRow * sizeof(T);
-  static constexpr size_t kScores = sizeof(float) * kRows * kStreamTileKeys;
-  static constexpr size_t kKS = kTile > kScores ? kTile : kScores;
+  static constexpr size_t kStage = kTile + sizeof(float) * kRows * kMaskRow;
   static constexpr size_t kQ = (size_t)kRows * kRow * sizeof(T);
-  static size_t bytes(int) {
-    return kKS + kTile + kQ + sizeof(float) * (kStreamTileKeys + kWarps) + sizeof(int);
-  }
+  static constexpr size_t kSmall = sizeof(float) * (2 * kRows + 2 * kStreamWarps + 4);
+  static constexpr size_t kFixed = kStreamStages * kStage + kQ + kSmall;
+  __host__ __device__ static int score_stride(int r) { return r * kStreamTileKeys + 8; }
+  static size_t bytes(int r) { return kFixed + sizeof(float) * kRows * score_stride(r); }
 };
 
+// bf16 m16n8k16 on the tensor cores, fp32 accumulate: d += a . b
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// two bf16 in one register, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ unsigned pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 // Any Lk (dispatch_long sends it the Lk past fused_mha_long_kernel's
-// range): K and V streamed in 128-key tiles, one in flight, and the exact
-// two-pass softmax over them: pass 0 walks the K tiles for each row's max
-// and sum (the sum rescaled when a tile raises the max), pass 1 walks the K
-// and V tiles again, recomputes the scores and multiplies V by exp(s - max)
-// / sum rounded to v's dtype.  Threads own rows and keys of a tile as in
-// fused_mha_kernel; each warp keeps the running max and sum of its rows
-// over the tiles in registers, each thread its output micro-tile.
+// range).  A work item is 16 * TM query rows of one (b, h) slice; a cluster
+// of C CTAs takes it, CTA `rank` the contiguous run of its live key tiles
+// [t0, t0 + n) (the source note).  Its loads, load l in stage l % S:
+//   n <= R (resident): K tiles t0.., then V tiles t0..;
+//   n > R: K tiles t0.. (pass 0), then per chunk of R tiles its K tiles
+//   again and its V tiles (pass 1).
+// f32: warp w, lane (rg, cg) = (lane / 8, lane % 8) owns the rows
+// (w / 2) * 8 * TM + rg + 4 r (r < 2 TM); of a tile's scores the keys
+// (w % 2) * 32 + cg + 8 n (n < 4); of P.V the columns (w % 2) * D/2 +
+// cg * D/16 ... + D/16 - 1.  bf16: warp w computes with mma.sync the scores
+// of keys 16 w .. 16 w + 15 and the P.V columns w * D/4 .. + D/4 - 1, every
+// row of the item.  The softmax runs one warp per row (rows w + 4 u).
 template <typename T, int D, int TM>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kStreamThreads, 2)
 fused_mha_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const float* __restrict__ mask,
                         T* __restrict__ out, const Args a) {
   using Lay = StreamLayout<T, D, TM>;
   constexpr int ROW = Lay::kRow;
-  constexpr int KEYS = kStreamTileKeys;
   constexpr int ROWS = Lay::kRows;
-  constexpr int TN = KEYS / 16;                        // keys per thread
-  constexpr int NT = KEYS / 32;                        // keys per lane
-  constexpr int RPW = ROWS / kWarps;                   // rows per warp
-  constexpr int CPT = D / 16;
+  constexpr int MKS = Lay::kMaskRow;
+  constexpr int KT = kStreamTileKeys;
+  constexpr int NS = kStreamStages;
+  constexpr int NTH = kStreamThreads;
   constexpr int PIECES = D * (int)sizeof(T) / 16;
   constexpr int PER_PIECE = 16 / (int)sizeof(T);
+  constexpr int RPW = ROWS / kStreamWarps;             // softmax rows per warp
+  constexpr bool kTensorCores = sizeof(T) == 2;
+  constexpr int CPT = D / 16;                          // f32: output columns per thread
+  constexpr int TR = 2 * TM;                           // f32: rows per thread
+  constexpr int KS = D / 16;                           // bf16: k-steps of q.k
+  constexpr int NBV = D / 32;                          // bf16: 8-column blocks of P.V per warp
   extern __shared__ float4 smem4[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
-  T* kb = reinterpret_cast<T*>(base);
-  float* s_p = reinterpret_cast<float*>(base);                      // [ROWS][KEYS]
-  T* vb = reinterpret_cast<T*>(base + Lay::kKS);
-  T* qb = reinterpret_cast<T*>(base + Lay::kKS + Lay::kTile);
-  float* mrow = reinterpret_cast<float*>(base + Lay::kKS + Lay::kTile + Lay::kQ);
-  float* warp_max = mrow + KEYS;                                    // [kWarps]
-  int& last_live = *reinterpret_cast<int*>(warp_max + kWarps);
-  const bool shared_mask_row = a.ms[1] == 0;
+  T* qb = reinterpret_cast<T*>(base + NS * Lay::kStage);
+  float* red_max = reinterpret_cast<float*>(base + NS * Lay::kStage + Lay::kQ);
+  float* red_sum = red_max + ROWS;
+  float* warp_max = red_sum + ROWS;                      // [kStreamWarps + 1]
+  int* warp_last = reinterpret_cast<int*>(warp_max + kStreamWarps + 1);   // [.. + 1]
+  float* s_p = reinterpret_cast<float*>(base + Lay::kFixed);        // [ROWS][SKS]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.clusters;
+  const int rank = (int)cluster.block_rank();
+  const int R = a.res_tiles;
+  const int SKS = Lay::score_stride(R);
   const int Lk = a.Lk;
-  const int n_tiles = (Lk + KEYS - 1) / KEYS;
+  const int it = blockIdx.x / C;
+  const int slice = it / a.row_blocks;
+  const int b = slice / a.H, h = slice % a.H;
+  const int row0 = (it - slice * a.row_blocks) * ROWS;
+  const int rows = min(ROWS, a.Lq - row0);
+  const bool shared_mask_row = a.ms[1] == 0;
+  const float* mg = mask == nullptr ? nullptr
+      : mask + b * a.ms[0] + (shared_mask_row ? 0 : row0 * a.ms[1]);
+  // mask rows with contiguous keys, 16-byte aligned: read 4 keys at a time
+  const bool mask16 = a.ms[2] == 1 && a.ms[0] % 4 == 0 && a.ms[1] % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  const T* kg = k + b * a.ks[0] + h * a.ks[1];
+  const T* vg = v + b * a.vs[0] + h * a.vs[1];
+  const T* qg = q + b * a.qs[0] + h * a.qs[1] + row0 * a.qs[2];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int tr = tid >> 4, tc = tid & 15;
+  const int rg = lane >> 3, cg8 = lane & 7;            // f32 micro-tiles
+  const int row_t = (warp >> 1) * 8 * TM + rg;
+  const int half = warp & 1;
+  const int col_t = half * (D / 2) + cg8 * CPT;
+  const int g = lane >> 2, tg = lane & 3;              // bf16 fragments
 
-  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
-    const int slice = it / a.row_blocks;
-    const int b = slice / a.H, h = slice % a.H;
-    const int row0 = (it - slice * a.row_blocks) * ROWS;
-    const int rows = min(ROWS, a.Lq - row0);
-    const T* kg = k + b * a.ks[0] + h * a.ks[1];
-    const T* vg = v + b * a.vs[0] + h * a.vs[1];
-    const T* qg = q + b * a.qs[0] + h * a.qs[1] + row0 * a.qs[2];
-    const float* mg = mask == nullptr ? nullptr
-        : mask + b * a.ms[0] + (shared_mask_row ? 0 : row0 * a.ms[1]);
-    // (the last tile of the previous item ended on a barrier: Q is free)
-    for (int x = tid; x < rows * PIECES; x += kThreads) {
-      const int i = x / PIECES, e = (x - i * PIECES) * PER_PIECE;
-      cp_async16(qb + i * ROW + e, qg + i * a.qs[2] + e);
-    }
-    cp_async_commit();
+  // the item's Q rows land with the first tile's group
+  for (int x = tid; x < rows * PIECES; x += NTH) {
+    const int i = x / PIECES, e = (x - i * PIECES) * PER_PIECE;
+    cp_async16(qb + i * ROW + e, qg + i * a.qs[2] + e);
+  }
 
-    // a padding mask's row: the tiles up to its last key within kSkipGap of
-    // the row's largest mask (the source note says why the rest add 0)
-    int n_live = n_tiles;
-    if (mg != nullptr && shared_mask_row) {
-      float mm = -INFINITY;
-      for (int j = tid; j < Lk; j += kThreads) mm = fmaxf(mm, mg[j * a.ms[2]]);
+  // the item's live tiles: those up to the last key within kSkipGap of its
+  // row's largest mask, over the item's rows (the source note says why the
+  // rest add 0).  One pass: a thread keeps (m, J), the largest mask it has
+  // seen and its last key within kSkipGap of it, keys ascending; J can only
+  // overstate the last live key, which costs a tile and changes no sum.
+  // The cluster's CTAs share the scan: a padding mask's one row by keys, a
+  // mask with a row per query by rows (a warp a row); then every CTA merges
+  // the CTAs' results in rank order through DSMEM.
+  const int n_tiles = (Lk + KT - 1) / KT;
+  int n_live = n_tiles;
+  if (mg != nullptr) {
+    const int groups = (Lk + 3) / 4;
+    float m = -INFINITY;
+    int J = -1;
+    auto see = [&](const float* mr, int q4) {    // keys 4 q4 .. 4 q4 + 3
+      const int j0 = 4 * q4;
+      float x[4];
+      if (mask16 && j0 + 4 <= Lk) {
+        const float4 y = *reinterpret_cast<const float4*>(mr + j0);
+        x[0] = y.x; x[1] = y.y; x[2] = y.z; x[3] = y.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = j0 + e < Lk ? mr[(j0 + e) * a.ms[2]] : -INFINITY;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        m = fmaxf(m, x[e]);
+        if (x[e] >= m - kSkipGap) J = j0 + e;
+      }
+    };
+    // merges the (m, J) of a warp's lanes: J from the lanes whose m is within
+    // kSkipGap of the warp's
+    auto warp_merge = [&]() {
+      float mm = m;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
-      if (lane == 0) warp_max[warp] = mm;
-      if (tid == 0) last_live = 0;
-      __syncthreads();
-      mm = warp_max[0];
-      for (int w = 1; w < kWarps; ++w) mm = fmaxf(mm, warp_max[w]);
-      int mine = 0;
-      for (int j = tid; j < Lk; j += kThreads)
-        if (mg[j * a.ms[2]] >= mm - kSkipGap) mine = j;
-      atomicMax(&last_live, mine);
-      __syncthreads();
-      n_live = last_live / KEYS + 1;
+      int jj = m >= mm - kSkipGap ? J : -1;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        jj = max(jj, __shfl_xor_sync(0xffffffffu, jj, off));
+      m = mm;
+      J = jj;
+    };
+    if (shared_mask_row) {
+#pragma unroll 4
+      for (int q4 = rank * NTH + tid; q4 < groups; q4 += C * NTH) see(mg, q4);
+      warp_merge();
+    } else {
+      int rows_j = -1;
+      for (int i = rank * kStreamWarps + warp; i < rows; i += C * kStreamWarps) {
+        m = -INFINITY;
+        J = -1;
+#pragma unroll 4
+        for (int q4 = lane; q4 < groups; q4 += 32) see(mg + i * a.ms[1], q4);
+        warp_merge();
+        rows_j = max(rows_j, J);
+      }
+      m = 0.f;                            // each row's J is final: merge by max
+      J = rows_j;
     }
+    if (lane == 0) {
+      warp_max[warp] = m;
+      warp_last[warp] = J;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float mm = warp_max[0];
+      for (int w = 1; w < kStreamWarps; ++w) mm = fmaxf(mm, warp_max[w]);
+      int jj = -1;
+      for (int w = 0; w < kStreamWarps; ++w)
+        if (warp_max[w] >= mm - kSkipGap) jj = max(jj, warp_last[w]);
+      warp_max[kStreamWarps] = mm;
+      warp_last[kStreamWarps] = jj;
+    }
+    cluster.sync();
+    float mm = -INFINITY;
+    for (int c = 0; c < C; ++c)
+      mm = fmaxf(mm, cluster.map_shared_rank(warp_max, c)[kStreamWarps]);
+    int jj = 0;
+    for (int c = 0; c < C; ++c)
+      if (cluster.map_shared_rank(warp_max, c)[kStreamWarps] >= mm - kSkipGap)
+        jj = max(jj, cluster.map_shared_rank(warp_last, c)[kStreamWarps]);
+    n_live = jj / KT + 1;
+  }
+  // this CTA's live tiles [t0, t0 + n): the cluster splits them evenly, in
+  // rank order; a CTA may get none
+  const int t0 = rank * n_live / C;
+  const int n = (rank + 1) * n_live / C - t0;
+  const bool resident = n <= R;
+  const int N = resident ? 2 * n : 3 * n;               // loads
+  const int L = n == 0 ? 0 : min(n * KT, Lk - t0 * KT);  // keys of the range
 
-    float mx[RPW], sum[RPW], o[TM][CPT];
-#pragma unroll
-    for (int u = 0; u < RPW; ++u) { mx[u] = -INFINITY; sum[u] = 0.f; }
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) o[r][c] = 0.f;
-
-    // pass 0: each row's max and sum over the tiles; pass 1: P . V
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int t = 0; t < n_live; ++t) {
-        const int j0 = t * KEYS;
-        const int nk = min(KEYS, Lk - j0), nk4 = (nk + 3) & ~3;
-        for (int x = tid; x < nk * PIECES; x += kThreads) {
-          const int j = x / PIECES, e = (x - j * PIECES) * PER_PIECE;
-          cp_async16(kb + j * ROW + e, kg + (j0 + j) * a.ks[2] + e);
-          if (pass == 1) cp_async16(vb + j * ROW + e, vg + (j0 + j) * a.vs[2] + e);
-        }
-        if (pass == 1)           // V rows nk..nk4-1 are zeros, as P is there
-          for (int x = tid; x < (nk4 - nk) * D; x += kThreads)
-            vb[(nk + x / D) * ROW + x % D] = T(0.f);
-        if (mg != nullptr && shared_mask_row)
-          for (int j = tid; j < nk; j += kThreads)
-            cp_async4(mrow + j, mg + (j0 + j) * a.ms[2]);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-
-        // ---- the tile's scores, d ascending (keys past nk repeat row nk-1) ----
-        float acc[TM][TN];
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int n = 0; n < TN; ++n) acc[r][n] = 0.f;
-#pragma unroll 2
-        for (int d = 0; d < D; d += 4) {
-          float qv[TM][4];
-#pragma unroll
-          for (int r = 0; r < TM; ++r) load_f(qb + (tr + 16 * r) * ROW + d, qv[r]);
-#pragma unroll
-          for (int n = 0; n < TN; ++n) {
-            float kv[4];
-            load_f(kb + min(tc + 16 * n, nk - 1) * ROW + d, kv);
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-#pragma unroll
-              for (int r = 0; r < TM; ++r) acc[r][n] = fmaf(qv[r][e], kv[e], acc[r][n]);
-          }
-        }
-        __syncthreads();                 // K is read: S overwrites it
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int n = 0; n < TN; ++n) {
-            const int i = tr + 16 * r, j = tc + 16 * n;
-            float m = 0.f;
-            if (mg != nullptr)
-              m = shared_mask_row ? mrow[j]
-                  : (i < rows && j < nk) ? mg[i * a.ms[1] + (j0 + j) * a.ms[2]] : 0.f;
-            s_p[i * KEYS + j] = acc[r][n] * a.scale + m;
-          }
-        __syncthreads();
-
-        if (pass == 0) {
-          // ---- one warp per row: the tile's max, then the running sum
-          // rescaled to the new max ----
-          float sv[RPW][NT], tmax[RPW], part[RPW];
-#pragma unroll
-          for (int u = 0; u < RPW; ++u) {
-            const int i = warp + kWarps * u;
-            tmax[u] = -INFINITY;
-#pragma unroll
-            for (int tt = 0; tt < NT; ++tt) {
-              const int j = lane + 32 * tt;
-              sv[u][tt] = (i < rows && j < nk) ? s_p[i * KEYS + j] : -INFINITY;
-              tmax[u] = fmaxf(tmax[u], sv[u][tt]);
-            }
-          }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-            for (int u = 0; u < RPW; ++u)
-              tmax[u] = fmaxf(tmax[u], __shfl_xor_sync(0xffffffffu, tmax[u], off));
-#pragma unroll
-          for (int u = 0; u < RPW; ++u) {
-            tmax[u] = fmaxf(mx[u], tmax[u]);
-            part[u] = 0.f;
-#pragma unroll
-            for (int tt = 0; tt < NT; ++tt)
-              if (lane + 32 * tt < nk && warp + kWarps * u < rows)
-                part[u] += expf(sv[u][tt] - tmax[u]);
-          }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-            for (int u = 0; u < RPW; ++u)
-              part[u] += __shfl_xor_sync(0xffffffffu, part[u], off);
-#pragma unroll
-          for (int u = 0; u < RPW; ++u)
-            if (warp + kWarps * u < rows) {
-              sum[u] = sum[u] * expf(mx[u] - tmax[u]) + part[u];
-              mx[u] = tmax[u];
-            }
-        } else {
-          // ---- probabilities exp(s - max) / sum in v's dtype, then
-          // o += P . V over the tile, keys ascending ----
-#pragma unroll
-          for (int u = 0; u < RPW; ++u) {
-            const int i = warp + kWarps * u;
-            if (i >= rows) break;
-#pragma unroll
-            for (int tt = 0; tt < NT; ++tt) {
-              const int j = lane + 32 * tt;
-              if (j < nk4)
-                s_p[i * KEYS + j] =
-                    j < nk ? round_prob<T>(expf(s_p[i * KEYS + j] - mx[u]) / sum[u]) : 0.f;
-            }
-          }
-          __syncthreads();
-          for (int j = 0; j < nk4; j += 4) {
-            float p[TM][4];
-#pragma unroll
-            for (int r = 0; r < TM; ++r) load_f(s_p + (tr + 16 * r) * KEYS + j, p[r]);
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              float vv[CPT];
-              load_f(vb + (j + jj) * ROW + tc * CPT, vv);
-#pragma unroll
-              for (int r = 0; r < TM; ++r)
-#pragma unroll
-                for (int c = 0; c < CPT; ++c) o[r][c] = fmaf(p[r][jj], vv[c], o[r][c]);
-            }
-          }
-        }
-        __syncthreads();                 // S and V are read: the next tile loads
+  struct Load { bool is_k; int tile, slot; };           // slot: S column block
+  auto load_at = [&](int l) {
+    if (l < n) return Load{true, t0 + l, resident ? l : l % R};
+    const int u = l - n;
+    if (resident) return Load{false, t0 + u, u};
+    const int c = u / (2 * R), w = u - c * 2 * R, nc = min(R, n - c * R);
+    return w < nc ? Load{true, t0 + c * R + w, w}
+                  : Load{false, t0 + c * R + w - nc, w - nc};
+  };
+  auto stage = [&](int l) { return base + (size_t)(l % NS) * Lay::kStage; };
+  // load l into its stage (free): a K tile with its mask tile, or a V tile
+  // whose rows past Lk are zeros, as P is there
+  auto issue = [&](int l) {
+    if (l >= N) return;
+    const Load ld = load_at(l);
+    T* dst = reinterpret_cast<T*>(stage(l));
+    float* mt = reinterpret_cast<float*>(stage(l) + Lay::kTile);
+    const int j0 = ld.tile * KT, nk = min(KT, Lk - j0);
+    const T* src = ld.is_k ? kg + j0 * a.ks[2] : vg + j0 * a.vs[2];
+    const long long rs = ld.is_k ? a.ks[2] : a.vs[2];
+    for (int x = tid; x < nk * PIECES; x += NTH) {
+      const int j = x / PIECES, e = (x - j * PIECES) * PER_PIECE;
+      cp_async16(dst + j * ROW + e, src + j * rs + e);
+    }
+    if (!ld.is_k) {
+      for (int x = tid; x < (KT - nk) * D; x += NTH)
+        dst[(nk + x / D) * ROW + x % D] = T(0.f);
+    } else if (mg != nullptr && shared_mask_row) {
+      for (int j = tid; j < nk; j += NTH) cp_async4(mt + j, mg + (j0 + j) * a.ms[2]);
+    } else if (mask16) {
+      for (int x = tid; x < rows * (KT / 4); x += NTH) {
+        const int i = x / (KT / 4), j = 4 * (x - i * (KT / 4));
+        const float* src_m = mg + i * a.ms[1] + j0 + j;
+        if (j + 4 <= nk) cp_async16(mt + i * MKS + j, src_m);
+        else
+          for (int e = j; e < nk; ++e) cp_async4(mt + i * MKS + e, src_m + e - j);
+      }
+    } else if (mg != nullptr) {
+      for (int x = tid; x < rows * nk; x += NTH) {
+        const int i = x / nk, j = x - i * nk;
+        cp_async4(mt + i * MKS + j, mg + i * a.ms[1] + (j0 + j) * a.ms[2]);
       }
     }
-    T* ob = out + b * a.os[0] + h * a.os[1];
+  };
+
+  // bf16: the item's Q as mma A fragments, loaded once
+  unsigned qa[kTensorCores ? TM : 1][kTensorCores ? KS : 1][4];
+  auto load_q = [&]() {
+    if constexpr (kTensorCores) {
 #pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int i = tr + 16 * r;
-      if (i < rows) store_f(ob + (row0 + i) * a.os[2] + tc * CPT, o[r]);
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int s = 0; s < KS; ++s) {
+          const T* p = qb + (16 * m + g) * ROW + 16 * s + 2 * tg;
+          qa[m][s][0] = *reinterpret_cast<const unsigned*>(p);
+          qa[m][s][1] = *reinterpret_cast<const unsigned*>(p + 8 * ROW);
+          qa[m][s][2] = *reinterpret_cast<const unsigned*>(p + 8);
+          qa[m][s][3] = *reinterpret_cast<const unsigned*>(p + 8 * ROW + 8);
+        }
     }
+  };
+
+  // ---- K tile of load l: its scores, d ascending (f32), into S at the
+  // load's slot (keys past Lk and rows past the item's are computed from
+  // stale rows and never read) ----
+  auto scores = [&](int l) {
+    const Load ld = load_at(l);
+    const T* kt = reinterpret_cast<const T*>(stage(l));
+    const float* mt = reinterpret_cast<const float*>(stage(l) + Lay::kTile);
+    float* sp = s_p + ld.slot * KT;
+    if constexpr (!kTensorCores) {
+      float acc[TR][4];
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        float qv[TR][4];
+#pragma unroll
+        for (int r = 0; r < TR; ++r) load_f(qb + (row_t + 4 * r) * ROW + d, qv[r]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float kv[4];
+          load_f(kt + (half * 32 + cg8 + 8 * c) * ROW + d, kv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int r = 0; r < TR; ++r) acc[r][c] = fmaf(qv[r][e], kv[e], acc[r][c]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = row_t + 4 * r, j = half * 32 + cg8 + 8 * c;
+          const float m = mg == nullptr ? 0.f : shared_mask_row ? mt[j] : mt[i * MKS + j];
+          sp[i * SKS + j] = acc[r][c] * a.scale + m;
+        }
+    } else {
+      float acc[TM][2][4];
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m][nb][c] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const T* p = kt + (16 * warp + 8 * nb + g) * ROW + 16 * s + 2 * tg;
+          const unsigned bk[2] = {*reinterpret_cast<const unsigned*>(p),
+                                  *reinterpret_cast<const unsigned*>(p + 8)};
+#pragma unroll
+          for (int m = 0; m < TM; ++m) mma_bf16(acc[m][nb], qa[m][s], bk);
+        }
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int i = 16 * m + g + 8 * hr, j = 16 * warp + 8 * nb + 2 * tg;
+            float m0 = 0.f, m1 = 0.f;
+            if (mg != nullptr) {
+              const float* mr = shared_mask_row ? mt : mt + i * MKS;
+              m0 = mr[j];
+              m1 = mr[j + 1];
+            }
+            *reinterpret_cast<float2*>(sp + i * SKS + j) =
+                make_float2(acc[m][nb][2 * hr] * a.scale + m0,
+                            acc[m][nb][2 * hr + 1] * a.scale + m1);
+          }
+    }
+  };
+
+  // ---- V tile of load l: o += P . V over its keys (f32: ascending) ----
+  float of[kTensorCores ? 1 : TR][kTensorCores ? 1 : CPT];
+  float ot[kTensorCores ? TM : 1][kTensorCores ? NBV : 1][4];
+#pragma unroll
+  for (int r = 0; r < (kTensorCores ? 1 : TR); ++r)
+#pragma unroll
+    for (int c = 0; c < (kTensorCores ? 1 : CPT); ++c) of[r][c] = 0.f;
+#pragma unroll
+  for (int m = 0; m < (kTensorCores ? TM : 1); ++m)
+#pragma unroll
+    for (int nb = 0; nb < (kTensorCores ? NBV : 1); ++nb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ot[m][nb][c] = 0.f;
+  auto pv = [&](int l) {
+    const Load ld = load_at(l);
+    const T* vt = reinterpret_cast<const T*>(stage(l));
+    const float* sp = s_p + ld.slot * KT;
+    const int nk = min(KT, Lk - ld.tile * KT);
+    if constexpr (!kTensorCores) {
+      const int nk4 = (nk + 3) & ~3;
+#pragma unroll 2
+      for (int j = 0; j < nk4; j += 4) {
+        float p[TR][4];
+#pragma unroll
+        for (int r = 0; r < TR; ++r) load_f(sp + (row_t + 4 * r) * SKS + j, p[r]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float vv[CPT];
+          load_f(vt + (j + jj) * ROW + col_t, vv);
+#pragma unroll
+          for (int r = 0; r < TR; ++r)
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) of[r][c] = fmaf(p[r][jj], vv[c], of[r][c]);
+        }
+      }
+    } else {
+      const int steps = (nk + 15) / 16;
+      for (int s = 0; s < steps; ++s) {
+        unsigned pa[TM][4];
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+          const float* p = sp + (16 * m + g) * SKS + 16 * s + 2 * tg;
+          const float2 p0 = *reinterpret_cast<const float2*>(p);
+          const float2 p1 = *reinterpret_cast<const float2*>(p + 8 * SKS);
+          const float2 p2 = *reinterpret_cast<const float2*>(p + 8);
+          const float2 p3 = *reinterpret_cast<const float2*>(p + 8 * SKS + 8);
+          pa[m][0] = pack_bf16(p0.x, p0.y);
+          pa[m][1] = pack_bf16(p1.x, p1.y);
+          pa[m][2] = pack_bf16(p2.x, p2.y);
+          pa[m][3] = pack_bf16(p3.x, p3.y);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NBV; ++nb) {
+          const T* p = vt + (16 * s + 2 * tg) * ROW + warp * (D / 4) + 8 * nb + g;
+          const unsigned bv[2] = {pack_bf16(p[0], p[ROW]),
+                                  pack_bf16(p[8 * ROW], p[9 * ROW])};
+#pragma unroll
+          for (int m = 0; m < TM; ++m) mma_bf16(ot[m][nb], pa[m], bv);
+        }
+      }
+    }
+  };
+
+  // ---- the warp's rows (w + 4 u): softmax state, lanes over keys ----
+  float mx[RPW], sum[RPW];
+#pragma unroll
+  for (int u = 0; u < RPW; ++u) { mx[u] = -INFINITY; sum[u] = 0.f; }
+  auto row_ptr = [&](int u) { return s_p + (warp + kStreamWarps * u) * SKS; };
+  auto warp_max_all = [&](float (&x)[RPW]) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) x[u] = fmaxf(x[u], __shfl_xor_sync(0xffffffffu, x[u], off));
+  };
+  auto warp_sum_all = [&](float (&x)[RPW]) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) x[u] += __shfl_xor_sync(0xffffffffu, x[u], off);
+  };
+  // n > R: fold the chunk's first nkeys scores into (mx, sum), the sum
+  // rescaled when the chunk raises the max
+  auto chunk_update = [&](int nkeys) {
+    float cm[RPW], part[RPW];
+#pragma unroll
+    for (int u = 0; u < RPW; ++u) cm[u] = mx[u];
+#pragma unroll 2
+    for (int j = lane; j < nkeys; j += 32)
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) cm[u] = fmaxf(cm[u], row_ptr(u)[j]);
+    warp_max_all(cm);
+#pragma unroll
+    for (int u = 0; u < RPW; ++u) part[u] = 0.f;
+#pragma unroll 2
+    for (int j = lane; j < nkeys; j += 32)
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) part[u] += expf(row_ptr(u)[j] - cm[u]);
+    warp_sum_all(part);
+#pragma unroll
+    for (int u = 0; u < RPW; ++u) {
+      sum[u] = (mx[u] == -INFINITY ? 0.f : sum[u] * expf(mx[u] - cm[u])) + part[u];
+      mx[u] = cm[u];
+    }
+  };
+  // the rows' global max, then sum: this CTA's values through shared memory,
+  // every rank's read back (DSMEM) and merged in rank order
+  auto exchange = [&](float* slot, const float (&mine)[RPW], float (&all)[RPW], bool is_max) {
+    if (lane == 0)
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) slot[warp + kStreamWarps * u] = mine[u];
+    cluster.sync();
+#pragma unroll
+    for (int u = 0; u < RPW; ++u) all[u] = is_max ? -INFINITY : 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float* theirs = cluster.map_shared_rank(slot, c);
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) {
+        const float x = theirs[warp + kStreamWarps * u];
+        all[u] = is_max ? fmaxf(all[u], x) : all[u] + x;
+      }
+    }
+  };
+  // probabilities exp(s - M) / S in v's dtype over the first nkeys of the
+  // first nslots * KT columns (from the scores, or from exp(s - M) with
+  // `from_exp`), 0 past nkeys
+  float M[RPW], S[RPW], rcp[RPW];
+  auto probabilities = [&](int nkeys, int ncols, bool from_exp) {
+#pragma unroll 2
+    for (int j = lane; j < ncols; j += 32)
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) {
+        float* r = row_ptr(u);
+        const float e = j < nkeys ? (from_exp ? r[j] : expf(r[j] - M[u])) : 0.f;
+        r[j] = j < nkeys ? round_prob<T>(divide(e, S[u], rcp[u])) : 0.f;
+      }
+  };
+
+  // ---- pass 0: every K tile of the range ----
+  for (int l = 0; l < NS; ++l) {
+    issue(l);
+    cp_async_commit();
   }
+  auto release = [&](int l) {                 // stage l % NS is free
+    __syncthreads();
+    issue(l + NS);
+    cp_async_commit();
+  };
+  for (int l = 0; l < n; ++l) {
+    if (!resident && l > 0 && l % R == 0) chunk_update(R * KT);
+    cp_async_wait<NS - 1>();                  // load l has landed
+    __syncthreads();
+    if (l == 0) load_q();
+    scores(l);
+    release(l);
+  }
+  // ---- the cluster's softmax statistics ----
+  if (resident) {
+#pragma unroll 2
+    for (int j = lane; j < L; j += 32)
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) mx[u] = fmaxf(mx[u], row_ptr(u)[j]);
+    warp_max_all(mx);
+  } else {
+    chunk_update(L - (n - 1) / R * R * KT);
+  }
+  exchange(red_max, mx, M, true);
+  if (resident) {
+#pragma unroll 2
+    for (int j = lane; j < L; j += 32)
+#pragma unroll
+      for (int u = 0; u < RPW; ++u) {
+        const float e = expf(row_ptr(u)[j] - M[u]);
+        row_ptr(u)[j] = e;
+        sum[u] += e;
+      }
+    warp_sum_all(sum);
+  } else {
+#pragma unroll
+    for (int u = 0; u < RPW; ++u) sum[u] = sum[u] == 0.f ? 0.f : sum[u] * expf(mx[u] - M[u]);
+  }
+  exchange(red_sum, sum, S, false);
+#pragma unroll
+  for (int u = 0; u < RPW; ++u) rcp[u] = 1.f / S[u];
+  if (resident) probabilities(L, n * KT, true);
+
+  // ---- pass 1: P . V (n > R: each chunk's scores again, then its P) ----
+  for (int l = n; l < N; ++l) {
+    const Load ld = load_at(l);
+    if (!resident && !ld.is_k && ld.slot == 0) {
+      const int first = ld.tile, nc = min(R, t0 + n - first);
+      probabilities(min(nc * KT, Lk - first * KT), nc * KT, false);
+    }
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+    if (ld.is_k) scores(l);
+    else pv(l);
+    release(l);
+  }
+
+  // ---- the partial outputs, added over the cluster in rank order ----
+  float* part = s_p;                                                // [ROWS][D]
+  if constexpr (!kTensorCores) {
+#pragma unroll
+    for (int r = 0; r < TR; ++r) store_f(part + (row_t + 4 * r) * D + col_t, of[r]);
+  } else {
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int nb = 0; nb < NBV; ++nb)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<float2*>(part + (16 * m + g + 8 * hr) * D + warp * (D / 4) +
+                                     8 * nb + 2 * tg) =
+              make_float2(ot[m][nb][2 * hr], ot[m][nb][2 * hr + 1]);
+  }
+  cluster.sync();
+  T* ob = out + b * a.os[0] + h * a.os[1] + row0 * a.os[2];
+  for (int x = rank * NTH + tid; x < ROWS * D / 4; x += C * NTH) {
+    const int i = x / (D / 4), c4 = 4 * (x - i * (D / 4));
+    if (i >= rows) continue;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; c < C; ++c) {
+      const float4 y = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, c))[x];
+      acc[0] += y.x; acc[1] += y.y; acc[2] += y.z; acc[3] += y.w;
+    }
+    store_f(ob + i * a.os[2] + c4, acc);
+  }
+  cluster.sync();                    // no CTA leaves while its part is read
+  cp_async_wait<0>();
 }
 
-// The kernel, its shared memory and its item rows, for each route.
+// The kernel, its shared memory and its item rows, for the two routes that
+// launch a plain grid (kRoute as fmha_occupancy reports it).
 template <typename T, int D, int TN, int TM>
 struct Short {
   using Elem = T;
   static constexpr int kRows = 16 * TM;
+  static constexpr int kRoute = 0;
   static auto kernel() { return fused_mha_kernel<T, D, TN, TM>; }
   static size_t bytes(int lk) { return Layout<T, D, TN, TM>::bytes(lk); }
 };
@@ -1004,53 +1408,63 @@ template <typename T, int D, int TM>
 struct Long {
   using Elem = T;
   static constexpr int kRows = 16 * TM;
+  static constexpr int kRoute = 1;
   static auto kernel() { return fused_mha_long_kernel<T, D, TM>; }
   static size_t bytes(int lk) { return LongLayout<T, D, TM>::bytes(lk); }
 };
-template <typename T, int D, int TM>
-struct Stream {
-  using Elem = T;
-  static constexpr int kRows = 16 * TM;
-  static auto kernel() { return fused_mha_stream_kernel<T, D, TM>; }
-  static size_t bytes(int lk) { return StreamLayout<T, D, TM>::bytes(lk); }
-};
 
-// With `info` set, nothing is launched: info[0] gets the blocks per SM and
-// info[1] the dynamic shared-memory bytes of the launch.
+// Once per device and kernel (no capture sets it again): the kernel may take
+// the whole of the opt-in shared memory.  Gives the opt-in bytes and the SMs.
+// Tag is one type per kernel (kernels of one signature share a pointer type).
+template <typename Tag, typename K>
+int configure(K kernel, int* optin, int* sms) {
+  static bool configured[64] = {};
+  static int optin_of[64] = {}, sms_of[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaDeviceGetAttribute(&optin_of[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin_of[dev]);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  *optin = optin_of[dev];
+  *sms = sms_of[dev];
+  return (int)cudaSuccess;
+}
+
+// With `info` set, nothing is launched: info[0] gets the blocks per SM,
+// info[1] the dynamic shared-memory bytes of the launch, info[2] its route
+// (0 short, 1 long, 2 streaming) and info[3] its cluster size.
 template <typename P>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            void* out, int B, Args a, cudaStream_t stream, int* info) {
   using T = typename P::Elem;
   auto kernel = P::kernel();
-  static bool configured[64] = {};
-  static int optin[64] = {}, sms[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {          // once per device: no capture sets it again
-    err = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 optin[dev]);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
-  }
+  int optin = 0, sms = 0;
+  int err0 = configure<P>(kernel, &optin, &sms);
+  if (err0 != (int)cudaSuccess) return err0;
   a.row_blocks = (a.Lq + P::kRows - 1) / P::kRows;
   a.n_items = B * a.H * a.row_blocks;
   const size_t smem = P::bytes(a.Lk);
-  if (smem > (size_t)optin[dev]) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (info != nullptr) {
     info[0] = per_sm;
     info[1] = (int)smem;
+    info[2] = P::kRoute;
+    info[3] = 1;
     return (int)cudaSuccess;
   }
-  const int grid = min(a.n_items, max(per_sm, 1) * sms[dev]);
+  const int grid = min(a.n_items, max(per_sm, 1) * sms);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), a);
@@ -1086,9 +1500,77 @@ int two_block_budget(int* bytes) {
   return (int)cudaSuccess;
 }
 
+// The streaming kernel with items of 16 * TM rows, as a grid of clusters of
+// C CTAs (the source note): C the least that keeps every CTA's range of key
+// tiles resident within two CTAs' share of an SM, raised (to kMaxCluster, and
+// no further than one tile a CTA) while the launch has fewer than two CTAs
+// per SM; each CTA's scores hold R = ceil(tiles / C) tiles, or the most that
+// fit, past which it walks its range in chunks.
+template <typename T, int D, int TM>
+int launch_stream(const void* q, const void* k, const void* v, const float* mask,
+                  void* out, int B, Args a, cudaStream_t stream, int* info) {
+  using Lay = StreamLayout<T, D, TM>;
+  auto kernel = fused_mha_stream_kernel<T, D, TM>;
+  int optin = 0, sms = 0, budget = 0;
+  int err0 = configure<Lay>(kernel, &optin, &sms);
+  if (err0 == (int)cudaSuccess) err0 = two_block_budget(&budget);
+  if (err0 != (int)cudaSuccess) return err0;
+  a.row_blocks = (a.Lq + Lay::kRows - 1) / Lay::kRows;
+  a.n_items = B * a.H * a.row_blocks;
+  const int n_tiles = (a.Lk + kStreamTileKeys - 1) / kStreamTileKeys;
+  const long long room = ((long long)budget - (long long)Lay::kFixed) /
+                         ((long long)sizeof(float) * Lay::kRows) - 8;
+  const int r_max = max(1, (int)(room / kStreamTileKeys));
+  int C = min(kMaxCluster, (n_tiles + r_max - 1) / r_max);
+  while (C < kMaxCluster && C < n_tiles && (long long)a.n_items * C < 2LL * sms) ++C;
+  a.clusters = C;
+  a.res_tiles = min(r_max, (n_tiles + C - 1) / C);
+  const size_t smem = Lay::bytes(a.res_tiles);
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  if ((long long)a.n_items * C > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_items * C);
+  cfg.blockDim = dim3(kStreamThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (info != nullptr) {
+    int clusters = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    info[0] = clusters * C / sms;
+    info[1] = (int)smem;
+    info[2] = 2;
+    info[3] = C;
+    return (int)cudaSuccess;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, static_cast<T*>(out), a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// items of 32 query rows where they pad Lq no more than 16-row items do,
+// else of 16
+template <typename T, int D>
+int dispatch_stream(const void* q, const void* k, const void* v,
+                    const float* mask, void* out, int B, const Args& a,
+                    cudaStream_t st, int* info) {
+  if ((a.Lq + 31) / 32 * 32 == (a.Lq + 15) / 16 * 16)
+    return launch_stream<T, D, 2>(q, k, v, mask, out, B, a, st, info);
+  return launch_stream<T, D, 1>(q, k, v, mask, out, B, a, st, info);
+}
+
 // Past kMaxKeys: fused_mha_long_kernel with 32-row items where they fit two
 // blocks per SM (and Lq > 16), else with 16-row items where those fit, else
-// fused_mha_stream_kernel (items of 32 query rows where Lq <= 32, else 64).
+// fused_mha_stream_kernel.
 template <typename T, int D>
 int dispatch_long(const void* q, const void* k, const void* v,
                   const float* mask, void* out, int B, const Args& a,
@@ -1100,14 +1582,16 @@ int dispatch_long(const void* q, const void* k, const void* v,
     return launch<Long<T, D, 2>>(q, k, v, mask, out, B, a, st, info);
   if (LongLayout<T, D, 1>::bytes(a.Lk) <= (size_t)budget)
     return launch<Long<T, D, 1>>(q, k, v, mask, out, B, a, st, info);
-  if (a.Lq <= 32) return launch<Stream<T, D, 2>>(q, k, v, mask, out, B, a, st, info);
-  return launch<Stream<T, D, 4>>(q, k, v, mask, out, B, a, st, info);
+  return dispatch_stream<T, D>(q, k, v, mask, out, B, a, st, info);
 }
 
+// route -1: the route of dispatch_keys; 2: the streaming kernel at any Lk
 template <typename T, int D>
 int dispatch_keys(const void* q, const void* k, const void* v,
                   const float* mask, void* out, int B, const Args& a,
-                  cudaStream_t st, int* info) {
+                  cudaStream_t st, int* info, int route) {
+  if (route == 2) return dispatch_stream<T, D>(q, k, v, mask, out, B, a, st, info);
+  if (route != -1) return (int)cudaErrorInvalidValue;
   const int tn = (a.Lk + 15) / 16;
   if (a.Lk > kMaxKeys) return dispatch_long<T, D>(q, k, v, mask, out, B, a, st, info);
   if (tn <= 1) return dispatch_rows<T, D, 1>(q, k, v, mask, out, B, a, st, info);
@@ -1120,16 +1604,18 @@ int dispatch_keys(const void* q, const void* k, const void* v,
 
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              const float* mask, void* out, int B, const Args& a,
-             cudaStream_t st, int* info) {
+             cudaStream_t st, int* info, int route) {
   if (dtype == 0) {
     switch (D) {
-      case 32: return dispatch_keys<float, 32>(q, k, v, mask, out, B, a, st, info);
-      case 64: return dispatch_keys<float, 64>(q, k, v, mask, out, B, a, st, info);
+      case 32: return dispatch_keys<float, 32>(q, k, v, mask, out, B, a, st, info, route);
+      case 64: return dispatch_keys<float, 64>(q, k, v, mask, out, B, a, st, info, route);
     }
   } else {
     switch (D) {
-      case 32: return dispatch_keys<__nv_bfloat16, 32>(q, k, v, mask, out, B, a, st, info);
-      case 64: return dispatch_keys<__nv_bfloat16, 64>(q, k, v, mask, out, B, a, st, info);
+      case 32:
+        return dispatch_keys<__nv_bfloat16, 32>(q, k, v, mask, out, B, a, st, info, route);
+      case 64:
+        return dispatch_keys<__nv_bfloat16, 64>(q, k, v, mask, out, B, a, st, info, route);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -1150,21 +1636,20 @@ extern "C" {
 // fused_mha_long_kernel, or past its range to fused_mha_stream_kernel.
 int fmha_max_keys() { return kMaxKeys; }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); D is 32 or 64.
-// strides: 15 element strides, (b, h, l) of q, k, v and out, then (b, query
-// row, key) of the mask; mask may be null.  q, k, v and out, with their
-// strides, must be 16-byte aligned.  Returns the CUDA error code of the
-// launch (0 = launched).
-int fmha_launch(int dtype, int D, const void* q, const void* k, const void* v,
-                const float* mask, void* out, int B, int H, int Lq, int Lk,
-                const long long* strides, float scale, void* stream) {
+// fmha_launch on a route: -1 the wrapper's own (dispatch_keys), 2 the
+// streaming kernel at any Lk.  Only the card's tests and chip_smoke.py call
+// it (the streaming kernel timed beside the long kernel at its shapes).
+int fmha_launch_route(int route, int dtype, int D, const void* q, const void* k,
+                      const void* v, const float* mask, void* out, int B, int H,
+                      int Lq, int Lk, const long long* strides, float scale,
+                      void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const int esize = dtype == 0 ? 4 : 2;
   if (!aligned(q, strides, esize) || !aligned(k, strides + 3, esize) ||
       !aligned(v, strides + 6, esize) || !aligned(out, strides + 9, esize))
     return (int)cudaErrorMisalignedAddress;
-  Args a;
+  Args a{};
   a.H = H;
   a.Lq = Lq;
   a.Lk = Lk;
@@ -1177,21 +1662,37 @@ int fmha_launch(int dtype, int D, const void* q, const void* k, const void* v,
   }
   a.scale = scale;
   return dispatch(dtype, D, q, k, v, mask, out, B, a,
-                  static_cast<cudaStream_t>(stream), nullptr);
+                  static_cast<cudaStream_t>(stream), nullptr, route);
 }
 
-// Occupancy of the launch fmha_launch makes for this dtype, D, Lq and Lk:
-// info[0] = blocks per SM, info[1] = dynamic shared-memory bytes.  Launches
-// nothing; returns a CUDA error code.
-int fmha_occupancy(int dtype, int D, int Lq, int Lk, int* info) {
-  if (Lq < 1 || Lk < 1 || dtype < 0 || dtype > 1)
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); D is 32 or 64.
+// strides: 15 element strides, (b, h, l) of q, k, v and out, then (b, query
+// row, key) of the mask; mask may be null.  q, k, v and out, with their
+// strides, must be 16-byte aligned.  Returns the CUDA error code of the
+// launch (0 = launched).
+int fmha_launch(int dtype, int D, const void* q, const void* k, const void* v,
+                const float* mask, void* out, int B, int H, int Lq, int Lk,
+                const long long* strides, float scale, void* stream) {
+  return fmha_launch_route(-1, dtype, D, q, k, v, mask, out, B, H, Lq, Lk, strides,
+                           scale, stream);
+}
+
+// The launch fmha_launch_route makes on `route` for this dtype, D, B, H, Lq
+// and Lk: info[0] = blocks per SM (for a cluster launch, the clusters the
+// card holds at once times their size, over its SMs), info[1] = dynamic
+// shared-memory bytes, info[2] = the route (0 fused_mha_kernel, 1
+// fused_mha_long_kernel, 2 fused_mha_stream_kernel), info[3] = the cluster
+// size.  Launches nothing; returns a CUDA error code.
+int fmha_occupancy(int route, int dtype, int D, int B, int H, int Lq, int Lk,
+                   int* info) {
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   Args a{};
-  a.H = 1;
+  a.H = H;
   a.Lq = Lq;
   a.Lk = Lk;
-  return dispatch(dtype, D, nullptr, nullptr, nullptr, nullptr, nullptr, 1, a,
-                  nullptr, info);
+  return dispatch(dtype, D, nullptr, nullptr, nullptr, nullptr, nullptr, B, a,
+                  nullptr, info, route);
 }
 
 }  // extern "C"

@@ -11,12 +11,17 @@ head-uniform: like ``pallas_mha`` this takes ``additive_mask[:, 0]``,
 broadcast to [B, Lq, Lk]; no mask adds zeros.
 
 Shapes and types: q [B, h, Lq, D], k / v [B, h, Lk, D], all float32 or all
-bfloat16, any Lk >= 1 (past ``fmha_max_keys()`` = 256 keys the source's
-second kernel keeps each item's scores in shared memory and streams K/V in
-tiles, and past its range a third streams them twice); additive_mask None or 4-D, broadcastable
-to [B, *, Lq, Lk].  No dropout and no gradient: a CUDA call that would need
-one (grad enabled and an input requiring it) raises, as the kernel has no
-backward; training runs the plain attention, as JAX's training runs XLA's.
+bfloat16, any Lk >= 1; additive_mask None or 4-D, broadcastable to
+[B, *, Lq, Lk].  The source has three kernels, its routes: to
+``fmha_max_keys()`` = 256 keys the short one; past that the long one, which
+keeps an item's scores in shared memory, up to 1,152 keys in fp32 (1,408 in
+bf16) at D=64; past that the streaming one, which splits each item's keys
+over a thread-block cluster (bf16 on tensor cores).  ``launch_info`` says
+which route and cluster a shape gets; ``fused_mha_stream`` forces the
+streaming route at any Lk, for the card's tests and timings only.  No
+dropout and no gradient: a CUDA call that would need one (grad enabled and
+an input requiring it) raises, as the kernel has no backward; training runs
+the plain attention, as JAX's training runs XLA's.
 
 A CUDA tensor goes to the hand-written kernel (csrc/fused_attention.cu) and
 only there; a CPU tensor goes to the plain PyTorch version
@@ -34,6 +39,9 @@ from spmm_tpu_torch.ops._build import check_no_grad, count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+ROUTES = ("short", "long", "stream")
+STREAM = 2                      # the streaming kernel's route (fused_mha_stream)
+_AUTO = -1                      # the route fmha_launch takes
 _lib = None
 
 
@@ -44,6 +52,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     lib.fmha_max_keys.restype = ctypes.c_int
+    if hasattr(lib, "fmha_launch_route"):     # not in an older source
+        lib.fmha_launch_route.restype = ctypes.c_int
+        lib.fmha_launch_route.argtypes = [ctypes.c_int] + lib.fmha_launch.argtypes
+        lib.fmha_occupancy.restype = ctypes.c_int
+        lib.fmha_occupancy.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return lib
 
 
@@ -95,6 +108,34 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On a CUDA tensor the result is a [B, Lq, h, D] buffer seen through a
     transpose, so that ``merge_heads`` of it is a view."""
+    return _fused_mha(q, k, v, additive_mask, _AUTO)
+
+
+def fused_mha_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     additive_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``fused_mha`` with a CUDA tensor sent to the streaming kernel at any
+    Lk (``fmha_launch_route``), so that the card's tests and
+    ``chip_smoke.py`` can hold and time it where the wrapper takes another
+    route.  No model path calls it."""
+    return _fused_mha(q, k, v, additive_mask, STREAM)
+
+
+def launch_info(dtype: torch.dtype, d: int, b: int, h: int, lq: int, lk: int,
+                route: int = _AUTO) -> dict:
+    """The launch the kernel makes for these shapes (on ``route``, by
+    default the wrapper's): its route name, cluster size, blocks per SM and
+    dynamic shared memory, from ``fmha_occupancy``.  Needs the card."""
+    info = (ctypes.c_int * 4)()
+    err = _library().fmha_occupancy(route, _DTYPE_CODES[dtype], d, b, h, lq,
+                                    lk, info)
+    if err != 0:
+        raise RuntimeError(f"fmha_occupancy failed: CUDA error {err}")
+    return {"route": ROUTES[info[2]], "cluster": info[3],
+            "blocks_per_sm": info[0], "dynamic_smem_bytes": info[1]}
+
+
+def _fused_mha(q, k, v, additive_mask, route: int) -> torch.Tensor:
     _check(q, k, v, additive_mask)
     if q.device.type == "cpu":
         return fused_mha_reference(q, k, v, additive_mask)
@@ -125,12 +166,13 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out.stride(0), out.stride(1), out.stride(2)]
     strides += [0, 0, 0] if mask is None else list(mask.stride())
     c_strides = (ctypes.c_longlong * 15)(*strides)
+    args = (_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), b, h, lq, lk, c_strides, 1.0 / d ** 0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fmha_launch(
-            _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), b, h, lq, lk, c_strides, 1.0 / d ** 0.5, stream)
+        err = (lib.fmha_launch(*args, stream) if route == _AUTO
+               else lib.fmha_launch_route(route, *args, stream))
     if err != 0:
         raise RuntimeError(f"fused_mha launch failed: CUDA error {err}")
     count_launch(fused_mha)

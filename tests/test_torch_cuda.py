@@ -23,7 +23,13 @@ from spmm_tpu_torch.ops.decode_attention import (
     beam_decode_attention_reference,
     compute_dtype,
 )
-from spmm_tpu_torch.ops.fused_attention import fused_mha, fused_mha_reference
+from spmm_tpu_torch.ops.fused_attention import (
+    STREAM,
+    fused_mha,
+    fused_mha_reference,
+    fused_mha_stream,
+    launch_info,
+)
 from spmm_tpu_torch.ops.masks import extend_attention_mask, extend_causal_mask
 
 pytestmark = pytest.mark.cuda
@@ -358,6 +364,82 @@ def test_fused_mha_long_keys_head_dim_32(dev):
     torch.testing.assert_close(fused_mha(q, k, v, mask),
                                fused_mha_reference(q, k, v, mask),
                                atol=1e-5, rtol=1e-5)
+
+
+# Lk just past the long kernel's reach at D=64: 1,152 keys in f32, 1,408 in
+# bf16 (chip_smoke.py prints both switch points)
+STREAM_FROM = {torch.float32: 1153, torch.bfloat16: 1409}
+
+
+def _stream_case(dev, b, h, lq, lk, d, dtype, case, forced=False):
+    """fused_mha (or, ``forced``, fused_mha_stream) against the plain
+    version on one input, ``case`` a mask kind of ``_mha_case`` or the
+    inputs (q, k, v, mask): the launch must take the streaming kernel,
+    once; within 1e-5 (f32) or 2e-2 (bf16)."""
+    q, k, v, m = case if isinstance(case, tuple) else _mha_case(
+        dev, b, h, lq, lk, d, dtype, case, seed=lq * 7 + lk)
+    info = launch_info(dtype, d, b, h, lq, lk,
+                       **({"route": STREAM} if forced else {}))
+    assert info["route"] == "stream" and 1 <= info["cluster"] <= 8
+    before = fused_mha.launches
+    got = (fused_mha_stream if forced else fused_mha)(q, k, v, m)
+    want = fused_mha_reference(q, k, v, m)
+    torch.cuda.synchronize()
+    assert fused_mha.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, lq, d)
+    assert torch.isfinite(got.float()).all()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    return info
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq", [1, 16, 17, 33, 64, 65])
+@pytest.mark.parametrize("mask_kind", ["causal", "padding"])
+def test_fused_mha_stream_just_past_reach(dev, dtype, lq, mask_kind):
+    """The streaming kernel from the first Lk the long kernel leaves it,
+    at query rows on both sides of its 16- and 32-row items."""
+    _stream_case(dev, 2, 3, lq, STREAM_FROM[dtype], 64, dtype, mask_kind)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,mask_kind", [
+    (2, 3, 40, 1473, 64, "causal"),     # 23 tiles: uneven over the cluster
+    (2, 3, 33, 2000, 64, "padding"),
+    (3, 2, 70, 1800, 32, "causal"),     # D=32 (its long kernel reaches further)
+    (2, 2, 24, 2333, 32, "none"),
+    (1, 2, 16, 20000, 64, "none"),      # past what the cluster holds resident
+    (1, 2, 40, 20000, 64, "padding"),
+    (8, 12, 1, 4000, 64, "padding"),    # a decode-shaped query
+])
+def test_fused_mha_stream_kernel(dev, dtype, b, h, lq, lk, d, mask_kind):
+    _stream_case(dev, b, h, lq, lk, d, dtype, mask_kind)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mha_stream_padding_rows(dev, dtype):
+    """Rows of 1, 63, 64, 65, 700, 1217 and 1500 keys (tile edges; ranges
+    of a cluster wholly past a row's last key) and a fully masked row
+    (uniform over all 1500 keys), as split_heads views."""
+    lk = 1500
+    q, k, v, _ = _mha_case(dev, 8, 2, 40, lk, 64, dtype, "none", seed=13)
+    lens = torch.tensor([1, 63, 64, 65, 700, 1217, 1500, 0], device=dev)
+    mask = extend_attention_mask(
+        (torch.arange(lk, device=dev)[None] < lens[:, None]).int())
+    _stream_case(dev, 8, 2, 40, lk, 64, dtype, (q, k, v, mask))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,mask_kind", [
+    (4, 512, 512, "padding"),           # the long kernel's shapes, forced
+    (4, 288, 288, "causal"),
+    (2, 37, 257, "padding"),
+    (2, 8, 40, "padding"),              # the short kernel's
+    (2, 5, 1, "none"),                  # a single key
+])
+def test_fused_mha_stream_forced(dev, dtype, b, lq, lk, mask_kind):
+    """fmha_launch_route sends any Lk to the streaming kernel."""
+    _stream_case(dev, b, 3, lq, lk, 64, dtype, mask_kind, forced=True)
 
 
 def test_kernel_wrappers_refuse_grad(dev):
