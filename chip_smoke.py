@@ -26,7 +26,9 @@ against its plain PyTorch version:
     fusion layers' cross-attention maps;
   - pipeline parallelism over the text section (kernel 2 in its forward
     under no_grad), the mixture-of-experts block, the multi-process dry
-    run of every parallel path, entry() and the native tokenizer.
+    run of every parallel path, entry() and the native tokenizer;
+  - the port's bench (spmm_tpu_torch/bench.py): each of its workloads
+    once, with one timed batch.
 
 Phases, in order; any failure exits non-zero:
 
@@ -192,9 +194,18 @@ Phases, in order; any failure exits non-zero:
               gloo ranks, every stage), entry()'s full-width loss on the
               card, and the native tokenizer in use, equal to the Python
               path over 10,000 lines, both in lines/s;
-  shapes      over phases 5, rxn, finetune and chain, every call of a kernel
-              wrapper was recorded (KernelCalls); each kernel is held to its plain
-              version at every launch shape those main paths passed it:
+  bench       each workload of spmm_tpu_torch/bench.py once through its
+              Bench at full width with one timed batch (or window) each,
+              as one main path: PV->SMILES at batch 128 and 60 steps, the
+              host pipeline, SMILES->PV, rxn greedy and k=5 beam, the bf16
+              pretrain step at batch 96 and the MFU line; every line must
+              carry its metric's unit, this card's name and power limit and
+              "correct": true (the bench's own kernel-vs-plain checks), and
+              both kernels must launch;
+  shapes      over phases 5, rxn, finetune, chain and bench, every call of
+              a kernel wrapper was recorded (KernelCalls); each kernel is
+              held to its plain version at every launch shape those main
+              paths passed it:
               kernel 1 on the masks they passed at steps 0, 1, 33, 100 and
               the last, kernel 2 on the inputs of its first call; and each
               shape is timed as in phase 3 (kernel 1 on the last mask it
@@ -293,6 +304,12 @@ TP_HEADS = (6, 3)
 PP_MICRO, PP_ITERS = 4, 5
 MOE, MOE_ITERS = (64, 8, 8), 10
 TOKENIZE_LINES = 10000
+# bench: spmm_tpu_torch.bench.Setup's counts cut to one timed batch or
+# window a workload (the widths stay full)
+BENCH_SETUP = dict(decode_steps=(60,), decode_batches=(128,), n_molecules=128,
+                   s2p_batches=(128,), s2p_timed=1, rxn_batches=(128,),
+                   rxn_timed=1, pretrain_runs=((96, "bf16"),), windows=1,
+                   window=2)
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -3122,6 +3139,38 @@ def finetune_clis(dev, workdir: str, calls) -> dict:
     return out
 
 
+def bench_phase(dev, calls, card: str) -> dict:
+    """Each workload of spmm_tpu_torch/bench.py once, through its ``Bench``
+    at full width with BENCH_SETUP's counts, as one main path (launches
+    counted from 0 over it, kernel calls recorded in ``calls``): every line
+    must carry its metric's unit, this card and ``"correct": true``, and
+    both kernels must launch."""
+    import math
+
+    from spmm_tpu_torch import bench
+
+    runner = bench.Bench(dev, "kernel", bench.Setup(**BENCH_SETUP))
+    lines, secs = [], {}
+    reset_launch_counts()                       # the main path starts here
+    with calls.recording("bench"):
+        for name in bench.WORKLOADS:
+            t0 = time.perf_counter()
+            lines += getattr(runner, name)()
+            secs[name] = time.perf_counter() - t0
+    launches = launch_counts()                  # ... and ends here
+    want = set(bench.UNITS) - {"pv2smiles_beam_k2_throughput_100step"}
+    if {ln["metric"] for ln in lines} != want:
+        fail(f"the bench printed {sorted(ln['metric'] for ln in lines)}")
+    for ln in lines:
+        if (ln["unit"] != bench.UNITS[ln["metric"]] or ln["card"] != card
+                or ln["correct"] is not True or ln["value"] is None
+                or not math.isfinite(ln["value"])):
+            fail(f"bench line {json.dumps(ln)}")
+    if min(launches) <= 0:
+        fail(f"the bench launched the kernels {launches} times")
+    return {"lines": lines, "launches": list(launches), "seconds": secs}
+
+
 def main_path_shapes(dev, calls, worst, worst2) -> list:
     """Each kernel against its plain version, and timed, at every launch
     shape the main paths passed it: kernel 1 on the masks they passed (held
@@ -3738,6 +3787,18 @@ def main(argv=None) -> int:
         f"{row['lines_per_s']['python']:.0f} lines/s; "
         + ", ".join(f"{k} {v:.1f} s" for k, v in ppe["part_s"].items()))
 
+    # ---- bench: spmm_tpu_torch/bench.py's workloads, one timed batch each --
+    mark("bench")
+    bench_run = bench_phase(dev, calls, card)
+    for ln in bench_run["lines"]:
+        log(f"[bench] {ln['metric']}: {ln['value']:.6g} {ln['unit']} at batch "
+            f"{ln['batch']}" + (f", {ln['attention']}" if "attention" in ln
+                                else "")
+            + f", median {ln['median_batch_ms']:.1f} ms a batch over "
+            f"{ln['n_samples']}, correct {ln['correct']}")
+    log(f"[bench] launches {bench_run['launches']} (kernel 1, kernel 2); "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in bench_run["seconds"].items()))
+
     # ---- shapes: every launch shape of the main paths vs plain ----
     mark("shapes")
     log("[shapes] each kernel against its plain version, and timed, at every "
@@ -3786,11 +3847,12 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
                       "exact": exact, "rxn": rxn_run, "finetune": ft,
                       "pretrain": pt, "chain": chain, "parallel": par,
-                      "pp_ep": ppe,
+                      "pp_ep": ppe, "bench": bench_run,
                       "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   rxn_launches=rxn_run["greedy_launches"][0],
                   chain_launches=chain["rxn_prediction"]["launches"][0],
+                  bench_launches=bench_run["launches"][0],
                   max_abs_err=worst["bfloat16"],
                   max_abs_err_by_cache_dtype=worst, **timing,
                   decoder_mask=timing_decoder, small_batch=timing_small,
@@ -3812,6 +3874,7 @@ def main(argv=None) -> int:
                        "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
                    rxn_launches=rxn_run["greedy_launches"][1],
+                   bench_launches=bench_run["launches"][1],
                    finetune_eval_launches=ft["eval"]["launches"],
                    chain_launches={name: chain[name]["launches"][1] for name
                                    in ("rxn_prediction", "classification")},
