@@ -173,9 +173,11 @@ Phases, in order; any failure exits non-zero:
               bounds; predict_pv under the tp plan through kernel 2 within
               1e-5 of the unsharded model.  Then, as main paths, an fp32
               k=2 beam search of 128 PVs and predict_pv of 128 SMILES over
-              devices=[card, card] (two shards, two worker threads) equal
-              to the unsharded batches (seqs exact, values within 1e-5),
-              each shard launching what the unsharded batch launches; and
+              devices=[card, card] (two worker processes on the card, a
+              copy of the weights each) equal to the unsharded batches
+              (seqs exact, values within 1e-5), each shard launching what
+              the unsharded batch launches, with the pool's start-up and
+              both walls in turns; and
               cross_attention_maps at full width, card against CPU within
               1e-5, every row summing to 1;
   pp_ep       under a NCCL group of one: the pipeline forward of the
@@ -202,10 +204,12 @@ Phases, in order; any failure exits non-zero:
               carry its metric's unit, this card's name and power limit and
               "correct": true (the bench's own kernel-vs-plain checks), and
               both kernels must launch;
-  shapes      over phases 5, rxn, finetune, chain and bench, every call of
-              a kernel wrapper was recorded (KernelCalls); each kernel is
-              held to its plain version at every launch shape those main
-              paths passed it:
+  shapes      over phases 5, rxn, finetune, chain and bench, and over the
+              bench's headline decodes (bf16 k=2 PV->SMILES batches of 512
+              at 60 and 100 steps, run here), every call of a kernel
+              wrapper was recorded (KernelCalls); each kernel is held to
+              its plain version at every launch shape those paths passed
+              it:
               kernel 1 on the masks they passed at steps 0, 1, 33, 100 and
               the last, kernel 2 on the inputs of its first call; and each
               shape is timed as in phase 3 (kernel 1 on the last mask it
@@ -667,10 +671,11 @@ def capture_decoder_mask(dev, model, batch: int = 128) -> dict:
 
 
 def time_kernel(dev, m=128, pos=103, mask=None, k=2, kind="random",
-                h=12) -> dict:
+                h=12, T=104) -> dict:
     """bf16 at h heads (12, or a tensor-parallel rank's 12 / tp), D=64,
-    T=104: kernel, plain version, one SDPA call, and the bound, on an
-    ancestry mask of ``kind`` or on the given mask.
+    a cache of T positions (104 for 100 steps, 64 for 60): kernel, plain
+    version, one SDPA call, and the bound, on an ancestry mask of ``kind``
+    or on the given mask.
     Launches walk the 12 layers, so at m=128, k=2 each reads a layer's
     prefix (81 MB > the 50 MB L2) cold, as the decoder does."""
     import torch
@@ -680,7 +685,7 @@ def time_kernel(dev, m=128, pos=103, mask=None, k=2, kind="random",
         beam_decode_attention, beam_decode_attention_reference)
     from spmm_tpu_torch.ops.masks import MASK_VALUE
 
-    d, T, L = 64, 104, 12
+    d, L = 64, 12
     dt = torch.bfloat16
     q, kn, vn, cache, mask = kernel_inputs(dev, m, h, k, T, d, L, dt, pos,
                                            seed=1, kind=kind, mask=mask)
@@ -723,7 +728,7 @@ def time_kernel(dev, m=128, pos=103, mask=None, k=2, kind="random",
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "m": m, "k": k, "pos": pos,
+        "m": m, "k": k, "pos": pos, "T": T,
         "bytes": nbytes, "flops": flops, "live_rows": live_rows,
         "all_rows": m * k * pos,
         "bound_ms_all_lanes": all_lane_bytes / HBM_BYTES_PER_S * 1e3,
@@ -2580,63 +2585,101 @@ def tp_predict_pv(dev, model) -> dict:
             "unsharded_s": want_secs}
 
 
+def sharded_turns(dev, reps, unsharded, sharded) -> dict:
+    """One batch of each kind to warm them (the workers' first launches
+    and their kernel libraries' load), then the unsharded and the sharded
+    batch in turns (unsharded, sharded, sharded, unsharded), each a main
+    path: counts from 0 just before, read just after (this process's for
+    the unsharded batch; each worker's for its shard, ``reps.launches``).
+    The results of the first of each kind, each run's wall and launches."""
+    unsharded()
+    sharded()
+    out = {"unsharded_s": [], "sharded_s": [], "unsharded_launches": [],
+           "shard_launches": []}
+    for kind in ("unsharded", "sharded", "sharded", "unsharded"):
+        reset_launch_counts()
+        res, secs, l1, l2 = run_counted(
+            dev, unsharded if kind == "unsharded" else sharded)
+        out.setdefault(kind, res)
+        out[f"{kind}_s"].append(secs)
+        if kind == "unsharded":
+            out["unsharded_launches"].append([l1, l2])
+        else:
+            out["shard_launches"].append(
+                [[n["beam_decode_attention"], n["fused_mha"]]
+                 for n in reps.launches])
+    return out
+
+
 def sharded_inference(dev, model) -> dict:
-    """parallel (4): data-parallel inference with devices=[card, card] (two
-    shards of 64 rows on one card, each in its own worker thread and
-    stream; a card named twice holds one replica).  fp32 k=2 beam search of
+    """parallel (4): data-parallel inference with devices=[card, card]: two
+    worker processes on one card (parallel.replicas), each with its own
+    copy of the weights and a block of 64 rows.  fp32 k=2 beam search of
     128 PVs: seqs equal to the unsharded batch's, logp within 1e-5 + 5e-7
-    x |logp|; fp32 predict_pv of 128 SMILES within 1e-5.  Each run is a
-    main path: counts from 0 just before, read just after; each shard
-    launches what the unsharded batch launches (as initialised no beam
-    finishes, so both shards run all the steps)."""
+    x |logp|; fp32 predict_pv of 128 SMILES within 1e-5.  The pool's
+    start-up (spawn, then each model's weights) is timed apart from the
+    batches, which run in turns (``sharded_turns``); each shard launches
+    what the unsharded batch launches (as initialised no beam finishes, so
+    both shards run all the steps)."""
     import numpy as np
     import torch
 
     from spmm_tpu_torch.inference import pv2smiles
     from spmm_tpu_torch.inference.decoding import BeamSpec
     from spmm_tpu_torch.inference.smiles2pv import predict_pv, predict_pv_rows
-    from spmm_tpu_torch.parallel.replicas import Replicas
+    from spmm_tpu_torch.parallel.replicas import Replicas, WorkerPool
 
-    devices = [dev, dev]
     pv = np.random.default_rng(SEED + 30).normal(
         size=(128, 53)).astype(np.float32)
     spec = BeamSpec(k=2, stop_count=2)
     decoder = pv2smiles.decoder_for(model, bf16=False)
-    out = {}
-    reset_launch_counts()
-    one, one_s, l1_one, _ = run_counted(dev, lambda: pv2smiles.to_host(
-        pv2smiles._beam_batch(model, decoder, torch.as_tensor(pv, device=dev),
-                              None, spec)))
-    with pv2smiles.replicas_for(model, devices, bf16=False) as reps:
-        reset_launch_counts()
-        got, got_s, l1_got, _ = run_counted(dev, lambda: pv2smiles.beam_rows(
-            reps, pv, None, spec, None))
-    if not np.array_equal(got["seqs"], one["seqs"]) or \
-            not np.allclose(got["logp"], one["logp"], atol=1e-5, rtol=5e-7) \
-            or l1_got != 2 * l1_one or l1_one == 0:
-        fail(f"sharded PV->SMILES differs from the unsharded batch: seqs "
-             f"equal {np.array_equal(got['seqs'], one['seqs'])}, launches "
-             f"{l1_got} vs 2 x {l1_one}")
-    out["pv2smiles"] = {
-        "steps": one["steps"], "launches": l1_got,
-        "unsharded_launches": l1_one, "sharded_s": got_s,
-        "unsharded_s": one_s, "logp_max_abs_diff": float(
-            np.abs(got["logp"] - one["logp"]).max())}
     _, ids, mask = s2p_batch()
-    reset_launch_counts()
-    one, one_s, _, l2_one = run_counted(dev, lambda: predict_pv(
-        model, ids, mask, device=dev).cpu().numpy())
-    with Replicas(model, devices) as reps:
-        reset_launch_counts()
-        got, got_s, _, l2_got = run_counted(dev, lambda: predict_pv_rows(
-            reps, ids, mask))
-    err = float(np.abs(got - one).max())
-    if not err <= 1e-5 or l2_got != 2 * l2_one or l2_one != S2P_LAUNCHES:
-        fail(f"sharded SMILES->PV: {err:.2e} from the unsharded batch (bar "
-             f"1e-5), launches {l2_got} vs 2 x {l2_one}")
-    out["smiles2pv"] = {"max_abs_diff": err, "launches": l2_got,
-                        "unsharded_launches": l2_one, "sharded_s": got_s,
-                        "unsharded_s": one_s}
+    out = {"startup_s": {}}
+    t0 = time.perf_counter()
+    with WorkerPool([dev, dev]) as pool:
+        out["startup_s"]["spawn"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with pv2smiles.replicas_for(model, pool, bf16=False) as reps:
+            out["startup_s"]["pv2smiles_weights"] = time.perf_counter() - t0
+            row = sharded_turns(
+                dev, reps, lambda: pv2smiles.to_host(pv2smiles._beam_batch(
+                    model, decoder, torch.as_tensor(pv, device=dev), None,
+                    spec)),
+                lambda: pv2smiles.beam_rows(reps, pv, None, spec, None))
+        one, got = row.pop("unsharded"), row.pop("sharded")
+        want = row["unsharded_launches"][0]
+        if not np.array_equal(got["seqs"], one["seqs"]) or \
+                not np.allclose(got["logp"], one["logp"], atol=1e-5,
+                                rtol=5e-7) or want[0] == 0 or any(
+                    launches != want for launches in row["unsharded_launches"]
+                    + [shard for run in row["shard_launches"]
+                       for shard in run]):
+            fail(f"sharded PV->SMILES differs from the unsharded batch: seqs "
+                 f"equal {np.array_equal(got['seqs'], one['seqs'])}, "
+                 f"launches {row['unsharded_launches']} and by shard "
+                 f"{row['shard_launches']}")
+        finite = np.isfinite(one["logp"])      # -inf where both are
+        out["pv2smiles"] = dict(row, steps=one["steps"],
+                                logp_max_abs_diff=float(np.abs(
+                                    got["logp"][finite]
+                                    - one["logp"][finite]).max()))
+        t0 = time.perf_counter()
+        with Replicas(model, pool) as reps:
+            out["startup_s"]["smiles2pv_weights"] = time.perf_counter() - t0
+            row = sharded_turns(
+                dev, reps, lambda: predict_pv(model, ids, mask,
+                                              device=dev).cpu().numpy(),
+                lambda: predict_pv_rows(reps, ids, mask))
+        one, got = row.pop("unsharded"), row.pop("sharded")
+        err = float(np.abs(got - one).max())
+        if not err <= 1e-5 or any(
+                launches != [0, S2P_LAUNCHES]
+                for launches in row["unsharded_launches"]
+                + [shard for run in row["shard_launches"] for shard in run]):
+            fail(f"sharded SMILES->PV: {err:.2e} from the unsharded batch "
+                 f"(bar 1e-5), launches {row['unsharded_launches']} and by "
+                 f"shard {row['shard_launches']} (each {S2P_LAUNCHES})")
+        out["smiles2pv"] = dict(row, max_abs_diff=err)
     return out
 
 
@@ -3190,9 +3233,9 @@ def main_path_shapes(dev, calls, worst, worst2) -> list:
         row = {"kernel": KERNEL["name"], "path": path, "m": m, "k": k,
                "T": T, "dtype": str(dtype).replace("torch.", ""),
                "positions": sorted(masks), "max_abs_err": max(errs)}
-        if dtype == torch.bfloat16 and (h, T, d) == (12, 104, 64):
+        if dtype == torch.bfloat16 and (h, d) == (12, 64) and T in (64, 104):
             pos, mask = calls.last[key]
-            row.update(time_kernel(dev, m=m, pos=pos, mask=mask, k=k))
+            row.update(time_kernel(dev, m=m, pos=pos, mask=mask, k=k, T=T))
             log_bda_timing(f"{path}, its mask", row)
         rows.append(row)
     for key, inputs in calls.mha.items():
@@ -3212,8 +3255,34 @@ def main_path_shapes(dev, calls, worst, worst2) -> list:
     return rows
 
 
+def headline_decodes(dev, model, calls) -> dict:
+    """The bench's headline decodes, recorded in ``calls`` for the phase
+    "shapes": one bf16 k=2 PV->SMILES batch of 512 at 60 steps (T=64,
+    pv2smiles_beam_k2_throughput) and one at 100 (T=104, its _100step
+    line), with the service's mask (no property masked); each batch's
+    steps, kernel-1 launches and seconds."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.inference.decoding import BeamSpec
+    from spmm_tpu_torch.inference.pv2smiles import _beam_batch, decoder_for
+
+    pv = torch.as_tensor(np.random.default_rng(SEED + 40).normal(
+        size=(512, 53)).astype(np.float32), device=dev)
+    decoder = decoder_for(model, bf16=True)
+    out = {}
+    for steps in (60, 100):
+        spec = BeamSpec(k=2, stop_count=2, max_steps=steps)
+        with calls.recording(f"bench headline, batch 512, {steps} steps"):
+            res, secs, l1, _ = run_counted(dev, lambda: _beam_batch(
+                model, decoder, pv, torch.zeros_like(pv), spec))
+        out[steps] = {"steps": res["steps"], "launches": l1, "s": secs}
+    return out
+
+
 def log_bda_timing(label: str, tm: dict) -> None:
-    log(f"  {label} bf16 m={tm['m']} k={tm['k']} pos={tm['pos']}: kernel "
+    log(f"  {label} bf16 m={tm['m']} k={tm['k']} pos={tm['pos']} "
+        f"T={tm['T']}: kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, sdpa "
         f"{tm['library_ms']:.4f} ms (kernel/sdpa "
         f"{tm['ms'] / tm['library_ms']:.3f}), bound {tm['bound_ms']:.4f} "
@@ -3724,19 +3793,24 @@ def main(argv=None) -> int:
         f"model (bar 1e-5), {row['launches']} fused_mha launches; "
         f"{row['tp_s']:.2f} s, unsharded {row['unsharded_s']:.2f} s")
     row = par["sharded"]
-    log(f"[parallel] devices=[{dev}, {dev}]: fp32 k=2 beam search of 128 "
-        f"PVs, seqs equal to the unsharded batch's, max |logp diff| "
-        f"{row['pv2smiles']['logp_max_abs_diff']:.2e}, "
-        f"{row['pv2smiles']['steps']} steps, kernel-1 launches "
-        f"{row['pv2smiles']['launches']} (unsharded "
-        f"{row['pv2smiles']['unsharded_launches']}), "
-        f"{row['pv2smiles']['sharded_s']:.2f} s (unsharded "
-        f"{row['pv2smiles']['unsharded_s']:.2f} s); fp32 predict_pv of 128 "
-        f"SMILES within {row['smiles2pv']['max_abs_diff']:.2e}, kernel-2 "
-        f"launches {row['smiles2pv']['launches']} (unsharded "
-        f"{row['smiles2pv']['unsharded_launches']}), "
-        f"{row['smiles2pv']['sharded_s']:.2f} s (unsharded "
-        f"{row['smiles2pv']['unsharded_s']:.2f} s)")
+    log(f"[parallel] devices=[{dev}, {dev}], a worker process each: pool "
+        f"start-up (off the batch clock) "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in row["startup_s"].items()))
+    for name, what in (("pv2smiles", "fp32 k=2 beam search of 128 PVs"),
+                       ("smiles2pv", "fp32 predict_pv of 128 SMILES")):
+        r = row[name]
+        log(f"[parallel] sharded {what}: in turns (unsharded, sharded, "
+            f"sharded, unsharded) unsharded "
+            + ", ".join(f"{t:.3f}" for t in r["unsharded_s"])
+            + " s, sharded " + ", ".join(f"{t:.3f}" for t in r["sharded_s"])
+            + " s (sharded / unsharded "
+            f"{sum(r['sharded_s']) / sum(r['unsharded_s']):.3f}); "
+            f"launches (kernel 1, kernel 2) unsharded "
+            f"{r['unsharded_launches']}, each shard's "
+            f"{r['shard_launches']}; "
+            + (f"seqs equal, max |logp diff| {r['logp_max_abs_diff']:.2e}, "
+               f"{r['steps']} steps" if name == "pv2smiles" else
+               f"max |diff| {r['max_abs_diff']:.2e}") + f"; {card}")
     row = par["maps"]
     log(f"[parallel] cross_attention_maps: {row['maps']} maps of "
         f"{row['shape']}, card vs CPU {row['card_vs_cpu_max_abs']:.2e}, rows "
@@ -3801,6 +3875,10 @@ def main(argv=None) -> int:
 
     # ---- shapes: every launch shape of the main paths vs plain ----
     mark("shapes")
+    headline = headline_decodes(dev, model, calls)
+    log("[shapes] the bench's headline decodes, bf16 k=2 batch 512: "
+        + ", ".join(f"{n} steps ran {r['steps']}, {r['launches']} kernel-1 "
+                    f"launches, {r['s']:.3f} s" for n, r in headline.items()))
     log("[shapes] each kernel against its plain version, and timed, at every "
         "launch shape the main paths passed it")
     main_shapes = main_path_shapes(dev, calls, worst, worst2)
@@ -3860,10 +3938,13 @@ def main(argv=None) -> int:
                   evidence_greedy_k1=timing_evidence,
                   main_path_shapes=[row for row in main_shapes
                                     if row["kernel"] == KERNEL["name"]],
+                  headline_launches={steps: row["launches"] for steps, row
+                                     in headline.items()},
                   tp_heads=par["kernels"]["beam_decode_attention"],
                   tp_heads_max_abs_err=par["kernels"]["max_abs_err"][
                       KERNEL["name"]],
-                  sharded_launches=par["sharded"]["pv2smiles"]["launches"],
+                  sharded_launches=par["sharded"]["pv2smiles"][
+                      "shard_launches"][0],
                   occupancy={key: row for key, row in occ.items()
                              if key.startswith(KERNEL["name"])})
     head = timing2[0]
@@ -3892,7 +3973,8 @@ def main(argv=None) -> int:
                    tp_predict_pv_launches=par["tp_predict_pv"]["launches"],
                    pp_launches=ppe["pp"]["kernel2_launches"],
                    pp_microbatch=ppe["pp"]["kernel2"],
-                   sharded_launches=par["sharded"]["smiles2pv"]["launches"],
+                   sharded_launches=par["sharded"]["smiles2pv"][
+                       "shard_launches"][0],
                    sum_launches_x_ms=mha_batch_ms,
                    profile_ms=in_profile,
                    occupancy={key: row for key, row in occ.items()

@@ -37,8 +37,9 @@ def inference_devices(dev: torch.device,
                       batch: int) -> tuple[Optional[list], int]:
     """(every visible card, the batch rounded up to divide over them) when
     the run is on the GPU and there are two cards or more
-    (``parallel.mesh.auto_mesh``: no flag, as JAX's CLIs); else (None,
-    batch), the unsharded path."""
+    (``parallel.mesh.auto_mesh``: no flag, as JAX's CLIs), for a worker
+    process per card (``parallel.replicas``); else (None, batch), the
+    unsharded path."""
     from spmm_tpu_torch.parallel.mesh import auto_mesh
 
     devices = auto_mesh() if dev.type == "cuda" else None

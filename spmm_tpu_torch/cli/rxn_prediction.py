@@ -101,6 +101,7 @@ def main(argv=None):
     from spmm_tpu_torch.data.datasets import USPTODataset, USPTORetroDataset
     from spmm_tpu_torch.data.pipeline import batch_pairs, prefetch
     from spmm_tpu_torch.models.rxn import Rxn
+    from spmm_tpu_torch.parallel.replicas import WorkerPool
     from spmm_tpu_torch.training.finetune import make_rxn_step
     from spmm_tpu_torch.utils.device import fp32_matmuls, resolve_device
     from spmm_tpu_torch.utils.logging import MetricLogger
@@ -156,6 +157,7 @@ def main(argv=None):
         generator = torch.Generator(device=dev).manual_seed(seed)
 
     devices, eval_bs = inference_devices(dev, args.batch_size_eval)
+    pool = None
     best_valid, best_test = 0.0, 0.0
     global_step = 0
     t0 = time.time()
@@ -163,6 +165,9 @@ def main(argv=None):
     logger = MetricLogger(os.path.join(args.output_dir, "metrics.jsonl"))
     epochs_out = []
     try:
+        if devices is not None:
+            # one worker per card for the run; each eval loads its weights
+            pool = WorkerPool(devices)
         for epoch in range(args.epoch):
             if train_ds is not None:
                 print("TRAIN", epoch)
@@ -176,11 +181,11 @@ def main(argv=None):
                     logger.log(global_step, metrics)
             print("VALIDATION")
             val = evaluate(model, tok, valid_ds, args.n_beam, eval_bs,
-                           device=dev, devices=devices)
+                           device=dev, devices=pool)
             print("Accuracy:", val)
             print("TEST")
             tst = evaluate(model, tok, test_ds, args.n_beam, eval_bs,
-                           device=dev, devices=devices)
+                           device=dev, devices=pool)
             print("Accuracy:", tst)
             epochs_out.append({"epoch": epoch, "valid_acc": val,
                                "test_acc": tst})
@@ -194,6 +199,8 @@ def main(argv=None):
                 best_valid, best_test = val, tst
     finally:
         logger.close()
+        if pool is not None:
+            pool.close()
     print(f"{'Evaluation' if args.evaluate else 'Training'} time "
           f"{time.time() - t0:.1f}s")
     print("test ACC of checkpoint with best val ACC:", best_test)

@@ -8,20 +8,21 @@ Two workloads over the same beam search:
     property masking, deterministic k-beam with stop_count=k (reference
     d_pv2smiles_batched.py:17-59).
 
-With ``devices`` (a list of cards, e.g. ``parallel.mesh.auto_mesh()``)
-each batch's rows are split into one contiguous block per card, each
-decoded by that card's replica of the model in a worker thread of its own
-(``parallel.replicas``), and joined in row order: the counterpart of the
-JAX functions' ``mesh=``.  The batch must divide over the cards.  A
-stochastic search draws its noise for the whole batch on every card and
-keeps its own rows', so a sharded batch draws what the unsharded one
-draws.
+With ``devices`` (a list of cards, e.g. ``parallel.mesh.auto_mesh()``,
+or a started ``parallel.replicas.WorkerPool``) each batch's rows are split
+into one contiguous block per entry, each decoded by that entry's replica
+of the model in a worker process of its own (``parallel.replicas``), and
+joined in row order: the counterpart of the JAX functions' ``mesh=``.  The
+batch must divide over the entries.  A stochastic search draws its noise
+for the whole batch in every worker and keeps its own rows', so a sharded
+batch draws what the unsharded one draws.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import random
 from typing import Optional
 
@@ -80,9 +81,37 @@ def _beam_batch(model: SPMM, decoder: BertForMaskedLM, pv: Tensor,
                                generator=generator, cache_dtype=cache_dtype)
 
 
+def with_decoder(model, bf16: bool) -> tuple:
+    """(model, ``decoder_for(model, bf16)``): what a worker of
+    ``replicas_for`` holds."""
+    return model, decoder_for(model, bf16)
+
+
 def replicas_for(model: SPMM, devices, bf16: bool = True) -> Replicas:
-    """(model, its decoder) on every card of ``devices``."""
-    return Replicas(model, devices, lambda m: (m, decoder_for(m, bf16)))
+    """(model, its decoder) in a worker for every entry of ``devices``."""
+    return Replicas(model, devices, functools.partial(with_decoder,
+                                                      bf16=bf16))
+
+
+def _beam_shard(pair, dev, rows: slice, pv: Tensor,
+                prop_mask: Optional[Tensor], *, spec: BeamSpec, b: int,
+                kv_fp8: bool, state: Optional[np.ndarray]) -> tuple:
+    """One worker's block of ``beam_rows``: (host result, the generator's
+    state after it, or None).  ``state`` (the caller's generator's state
+    as bytes) seeds a generator that draws all ``b`` rows' noise at each
+    step, of which this block keeps ``rows``."""
+    model, decoder = pair
+    gen = uniforms = None
+    if spec.stochastic:
+        gen = torch.Generator(device=dev)
+        gen.set_state(torch.from_numpy(state))
+        draw = torch_uniforms(gen, b, spec.k, model.text_cfg.vocab_size, dev)
+
+        def uniforms(step):
+            return draw(step)[rows]
+    res = to_host(_beam_batch(model, decoder, pv, prop_mask, spec,
+                              kv_fp8=kv_fp8, uniforms=uniforms))
+    return res, None if gen is None else gen.get_state()
 
 
 def beam_rows(replicas: Replicas, pv: np.ndarray,
@@ -90,33 +119,18 @@ def beam_rows(replicas: Replicas, pv: np.ndarray,
               generator: Optional[torch.Generator],
               kv_fp8: bool = False) -> dict:
     """``_beam_batch`` of normalized PVs [B, 53] (host arrays) split over
-    ``replicas``' cards; the host result in row order.
+    ``replicas``' workers; the host result in row order.
 
-    In the stochastic mode every card starts from ``generator``'s state,
+    In the stochastic mode every worker starts from ``generator``'s state,
     draws the noise of all B rows at each step and keeps its own rows';
-    ``generator`` is then left where the card that ran the most steps left
-    it, which is where the unsharded batch leaves it."""
-    b = pv.shape[0]
-    state = generator.get_state() if spec.stochastic else None
-
-    def shard(pair, dev, rows, pv_s, mask_s):
-        model, decoder = pair
-        gen = uniforms = None
-        if spec.stochastic:
-            gen = torch.Generator(device=dev)
-            gen.set_state(state)
-            draw = torch_uniforms(gen, b, spec.k, model.text_cfg.vocab_size,
-                                  dev)
-
-            def uniforms(step):
-                return draw(step)[rows]
-        res = to_host(_beam_batch(model, decoder, pv_s, mask_s, spec,
-                                  kv_fp8=kv_fp8, uniforms=uniforms))
-        return res, None if gen is None else gen.get_state()
-
-    parts = replicas.map(shard, pv, prop_mask)
+    ``generator`` is then left where the worker that ran the most steps
+    left it, which is where the unsharded batch leaves it."""
+    state = generator.get_state().numpy() if spec.stochastic else None
+    parts = replicas.map(_beam_shard, pv, prop_mask, spec=spec,
+                         b=pv.shape[0], kv_fp8=kv_fp8, state=state)
     if spec.stochastic:
-        generator.set_state(max(parts, key=lambda p: p[0]["steps"])[1])
+        last = max(parts, key=lambda p: p[0]["steps"])[1]
+        generator.set_state(torch.from_numpy(last))
     return concat_rows([p[0] for p in parts])
 
 

@@ -17,19 +17,22 @@ memory, runs).
 
 With ``devices`` (e.g. ``parallel.mesh.auto_mesh()``) each batch is padded
 to ``batch_size`` rows (``parallel.replicas.pad_rows``, as JAX's
-``_pad_rows``) and split into one contiguous block per card, each decoded
-by that card's replica in a worker thread of its own; the pad rows'
-outputs are dropped.  ``batch_size`` must divide over the cards.
+``_pad_rows``) and split into one contiguous block per entry, each
+decoded by that entry's replica in a worker process of its own; the pad
+rows' outputs are dropped.  ``batch_size`` must divide over the entries.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from spmm_tpu_torch.inference.decoding import (
     BeamSpec, beam_search_batched, greedy_decode)
-from spmm_tpu_torch.inference.pv2smiles import decoder_for, to_host
+from spmm_tpu_torch.inference.pv2smiles import (
+    decoder_for, to_host, with_decoder)
 from spmm_tpu_torch.models.bert import BertForMaskedLM
 from spmm_tpu_torch.models.rxn import Rxn, encode_reactants
 from spmm_tpu_torch.parallel.replicas import Replicas, concat_rows, pad_rows
@@ -82,12 +85,20 @@ def _encode_sources(tok: SmilesTokenizer, batch: list[str], max_src_len: int,
     return torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
 
 
+def _decode_shard(pair, dev, rows: slice, ids: Tensor, mask: Tensor,
+                  run) -> dict:
+    """One worker's block of ``_decode_batches``: the host result of
+    ``run(model, decoder, ids, mask)``."""
+    return to_host(run(*pair, ids, mask))
+
+
 def _decode_batches(model: Rxn, tok: SmilesTokenizer, sources: list[str],
                     batch_size: int, max_src_len: int, bf16: bool, dev,
                     devices, run):
     """Yield (batch of sources, host result of ``run(model, decoder, ids,
     mask)``) for each batch: on ``model``'s card, or padded to
-    ``batch_size`` and split over ``devices``."""
+    ``batch_size`` and split over ``devices`` (``run`` then a module-level
+    function, or a ``functools.partial`` of one)."""
     if devices is None:
         decoder = decoder_for(model, bf16)
         for start in range(0, len(sources), batch_size):
@@ -96,16 +107,15 @@ def _decode_batches(model: Rxn, tok: SmilesTokenizer, sources: list[str],
             yield batch, to_host(run(model, decoder, ids, mask))
         return
     with Replicas(model, devices,
-                  lambda m: (m, decoder_for(m, bf16))) as replicas:
+                  functools.partial(with_decoder, bf16=bf16)) as replicas:
         replicas.check_batch(batch_size)
         for start in range(0, len(sources), batch_size):
             batch = sources[start: start + batch_size]
             ids, mask = _encode_sources(tok, batch, max_src_len, "cpu")
             ids, mask = pad_rows(ids.numpy(), mask.numpy(), batch_size,
                                  tok.cls_token_id)
-            yield batch, concat_rows(replicas.map(
-                lambda pair, d, rows, i, m: to_host(run(*pair, i, m)),
-                ids, mask))
+            yield batch, concat_rows(replicas.map(_decode_shard, ids,
+                                                  mask, run=run))
 
 
 def predict_greedy(model: Rxn, tok: SmilesTokenizer, sources: list[str],
@@ -140,7 +150,7 @@ def predict_beam(model: Rxn, tok: SmilesTokenizer, sources: list[str],
     out: list[list[str]] = []
     for batch, res in _decode_batches(
             model, tok, sources, batch_size, max_src_len, bf16, dev, devices,
-            lambda m, dec, ids, mask: _beam_batch(m, dec, ids, mask, spec)):
+            functools.partial(_beam_batch, spec=spec)):
         seqs, lengths, n_fin = res["seqs"], res["lengths"], res["n_finished"]
         for i in range(len(batch)):
             n_avail = k if n_fin[i] == 0 else min(k, int(n_fin[i]))

@@ -100,13 +100,16 @@ def predict_pv(model: SPMM, input_ids, attention_mask, *,
     return torch.stack(preds, dim=1)
 
 
+def _predict_pv_shard(model: SPMM, dev, rows: slice, ids: Tensor,
+                      mask: Tensor, **kwargs) -> Tensor:
+    """One worker's block of ``predict_pv_rows``."""
+    return predict_pv(model, ids, mask, device=dev, **kwargs)
+
+
 def predict_pv_rows(replicas: Replicas, input_ids, attention_mask,
                     **kwargs) -> np.ndarray:
     """``predict_pv`` of a batch whose rows are split into one contiguous
-    block per card of ``replicas`` (each card's replica in its own worker
-    thread); the host predictions [B, n_properties] in row order."""
-    parts = replicas.map(
-        lambda model, dev, rows, ids, mask: predict_pv(
-            model, ids, mask, device=dev, **kwargs).cpu().numpy(),
-        input_ids, attention_mask)
-    return np.concatenate(parts)
+    block per entry of ``replicas`` (each entry's replica in its own worker
+    process); the host predictions [B, n_properties] in row order."""
+    return np.concatenate(replicas.map(_predict_pv_shard, input_ids,
+                                       attention_mask, **kwargs))

@@ -58,8 +58,9 @@ _count_lock = threading.Lock()
 
 
 def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``: under a lock, since the inference
-    shards (``parallel.replicas``) launch from one thread per card."""
+    """Add one to ``wrapper.launches``, under a lock: a process may launch
+    from more than one thread (a service's batching thread beside its
+    caller's)."""
     with _count_lock:
         wrapper.launches += 1
 

@@ -151,8 +151,9 @@ def auto_mesh() -> Optional[list]:
 
     The inference CLIs call it with no flag, as JAX's call
     ``spmm_tpu.parallel.mesh.auto_mesh``, and pass the list as
-    ``devices=``: each card then decodes a contiguous block of a batch's
-    rows.  On one card they keep the unsharded path."""
+    ``devices=``: a worker process on each card
+    (``parallel.replicas.Replicas``) then decodes a contiguous block of a
+    batch's rows.  On one card they keep the unsharded path."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n <= 1:
         return None

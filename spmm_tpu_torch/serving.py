@@ -8,9 +8,13 @@ device call per batch, and resolves each caller's
 
 :class:`Pv2SmilesService` serves property vector -> SMILES and
 :class:`Smiles2PvService` SMILES -> property vector.  With ``devices`` (a
-list of cards, ``parallel.mesh.auto_mesh()``) each batch's rows are split
-over one replica of the model per card, each in a worker thread of its
-own (``parallel.replicas``), as JAX's services shard over ``mesh``.
+list of cards, ``parallel.mesh.auto_mesh()``, or a started
+``parallel.replicas.WorkerPool``) each batch's rows are split over one
+replica of the model per entry, each in a worker process of its own
+(``parallel.replicas``), as JAX's services shard over ``mesh``.  A service
+holds its ``Replicas`` for its life and closes it in ``close()``; only the
+service's one batching thread calls ``Replicas.map``, which takes one
+caller at a time.
 """
 
 from __future__ import annotations
@@ -117,6 +121,17 @@ class BatchingService:
                 fut.set_result(res)
 
 
+def _checked(replicas, batch_size: int):
+    """``replicas`` if ``batch_size`` divides over it; else it is closed
+    and the batch's ValueError raised."""
+    try:
+        replicas.check_batch(batch_size)
+    except ValueError:
+        replicas.close()
+        raise
+    return replicas
+
+
 class Pv2SmilesService(BatchingService):
     """PV -> SMILES serving: submit a z-normalized [53] property vector,
     receive the generated SMILES string.
@@ -151,8 +166,8 @@ class Pv2SmilesService(BatchingService):
         if devices is None:
             decoder = decoder_for(model, bf16=True)
         else:
-            self._replicas = replicas_for(model, devices)
-            self._replicas.check_batch(batch_size)
+            self._replicas = _checked(replicas_for(model, devices),
+                                      batch_size)
         gen = torch.Generator(device=dev).manual_seed(seed)
         py_rng = random.Random(seed)
 
@@ -214,8 +229,7 @@ class Smiles2PvService(BatchingService):
             model = cast_params_bf16(model)
         self._replicas = None
         if devices is not None:
-            self._replicas = Replicas(model, devices)
-            self._replicas.check_batch(batch_size)
+            self._replicas = _checked(Replicas(model, devices), batch_size)
 
         def batch_fn(smiles: list[str], n: int) -> list[np.ndarray]:
             texts = [s if s.startswith("[CLS]") else "[CLS]" + s

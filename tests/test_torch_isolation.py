@@ -71,6 +71,28 @@ def test_importing_every_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_replica_workers_load_no_jax():
+    """The worker processes of ``parallel.replicas`` (spawned; entry
+    ``replicas._serve``) load neither jax nor spmm_tpu: a fresh interpreter
+    starts a worker and asks it what it has loaded, after a call."""
+    from spmm_tpu_torch.parallel import replicas
+
+    assert replicas._serve.__module__ in _modules()
+    code = (
+        "import torch\n"
+        "import torch_replica_fns as fns\n"
+        "from spmm_tpu_torch.parallel.replicas import Replicas\n"
+        "with Replicas(torch.nn.Linear(2, 2), ['cpu']) as reps:\n"
+        "    print(reps.map(fns.forbidden_modules, torch.zeros(1, 2)))\n"
+        "print(fns.forbidden_modules(None, None, None, None))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([REPO, os.path.join(REPO, "tests")])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines() == ["[[]]", "[]"]
+
+
 def _offending_imports(path: str, rdkit_ok: bool = False) -> list:
     """(path, name) of each import statement in ``path`` that names jax,
     spmm_tpu or a package absent where the port runs; rdkit too unless

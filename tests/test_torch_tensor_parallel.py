@@ -12,6 +12,12 @@ result; each test reads its part.  Bars:
   attention-probability mask is drawn for all heads and cut to the rank's);
 - ``predict_pv`` at dp=2 x tp=2 against JAX's single-device ``predict_pv``:
   2e-5, as JAX's test;
+- a PV->SMILES beam search (``_beam_batch``, fp32 decoder, k=2, the
+  decode's local heads and KV cache under the tp plan) at dp=2 x tp=2,
+  deterministic and stochastic on JAX's own uniforms, against JAX's
+  single-device ``_beam_batch`` and the port's one-process decode:
+  ``seqs``, ``n_finished`` and ``lengths`` exact, ``logp`` within
+  1e-5 + 5e-7 x |logp| (tests/test_torch_decoding.py's bars);
 - two pretrain steps at dp=2 x tp=2, dropout on (a generator per chunk),
   against the port's dp=2 step, which is one process at accum 2 bitwise
   (tests/test_torch_distributed.py): loss 1e-5, parameters 2e-5, queues
@@ -36,6 +42,8 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from spmm_tpu.configs import FinetuneConfig as JaxFcfg
+from spmm_tpu.inference import pv2smiles as jpv
+from spmm_tpu.inference.decoding import BeamSpec as JBeamSpec
 from spmm_tpu.inference.smiles2pv import predict_pv as jax_predict_pv
 from spmm_tpu.models.downstream import init_downstream_params
 from spmm_tpu.models.spmm import init_spmm_params
@@ -50,6 +58,7 @@ from spmm_tpu_torch.models.spmm import SPMM
 from spmm_tpu_torch.parallel import mesh, multihost, tp
 from spmm_tpu_torch.training import pretrain
 
+from test_torch_decoding import jax_uniforms
 from test_torch_distributed import global_data, run_ranks
 from test_torch_pretrain import (
     JPROP, JTEXT, PCFG, STEPS_PER_EPOCH, TPROP, TTEXT, jax_state, pcfgs,
@@ -87,6 +96,24 @@ def spmm_tree() -> dict:
     tree = init_spmm_params(jax.random.PRNGKey(5), JTEXT, JPROP,
                             with_pretrain_heads=False)
     return jax.tree.map(np.asarray, tree)
+
+
+# the beam scenarios: 8 PVs, k=2, deterministic and stochastic
+BEAM_SPECS = {
+    "beam": dict(k=2, stop_count=2, max_steps=12),
+    "beam_stochastic": dict(k=2, stop_count=4, max_steps=12,
+                            stochastic=True)}
+BEAM_RNG = 4
+
+
+def beam_inputs():
+    """8 PVs, their PRNG keys, and the uniforms JAX's stochastic search
+    draws from those keys, one array a step."""
+    pv = np.random.default_rng(9).normal(size=(8, 53)).astype(np.float32)
+    rngs = jax.random.split(jax.random.PRNGKey(BEAM_RNG), 8)
+    draw = jax_uniforms(rngs, 2, TTEXT.vocab_size)
+    steps = BEAM_SPECS["beam_stochastic"]["max_steps"]
+    return pv, rngs, [draw(s) for s in range(steps + 1)]
 
 
 FCFG = dict(epochs=2, batch_size_train=8)
@@ -132,7 +159,10 @@ def tp_run(tmp_path_factory):
         dict(name="pv", kind="predict_pv", mesh=[2, 2, "tp"]),
         dict(name="step", kind="pretrain", mesh=[2, 2, "tp"], accum=1,
              steps=3, dropout=True, batches="data4", save_at=2),
-        dict(name="finetune", kind="finetune", mesh=[2, 2, "tp"])]
+        dict(name="finetune", kind="finetune", mesh=[2, 2, "tp"])] + [
+        dict(name=name, kind="beam", mesh=[2, 2, "tp"], spec=spec)
+        for name, spec in BEAM_SPECS.items()]
+    beam_pv, _, beam_uniforms = beam_inputs()
     torch.save({"state": pretrain_state_dict_from_jax(st, TTEXT, TPROP),
                 "spmm": state_dict_from_jax_tree(spmm_tree(), TTEXT, TPROP),
                 "configs": [dataclasses.asdict(TTEXT),
@@ -143,6 +173,8 @@ def tp_run(tmp_path_factory):
                 "data4": tuple([torch_tree(x) for x in d] for d in data4),
                 "downstream": downstream_state_dict_from_jax_tree(
                     downstream_tree(), TTEXT),
+                "beam_pv": torch.tensor(beam_pv),
+                "beam_uniforms": beam_uniforms,
                 "fcfg": FCFG, "ft_steps_per_epoch": FT_STEPS_PER_EPOCH,
                 "ft_batches": [{k: torch.tensor(v) for k, v in b.items()}
                                for b in ft_batches()],
@@ -243,6 +275,45 @@ def test_predict_pv_dp_tp_matches_jax_single_device(tp_run):
 
     one = predict_pv(model.eval(), ids, mask, n_properties=5, device="cpu")
     np.testing.assert_allclose(got, one.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", list(BEAM_SPECS))
+def test_beam_search_dp_tp_matches_jax_single_device(tp_run, name):
+    """dp=2 x tp=2: each dp rank's 4 rows decoded with 2 heads a rank (the
+    kernel's plain version on the CPU) against JAX's single-device
+    _beam_batch and the port's one-process decode, both ranks of a dp
+    group alike."""
+    from spmm_tpu_torch.inference import pv2smiles
+    from spmm_tpu_torch.inference.decoding import BeamSpec
+
+    spec = BEAM_SPECS[name]
+    pv, rngs, uniforms = beam_inputs()
+    want = jax.device_get(jpv._beam_batch(
+        jax.tree.map(jnp.asarray, spmm_tree()), jnp.asarray(pv), None, rngs,
+        JBeamSpec(**spec), JTEXT, JPROP, bf16=False))
+    model = SPMM(TTEXT, TPROP)
+    model.load_state_dict(state_dict_from_jax_tree(spmm_tree(), TTEXT,
+                                                   TPROP), strict=True)
+    model.eval()
+    one = pv2smiles.to_host(pv2smiles._beam_batch(
+        model, pv2smiles.decoder_for(model, bf16=False), torch.tensor(pv),
+        None, BeamSpec(**spec), uniforms=lambda step: uniforms[step]))
+    keys = ("seqs", "n_finished", "lengths", "logp")
+    got = {key: np.zeros_like(one[key]) for key in keys}
+    for rank in tp_run["out"][name]:
+        for key in keys:
+            got[key][rank["rows"].numpy()] = rank[key].numpy()
+    for ref in (want, one):
+        for key in ("seqs", "n_finished", "lengths"):
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+        np.testing.assert_allclose(got["logp"], ref["logp"], atol=1e-5,
+                                   rtol=5e-7)
+    ranks = tp_run["out"][name]
+    assert [rank["heads"] for rank in ranks] == [2] * 4     # 4 heads, tp=2
+    for a, b in ((ranks[0], ranks[1]), (ranks[2], ranks[3])):
+        assert torch.equal(a["rows"], b["rows"])
+        assert torch.equal(a["seqs"], b["seqs"])
+    assert not torch.equal(ranks[0]["rows"], ranks[2]["rows"])
 
 
 def assert_step_bars(got: dict, want: dict, ptr: int) -> None:

@@ -18,8 +18,8 @@ state dict, the losses, the optimizer state's element count);
 
 joins the group likewise and runs each scenario of ``WORKDIR/input.pt``
 on the process-wide mesh it names (``run_parallel``: pretrain steps under
-dp x tp, dp x tp with sp, or dp x fsdp; an MLM forward; ``predict_pv``),
-writing ``WORKDIR/<scenario>_rank<RANK>.pt``;
+dp x tp, dp x tp with sp, or dp x fsdp; an MLM forward; ``predict_pv``; a
+PV->SMILES beam search), writing ``WORKDIR/<scenario>_rank<RANK>.pt``;
 
     python tests/torch_dist_worker.py blocks WORKDIR RANK WORLD
 
@@ -114,8 +114,8 @@ def local_elements(tensors) -> int:
 
 
 def run_parallel(inp: dict, sc: dict, workdir: str) -> dict:
-    """``sc``: name, kind ("pretrain", "mlm", "predict_pv" or "finetune"),
-    mesh [dp, minor, "tp" | "fsdp"] or None, and per kind:
+    """``sc``: name, kind ("pretrain", "mlm", "predict_pv", "beam" or
+    "finetune"), mesh [dp, minor, "tp" | "fsdp"] or None, and per kind:
 
     - pretrain: accum, steps, sp, dropout (a generator per chunk from
       seed 11, else the fixed noise), optionally pcfg (PretrainConfig
@@ -123,6 +123,9 @@ def run_parallel(inp: dict, sc: dict, workdir: str) -> dict:
     - mlm: the BertForMaskedLM of the state's text encoder on ``mlm``'s
       ids, mask and encoder states, dropout on from a generator seeded 5;
     - predict_pv: ``predict_pv`` of this dp rank's rows of ``s2p``;
+    - beam: ``pv2smiles._beam_batch`` (fp32 decoder) of this dp rank's rows
+      of ``beam_pv`` under ``spec`` (BeamSpec fields), the stochastic mode
+      fed those rows of ``beam_uniforms`` (one array a step);
     - finetune: the classification step of ``make_downstream_step`` on
       ``downstream`` (a Downstream state) over ``ft_batches``, this dp
       rank's rows of each.
@@ -162,6 +165,26 @@ def run_parallel(inp: dict, sc: dict, workdir: str) -> dict:
         rows = torch.arange(rows.start, rows.stop)
         return {"rows": rows, "pv": predict_pv(model, ids[rows], mask[rows],
                                                n_properties=5, device=cpu)}
+    if sc["kind"] == "beam":
+        from spmm_tpu_torch.inference import pv2smiles
+        from spmm_tpu_torch.inference.decoding import BeamSpec, decoder_heads
+
+        model = SPMM(*inp["configs"])
+        model.load_state_dict(inp["spmm"], strict=True)
+        tp.apply_tp(model.eval())
+        pv = inp["beam_pv"]
+        rows = multihost.process_rows(pv.shape[0], rank, world)
+        rows = torch.arange(rows.start, rows.stop)
+        spec = BeamSpec(**sc["spec"])
+
+        def uniforms(step):
+            return inp["beam_uniforms"][step][rows]
+        decoder = pv2smiles.decoder_for(model, bf16=False)
+        res = pv2smiles._beam_batch(
+            model, decoder, pv[rows], None, spec,
+            uniforms=uniforms if spec.stochastic else None)
+        return {"rows": rows, "heads": decoder_heads(decoder, model.text_cfg),
+                **res}
     pcfg = PretrainConfig(**inp["pcfg"], **sc.get("pcfg", {}))
     model = pretrain.PretrainModel(*inp["configs"], pcfg.embed_dim,
                                    pcfg.queue_size)
