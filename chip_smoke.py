@@ -94,6 +94,22 @@ Phases, in order; any failure exits non-zero:
               steps, n_finished), as initialised and with the [SEP] logit
               raised above every row's least gap (the stop rule runs);
               12 kernel-1 launches per step, 6 kernel-2 launches per batch;
+  graphs      the decode loops as captured CUDA graphs (inference/
+              decoding.py's DecodeGraphs, which every decode on the card
+              runs through) against the eager loop (decoding.*_eager) on
+              the same inputs, at full width through the entry points the
+              services and the bench call: bf16 k=2 PV->SMILES at batch 128
+              and 512, fp32 at 128, the fp8 cache at 128, the stochastic
+              mode at 128 (a generator from one seed each run), rxn greedy
+              bf16 at 128 and the k=5 beam at 32, 100 steps at most: the
+              capturing call, then turns of eager, graph, graph, eager;
+              seqs, lengths, n_finished and steps equal, logp bit for bit
+              (else within 1e-5 + 5e-7 |logp|), the generator's state and
+              the kernel launches equal (12 kernel-1 launches a step: a
+              replay adds what its capture recorded); the walls, the
+              graphs' capture seconds, pool and state memory, and one graph
+              batch's device busy time under torch.profiler.  Every later
+              phase decodes through the graphs;
   5. serving  HTTP server -> Pv2SmilesService (bf16, k=2, batch 128):
               raw and partially masked requests, /healthz, a timed full
               batch, one kv_fp8 batch; then HTTP -> Smiles2PvService (fp32,
@@ -592,7 +608,11 @@ class KernelCalls:
     before, so their launch counts are untouched.  Per launch shape, kernel
     1's mask at layer 0 of the steps at POS_SAMPLES and of the deepest step
     (a later decode of the same shape that stops sooner does not replace
-    it), and kernel 2's inputs at its first call."""
+    it), and kernel 2's inputs at its first call.  A decode on the card
+    calls the wrapper only while it captures its CUDA graphs, so recording
+    starts by dropping every captured decode (``decoding.graph_cache``):
+    the path's decodes capture theirs inside it, and a recorded mask is the
+    buffer its graph writes at every replay."""
 
     POS_SAMPLES = (0, 1, 33, 100)
 
@@ -610,6 +630,7 @@ class KernelCalls:
         from spmm_tpu_torch.ops import attention
 
         bda, mha = decoding.beam_decode_attention, attention.fused_mha
+        decoding.graph_cache.clear()
 
         def strided_copy(t):
             return None if t is None else torch.empty_strided(
@@ -1336,6 +1357,206 @@ def exactness_rxn(dev, rxn, decoder, n_greedy: int = 8,
 
 
 # --------------------------------------------------------------------------- #
+# phase "graphs": the decode loops as captured CUDA graphs vs the eager loop
+# --------------------------------------------------------------------------- #
+
+
+@contextlib.contextmanager
+def eager_decodes():
+    """While the block runs, the main paths' decode calls (``_beam_batch``
+    of PV->SMILES and of reactions, ``_greedy_batch``) go to the eager loop
+    (``decoding.*_eager``), the reference the graphs are held to."""
+    from spmm_tpu_torch.inference import decoding, pv2smiles, rxn
+
+    names = ((pv2smiles, "beam_search_batched",
+              decoding.beam_search_batched_eager),
+             (rxn, "beam_search_batched", decoding.beam_search_batched_eager),
+             (rxn, "greedy_decode", decoding.greedy_decode_eager))
+    saved = [getattr(mod, name) for mod, name, _ in names]
+    try:
+        for mod, name, eager in names:
+            setattr(mod, name, eager)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(names, saved):
+            setattr(mod, name, fn)
+
+
+def same_decode(got: dict, want: dict) -> dict:
+    """Every key of two decode results equal (floats bit for bit); where a
+    float differs, its largest difference against the bar 1e-5 +
+    5e-7 |want| (tests/test_torch_decoding.py's)."""
+    import torch
+
+    out = {"bitwise": True, "logp_max_abs_diff": 0.0, "within_bar": True}
+    if got.keys() != want.keys():
+        fail(f"decode results with keys {sorted(got)} and {sorted(want)}")
+    for key, value in want.items():
+        if key == "steps" or not value.is_floating_point():
+            if (got[key] != value if key == "steps"
+                    else not torch.equal(got[key], value)):
+                fail(f"graph and eager decodes differ in {key}")
+            continue
+        if torch.equal(bits(got[key]), bits(value)):
+            continue
+        out["bitwise"] = False
+        fin = torch.isfinite(value)
+        if not torch.equal(torch.isfinite(got[key]), fin) or not torch.equal(
+                got[key][~fin], value[~fin]):
+            fail(f"graph and eager decodes differ in {key}'s infinities")
+        err = (got[key][fin] - value[fin]).abs()
+        out["logp_max_abs_diff"] = max(out["logp_max_abs_diff"],
+                                       err.max().item() if err.numel() else 0)
+        out["within_bar"] &= bool((err <= 1e-5 + 5e-7 * value[fin].abs())
+                                  .all())
+    return out
+
+
+def graph_paths(dev, model, rxn) -> list:
+    """(name, run(generator) -> result, molecules, k, decoder layers) of each
+    path the phase holds: PV->SMILES k=2 (bf16 at 128 and 512, fp32, the
+    fp8 cache, stochastic from a generator), rxn greedy bf16 at 128 and
+    the k=5 beam at 32, all 100 steps at most, through the entry points
+    the services and the bench call."""
+    import numpy as np
+    import torch
+
+    from spmm_tpu_torch.inference import pv2smiles
+    from spmm_tpu_torch.inference import rxn as rxn_inf
+    from spmm_tpu_torch.inference.decoding import BeamSpec
+
+    bf16 = pv2smiles.decoder_for(model, bf16=True)
+    rxn_bf16 = pv2smiles.decoder_for(rxn, bf16=True)
+
+    def pvs(n):
+        return torch.as_tensor(np.random.default_rng(SEED + 50 + n).normal(
+            size=(n, 53)).astype(np.float32), device=dev)
+
+    def pv_path(decoder, n, kv_fp8=False, stochastic=False):
+        pv = pvs(n)
+        spec = BeamSpec(k=2, stop_count=2, stochastic=stochastic)
+        return lambda gen: pv2smiles._beam_batch(
+            model, decoder, pv, None, spec, generator=gen, kv_fp8=kv_fp8)
+
+    greedy_in = rxn_bench_batch(dev, 128, SEED + 51)
+    beam_in = rxn_bench_batch(dev, 32, SEED + 52)
+    beam_spec = BeamSpec(k=5, stop_count=25)
+    pl, rl = (model.text_cfg.num_hidden_layers,
+              rxn.decoder_cfg.num_hidden_layers)
+    return [
+        ("pv2smiles bf16 k=2 batch 128", pv_path(bf16, 128), 128, 2, pl),
+        ("pv2smiles bf16 k=2 batch 512", pv_path(bf16, 512), 512, 2, pl),
+        ("pv2smiles fp32 k=2 batch 128", pv_path(model.text_encoder, 128),
+         128, 2, pl),
+        ("pv2smiles bf16 k=2 fp8 cache batch 128",
+         pv_path(bf16, 128, kv_fp8=True), 128, 2, pl),
+        ("pv2smiles bf16 k=2 stochastic batch 128",
+         pv_path(bf16, 128, stochastic=True), 128, 2, pl),
+        ("rxn greedy bf16 batch 128", lambda gen: rxn_inf._greedy_batch(
+            rxn, rxn_bf16, *greedy_in), 128, 1, rl),
+        ("rxn k=5 beam bf16 batch 32", lambda gen: rxn_inf._beam_batch(
+            rxn, rxn_bf16, *beam_in, beam_spec), 32, 5, rl),
+    ]
+
+
+def graphs_phase(dev, model, rxn) -> list:
+    """Each path of ``graph_paths`` through its graphs against the eager
+    loop on the same input: the capturing call, then turns of eager, graph,
+    graph, eager; every output equal (floats bit for bit, else within the
+    bar), ``steps`` equal, the same kernel launches (kernel 1: 12 a step),
+    a generator from one seed left in the same state; walls, capture
+    seconds, the graph pool's and the state's bytes, and the device's busy
+    time of one graph batch (torch.profiler)."""
+    import torch
+
+    from spmm_tpu_torch.inference.decoding import graph_cache
+    from spmm_tpu_torch.utils.profiling import device_breakdown
+
+    graph_cache.clear()
+    rows = []
+    for name, run, mols, k, layers in graph_paths(dev, model, rxn):
+
+        def call(eager: bool):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+            with eager_decodes() if eager else contextlib.nullcontext():
+                res, secs, l1, l2 = run_counted(dev, lambda: run(gen))
+            return res, secs, (l1, l2), gen.get_state()
+
+        before = graph_cache.stats()
+        first = call(False)
+        after = graph_cache.stats()
+        shape = after["shapes"][-1]
+        turns = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            turns[mode].append(call(mode == "eager"))
+        want, _, launches, state = turns["eager"][0]
+        agree = {"bitwise": True, "logp_max_abs_diff": 0.0,
+                 "within_bar": True}
+        for got, _, n, st in [first] + turns["graph"] + turns["eager"][1:]:
+            row = same_decode(got, want)
+            agree["bitwise"] &= row["bitwise"]
+            agree["within_bar"] &= row["within_bar"]
+            agree["logp_max_abs_diff"] = max(agree["logp_max_abs_diff"],
+                                             row["logp_max_abs_diff"])
+            if n != launches:
+                fail(f"{name}: launches {n} through the graphs, {launches} "
+                     f"eagerly")
+            if not torch.equal(st, state):
+                fail(f"{name}: the generator ends in another state")
+        if not agree["within_bar"]:
+            fail(f"{name}: logp differ by {agree['logp_max_abs_diff']:.3e}, "
+                 f"past 1e-5 + 5e-7 |logp|")
+        steps = want["steps"]
+        if launches[0] != layers * steps:
+            fail(f"{name}: {launches[0]} kernel-1 launches for {steps} steps")
+        prof = device_breakdown(lambda: run(None))
+        eager_s = [t[1] for t in turns["eager"]]
+        graph_s = [t[1] for t in turns["graph"]]
+        busy = prof["device_busy_s"]
+        rows.append({
+            "path": name, "batch": mols, "k": k, "steps": steps,
+            "launches": list(launches), **agree,
+            "eager_s": eager_s, "graph_s": graph_s,
+            "graph_over_eager": sum(graph_s) / sum(eager_s),
+            "capturing_call_s": first[1],
+            "graphs": after["captured"] - before["captured"],
+            "capture_s": after["capture_s"] - before["capture_s"],
+            "pool_bytes": shape["pool_bytes"],
+            "state_bytes": shape["state_bytes"],
+            "device_busy_s": busy, "profiled_wall_s": prof["wall_s"],
+            "busy_share_eager": None if busy is None else
+            busy / (sum(eager_s) / len(eager_s)),
+            "busy_share_graph": None if busy is None else
+            busy / (sum(graph_s) / len(graph_s))})
+    graph_cache.clear()
+    return rows
+
+
+def log_graphs(rows: list, card: str) -> None:
+    for row in rows:
+        busy = row["device_busy_s"]
+        log(f"[graphs] {row['path']}: {row['steps']} steps, launches "
+            f"{row['launches']} (kernel 1, kernel 2) as the eager loop's, "
+            f"outputs equal ("
+            + ("logp bit for bit" if row["bitwise"] else
+               f"logp within {row['logp_max_abs_diff']:.2e}, inside 1e-5 + "
+               f"5e-7 |logp|")
+            + "); in turns eager "
+            + ", ".join(f"{t:.3f}" for t in row["eager_s"]) + " s, graph "
+            + ", ".join(f"{t:.3f}" for t in row["graph_s"])
+            + f" s (graph / eager {row['graph_over_eager']:.3f}); capturing "
+            f"call {row['capturing_call_s']:.3f} s, {row['graphs']} graphs "
+            f"captured in {row['capture_s']:.3f} s, pool "
+            f"{row['pool_bytes'] / 2 ** 20:.1f} MiB, state "
+            f"{row['state_bytes'] / 2 ** 20:.1f} MiB; device busy "
+            + ("not measured (no device events)" if busy is None else
+               f"{busy:.3f} s a batch = "
+               f"{100 * row['busy_share_eager']:.1f}% of the eager wall, "
+               f"{100 * row['busy_share_graph']:.1f}% of the graph wall")
+            + f"; {card}")
+
+
+# --------------------------------------------------------------------------- #
 # phase 5: serving through the HTTP front-end
 # --------------------------------------------------------------------------- #
 
@@ -1429,9 +1650,11 @@ def serving(dev, model, batch: int = 128) -> dict:
         if launches <= 0 or launches % model.text_cfg.num_hidden_layers:
             fail(f"serving ran {launches} kernel launches")
 
+        fp8_pvs = [np.asarray(stats.normalize(np.asarray(p["pv"], np.float32)))
+                   for p in wave2]
+        svc_fp8.map(fp8_pvs)                # its first batch captures
         fp8_before = svc_fp8.stats["batch_seconds"]
-        fp8 = svc_fp8.map([np.asarray(stats.normalize(
-            np.asarray(p["pv"], np.float32))) for p in wave2])
+        fp8 = svc_fp8.map(fp8_pvs)
         fp8_s = svc_fp8.stats["batch_seconds"] - fp8_before
         if not all(isinstance(s, str) for s in fp8):
             fail("kv_fp8 batch returned a non-string")
@@ -1531,11 +1754,11 @@ def rxn_decoding(dev, rxn, calls, batch: int = 128,
         _greedy_batch, decoder_for, predict_beam)
 
     decoder = decoder_for(rxn, bf16=True)
-    _greedy_batch(rxn, decoder, *rxn_bench_batch(dev, batch, SEED + 5))
     ids, mask = rxn_bench_batch(dev, batch, SEED + 4)
-    reset_launch_counts()                       # the main path starts here
-    with calls.recording("rxn greedy batch"):   # ... and ends here
-        res, greedy_s, g1, g2 = run_counted(
+    with calls.recording("rxn greedy batch"):   # the warm-up captures
+        _greedy_batch(rxn, decoder, *rxn_bench_batch(dev, batch, SEED + 5))
+        reset_launch_counts()                   # the main path starts here
+        res, greedy_s, g1, g2 = run_counted(    # ... and ends here
             dev, lambda: _greedy_batch(rxn, decoder, ids, mask))
     check_rxn_launches("bf16 greedy batch", res["steps"], g1, g2)
     seqs = res["seqs"]
@@ -1545,11 +1768,13 @@ def rxn_decoding(dev, rxn, calls, batch: int = 128,
 
     tok = make_tokenizer()
     sources = rxn_sources(beam_batch)
-    predict_beam(rxn, tok, sources, k=5, batch_size=beam_batch, device=dev)
-    reset_launch_counts()                       # the main path starts here
-    with calls.recording("rxn predict_beam k=5"):   # ... and ends here
-        cands, beam_s, b1, b2 = run_counted(dev, lambda: predict_beam(
-            rxn, tok, sources, k=5, batch_size=beam_batch, device=dev))
+    with calls.recording("rxn predict_beam k=5"):   # the warm-up captures
+        predict_beam(rxn, tok, sources, k=5, batch_size=beam_batch,
+                     device=dev)
+        reset_launch_counts()                   # the main path starts here
+        cands, beam_s, b1, b2 = run_counted(    # ... and ends here
+            dev, lambda: predict_beam(rxn, tok, sources, k=5,
+                                      batch_size=beam_batch, device=dev))
     if b1 <= 0 or b1 % 12 or b2 != RXN_ENC_LAYERS:
         fail(f"predict_beam: {b1} kernel-1 and {b2} kernel-2 launches")
     if len(cands) != beam_batch or not all(
@@ -3323,7 +3548,8 @@ def profile_batch(dev, model, batch: int = 128) -> dict:
     def run():
         out["res"] = _beam_batch(model, decoder, pv, mask, spec)
 
-    sync(dev)                     # warm: phase 5 ran this shape
+    run()                         # captures this decoder's graphs
+    sync(dev)
     t0 = time.perf_counter()
     run()
     sync(dev)
@@ -3345,7 +3571,8 @@ def profile_rxn(dev, rxn, batch: int = 128) -> dict:
     def run():
         out["res"] = _greedy_batch(rxn, decoder, ids, mask)
 
-    sync(dev)                     # warm: the rxn phase ran this shape
+    run()                         # captures this decoder's graphs
+    sync(dev)
     t0 = time.perf_counter()
     run()
     sync(dev)
@@ -3570,6 +3797,11 @@ def main(argv=None) -> int:
     exact["rxn_sep_bias"] = bias
     del sep_biased
 
+    # ---- graphs: the decode loops as CUDA graphs against the eager loop ----
+    mark("graphs")
+    graphs = graphs_phase(dev, model, rxn)
+    log_graphs(graphs, card)
+
     # ---- 5. serving: each path is a main path ----
     mark("serving")
     calls = KernelCalls()         # what the main paths pass the kernels
@@ -3658,6 +3890,9 @@ def main(argv=None) -> int:
 
     # ---- pretrain: the gate, fp32 and bf16 steps, the CLIs ----
     mark("pretrain")
+    from spmm_tpu_torch.inference.decoding import graph_cache
+
+    graph_cache.clear()           # the decodes' caches and decoders go
     pt = {"gate": pretrain_gate(dev)}
     gate = pt["gate"]
     log(f"[pretrain] gate, full width, batch {PRETRAIN_GATE[0]}, queue "
@@ -3923,7 +4158,8 @@ def main(argv=None) -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"serving": serve, "serving_smiles2pv": serve2,
-                      "exact": exact, "rxn": rxn_run, "finetune": ft,
+                      "exact": exact, "graphs": graphs, "rxn": rxn_run,
+                      "finetune": ft,
                       "pretrain": pt, "chain": chain, "parallel": par,
                       "pp_ep": ppe, "bench": bench_run,
                       "profile": profiles}))

@@ -60,7 +60,8 @@ the reference's decode strategy on torch on the CPU, not a TPU number.
 
 Timing: each workload is warmed up first (a kernel's first-use build
 belongs there; on the card both kernels are built, in parallel, before any
-workload); every timed batch gets fresh inputs made from the seed, moved to
+workload, and a decode's warm-up batch captures its CUDA graphs, whose
+seconds it prints to stderr); every timed batch gets fresh inputs made from the seed, moved to
 the device before the clock starts, and ends with a host fetch of a
 reduction of its result (the hard data dependency of bench.py:162-172);
 the host clock reads around work that ends in ``torch.cuda.synchronize``.
@@ -108,7 +109,7 @@ import torch
 
 from spmm_tpu_torch.configs import BertArchConfig, PretrainConfig
 from spmm_tpu_torch.data.pipeline import batch_pretrain, prefetch
-from spmm_tpu_torch.inference.decoding import BeamSpec
+from spmm_tpu_torch.inference.decoding import BeamSpec, graph_cache
 from spmm_tpu_torch.inference.pv2smiles import _beam_batch as pv_beam_batch
 from spmm_tpu_torch.inference.pv2smiles import decoder_for
 from spmm_tpu_torch.inference.rxn import _beam_batch as rxn_beam_batch
@@ -284,6 +285,21 @@ def rxn_beam_spec(steps: int, attention: str) -> BeamSpec:
                     attention=attention)
 
 
+def warm_up(dev: torch.device, what: str, run: Callable, x):
+    """``run(x)``, a decode workload's warm-up batch, before the clock; its
+    seconds, and those of the decode graphs it captured (on a card), to
+    stderr.  Returns its result."""
+    before = graph_cache.stats()
+    t0 = time.perf_counter()
+    out = run(x)
+    _sync(dev)
+    after = graph_cache.stats()
+    log(f"{what}: warm-up batch {time.perf_counter() - t0:.1f} s, of which "
+        f"{after['capture_s'] - before['capture_s']:.1f} s capturing "
+        f"{after['captured'] - before['captured']} decode graphs")
+    return out
+
+
 def timed(dev: torch.device, inputs: Sequence, run: Callable,
           fetch: Callable) -> tuple[list, list, float]:
     """Each of ``inputs`` through ``run``, each ended by ``fetch`` (a host
@@ -391,7 +407,8 @@ class Bench:
 
             def measure(batch):
                 warm, = self.tensors(decode_inputs(s.seed, 0, batch))
-                sums = [fetch(run(warm))[0]]
+                sums = [fetch(warm_up(dev, f"{metric} batch {batch}", run,
+                                      warm))[0]]
                 correct = self.decode_check(model, warm[:CHECK_ROWS], steps)
                 n = max(s.n_molecules // batch, 1)
                 inputs = [self.tensors(decode_inputs(s.seed, i + 1, batch))[0]
@@ -493,7 +510,8 @@ class Bench:
 
         def measure(batch):
             warm = self.rxn_inputs(_RXN, 0, batch)
-            sums = [fetch(run(warm))[0]]
+            sums = [fetch(warm_up(dev, f"rxn greedy batch {batch}", run,
+                                  warm))[0]]
             part = tuple(t[:CHECK_ROWS] for t in warm)
             got, want = (run(part, model.text_encoder, attention)
                          for attention in ("kernel", "plain"))
@@ -526,7 +544,8 @@ class Bench:
 
         def measure(batch):
             warm = self.rxn_inputs(_BEAM, 0, batch)
-            sums = [fetch(run(warm))[0]]
+            sums = [fetch(warm_up(dev, f"rxn k=5 beam batch {batch}", run,
+                                  warm))[0]]
             part = tuple(t[:CHECK_ROWS] for t in warm)
             correct = beams_agree(*(run(part, model.text_encoder, attention)
                                     for attention in ("kernel", "plain")))

@@ -23,11 +23,29 @@ allocated at ``max_len`` once and the kernel reads only the live prefix.
 Every ``top_k`` of the JAX code is ``_top_k`` here: a stable descending sort,
 so equal values keep their order, first occurrence first, as ``lax.top_k``
 does (the harvest merge is full of -inf ties).
+
+The JAX package runs the whole loop on the device inside ``lax.while_loop``
+segments.  Here a decode has three parts: a prologue (the cross K/V,
+``precompute_cross_kv``, and the state loaded and reset), a step body that
+reads and writes a fixed set of state tensors in place (``_BeamDecode``,
+``_GreedyDecode``), and a runner.  On a CUDA tensor the runner replays the
+body as CUDA graphs, one captured per position and kept per shape
+(``DecodeGraphs``, ``graph_cache``), with no per-step Python dispatch of
+the step's ops; on a CPU tensor, and for a decoder laid out by tensor
+parallelism, it calls the body step by step (``beam_search_batched_eager``,
+``greedy_decode_eager``, also callable on the card by name).  Either way
+the host reads the stop test after each step, so ``steps``, the early exit
+and the noise drawn are the same.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import itertools
+import threading
+import time
 from typing import Callable, Optional
 
 import torch
@@ -35,6 +53,7 @@ import torch
 from spmm_tpu_torch.configs import BertArchConfig
 from spmm_tpu_torch.models.bert import (
     BertForMaskedLM, local_heads, merge_heads, split_heads)
+from spmm_tpu_torch.ops._build import captured_launches, count_launch
 from spmm_tpu_torch.ops.attention import multi_head_attention
 from spmm_tpu_torch.ops.decode_attention import (
     ancestry_mask,
@@ -208,6 +227,486 @@ def torch_uniforms(generator: torch.Generator, m: int, k: int,
     return draw
 
 
+# ---- the decode state: buffers allocated once, one step body ----
+
+class _Decode:
+    """One decode's buffers and its step body, which reads and writes them
+    in place (``copy_``, never rebinding), so that a CUDA graph captured
+    from the body replays on the same memory; the eager loop runs the same
+    body.  ``load`` is the prologue, ``result`` the epilogue."""
+
+    kind = ""
+
+    def buffers(self) -> list[Tensor]:
+        """Every tensor the state holds."""
+        out = []
+        for value in vars(self).values():
+            if isinstance(value, dict):
+                out += [t for t in value.values() if isinstance(t, Tensor)]
+            elif isinstance(value, Tensor):
+                out.append(value)
+        return out
+
+    def _load_inputs(self, cross_kv: dict[str, Tensor],
+                     cross_mask: Tensor) -> None:
+        for name, value in cross_kv.items():
+            self.cross[name].copy_(value)
+        self.cross_mask.copy_(cross_mask)
+        self.cache.zero_()
+        self.stop.zero_()
+
+    def stopped(self) -> bool:
+        """The stop test of the last step, read on the host."""
+        return bool(self.stop)
+
+    def describe(self) -> dict:
+        _, _, m, _, k, T, _ = self.cache.shape
+        return {"kind": self.kind, "m": m, "k": k, "T": T,
+                "Le": self.cross_mask.shape[1],
+                "cache_dtype": str(self.cache.dtype).split(".")[-1],
+                "attention": self.attention, "stochastic": self.stochastic}
+
+
+class _BeamDecode(_Decode):
+    """State of ``beam_search_batched``: seqs, logp and anc; the running
+    top-k of harvested beams (fin_*), done and the stop flag; the KV cache;
+    this call's cross K/V and mask; the noise buffers of the stochastic
+    mode (float32, as ``torch_uniforms`` draws).  The live scores ``logp``
+    are held in fp32, which holds a bf16 score exactly, and used in the
+    logits' dtype, so a bf16 decoder's scores stay bf16 as in JAX."""
+
+    kind = "beam"
+
+    def __init__(self, model: BertForMaskedLM, cfg: BertArchConfig,
+                 spec: BeamSpec, cross_kv: dict[str, Tensor],
+                 cross_mask: Tensor, cache_dtype: torch.dtype):
+        dev = cross_mask.device
+        m, k, T = cross_mask.shape[0], spec.k, spec.max_len
+        self.model, self.cfg, self.spec = model, cfg, spec
+        self.attention, self.stochastic = spec.attention, spec.stochastic
+        self.cache = init_beam_cache_kv(cfg, m, k, T, cache_dtype, dev,
+                                        decoder_heads(model, cfg))
+        self.cross = {name: torch.empty_like(v) for name, v in cross_kv.items()}
+        self.cross_mask = torch.empty_like(cross_mask)
+        self.lane_ids = torch.arange(k, device=dev)
+        self.t_ids = torch.arange(T, device=dev)
+        ints = {"dtype": torch.int64, "device": dev}
+        self.seqs = torch.zeros((m, k, T), **ints)
+        self.logp = torch.zeros((m, k), dtype=torch.float32, device=dev)
+        # anc[m, b, t] = cache lane holding beam b's K/V for position t
+        self.anc = torch.zeros((m, k, T), **ints)
+        # running top-k of harvested beams; the buffer comes before the new
+        # candidates in the merge, so earlier harvests win ties
+        self.fin_seqs = torch.zeros((m, k, T), **ints)
+        self.fin_logp = torch.zeros((m, k), dtype=torch.float32, device=dev)
+        self.fin_len = torch.zeros((m, k), **ints)
+        self.fin_cnt = torch.zeros((m,), **ints)
+        self.done = torch.zeros((m,), dtype=torch.bool, device=dev)
+        self.stop = torch.zeros((), dtype=torch.bool, device=dev)
+        if spec.stochastic:
+            self.noise0 = torch.full((m, cfg.vocab_size), 0.5, device=dev)
+            self.noise = torch.full((m, k, cfg.vocab_size), 0.5, device=dev)
+
+    def load(self, cross_kv: dict[str, Tensor], cross_mask: Tensor) -> None:
+        """This call's inputs into the buffers, every other state tensor
+        and the cache reset: a call's result does not depend on the last.
+        (Kernel 1 reads whole 32-row tiles of the cache, whose rows at and
+        past ``pos`` its mask zeroes: they must hold finite values, as the
+        zeros do.)"""
+        self._load_inputs(cross_kv, cross_mask)
+        self.seqs.zero_()
+        self.seqs[:, :, 0] = self.spec.cls_id
+        self.logp.zero_()
+        self.anc.copy_(self.lane_ids[None, :, None].expand_as(self.anc))
+        self.fin_seqs.zero_()
+        self.fin_logp.fill_(float("-inf"))
+        self.fin_len.zero_()
+        self.fin_cnt.zero_()
+        self.done.zero_()
+
+    def feed(self, pos: int, uniforms: Optional[UniformFn]) -> None:
+        """Step ``pos``'s noise into its buffer (stochastic mode)."""
+        if self.spec.stochastic:
+            (self.noise0 if pos == 0 else self.noise).copy_(uniforms(pos))
+
+    def step(self, pos: int, attention: Optional[str] = None) -> None:
+        """Decoder step at ``pos``: pos 0 seeds k beams from the [CLS]
+        distribution; each later step expands, harvests and selects."""
+        spec = self.spec
+        m, k, T = self.seqs.shape
+        seqs, logp, anc, done = self.seqs, self.logp, self.anc, self.done
+        key_valid = (seqs != 0).reshape(m * k, T).to(torch.int32)
+        logits = decode_step(self.model, self.cfg,
+                             seqs.reshape(m * k, T)[:, pos], pos, self.cache,
+                             key_valid, self.cross, self.cross_mask, anc,
+                             attention or self.attention).reshape(m, k, -1)
+        if pos == 0:                      # [CLS] on every beam
+            vals, idx = _sample_topk(logits[:, 0], k, spec.stochastic,
+                                     self.noise0 if spec.stochastic else None)
+            seqs[:, :, 1] = idx           # beams share the CLS-cache entries
+            logp.copy_(vals)
+            return
+        vals, idx = _sample_topk(logits, k, spec.stochastic,
+                                 self.noise if spec.stochastic else None)
+        k2_p = logp.to(vals.dtype)[:, :, None] + vals       # [m, k, k]
+        cand_seqs = seqs[:, :, None].expand(m, k, k, T).reshape(m, k * k, T)
+        cand_seqs[:, :, pos + 1] = idx.reshape(m, k * k)
+
+        # ---- harvest SEP-ended candidates into the running top-k ----
+        ended = (idx == spec.sep_id).reshape(m, k * k)
+        flat_p = k2_p.reshape(m, k * k)
+        merged_logp = torch.cat(
+            [self.fin_logp, torch.where(ended, flat_p, float("-inf"))], dim=1)
+        merged_seqs = torch.cat([self.fin_seqs, cand_seqs], dim=1)
+        merged_len = torch.cat(
+            [self.fin_len, torch.full((m, k * k), pos + 2, dtype=torch.int64,
+                                      device=seqs.device)], dim=1)
+        new_fin_logp, top = _top_k(merged_logp, k)
+        new_fin_seqs = torch.gather(
+            merged_seqs, 1, top[:, :, None].expand(m, k, T))
+        new_fin_len = torch.gather(merged_len, 1, top)
+        new_fin_cnt = self.fin_cnt + ended.sum(dim=1)
+
+        # ---- suppress harvested entries, then select the next beams ----
+        k2_sup = torch.where(ended.reshape(m, k, k),
+                             torch.full_like(k2_p, -1e5), k2_p)
+        new_logp, flat_idx = _top_k(k2_sup.reshape(m, k * k), k)
+        parent = flat_idx // k                              # [m, k]
+        new_seqs = torch.gather(cand_seqs, 1,
+                                flat_idx[:, :, None].expand(m, k, T))
+        # written positions inherit the parent's ancestry (this step wrote
+        # lane p at pos); later positions write into the beam's own lane
+        new_anc = torch.where(self.t_ids[None, None, :] > pos,
+                              self.lane_ids[None, :, None],
+                              torch.gather(anc, 1,
+                                           parent[:, :, None].expand(m, k, T)))
+
+        # freeze the outputs of finished molecules; the cache and the
+        # ancestry advance harmlessly
+        for old, new in ((seqs, new_seqs), (logp, new_logp),
+                         (self.fin_seqs, new_fin_seqs),
+                         (self.fin_logp, new_fin_logp),
+                         (self.fin_len, new_fin_len),
+                         (self.fin_cnt, new_fin_cnt)):
+            frozen = done.reshape((m,) + (1,) * (new.dim() - 1))
+            old.copy_(torch.where(frozen, old, new))
+        anc.copy_(new_anc)
+        done |= new_fin_cnt >= spec.stop_count
+        self.stop.copy_(done.all())
+
+    def result(self, steps: int) -> dict[str, Tensor]:
+        """The outputs after ``steps`` decoder steps, in fresh tensors;
+        nothing harvested within max_steps -> the live beams."""
+        m, k = self.logp.shape
+        no_fin = (self.fin_cnt == 0)[:, None]
+        live_len = torch.full((m, k), steps + 1, dtype=torch.int64,
+                              device=no_fin.device)
+        return {
+            "seqs": torch.where(no_fin[:, :, None], self.seqs, self.fin_seqs),
+            "logp": torch.where(no_fin, self.logp, self.fin_logp),
+            "lengths": torch.where(no_fin, live_len, self.fin_len),
+            "n_finished": self.fin_cnt.clone(),
+            "steps": steps,
+        }
+
+
+class _GreedyDecode(_Decode):
+    """State of ``greedy_decode``: seqs [B, T], the single-lane cache, an
+    all-zero ancestry, this call's cross K/V and mask, the stop flag and
+    the noise buffer of the stochastic mode (float32)."""
+
+    kind = "greedy"
+
+    def __init__(self, model: BertForMaskedLM, cfg: BertArchConfig, T: int,
+                 cross_kv: dict[str, Tensor], cross_mask: Tensor,
+                 cache_dtype: torch.dtype, stochastic: bool, cls_id: int,
+                 sep_id: int, attention: str):
+        dev = cross_mask.device
+        b = cross_mask.shape[0]
+        self.model, self.cfg = model, cfg
+        self.cls_id, self.sep_id, self.attention = cls_id, sep_id, attention
+        self.stochastic = stochastic
+        self.cache = init_beam_cache_kv(cfg, b, 1, T, cache_dtype, dev,
+                                        decoder_heads(model, cfg))
+        self.cross = {name: torch.empty_like(v) for name, v in cross_kv.items()}
+        self.cross_mask = torch.empty_like(cross_mask)
+        self.anc = torch.zeros((b, 1, T), dtype=torch.int64, device=dev)
+        self.seqs = torch.zeros((b, T), dtype=torch.int64, device=dev)
+        self.stop = torch.zeros((), dtype=torch.bool, device=dev)
+        self.noise = (torch.full((b, cfg.vocab_size), 0.5, device=dev)
+                      if stochastic else None)
+
+    def load(self, cross_kv: dict[str, Tensor], cross_mask: Tensor) -> None:
+        self._load_inputs(cross_kv, cross_mask)
+        self.seqs.zero_()
+        self.seqs[:, 0] = self.cls_id
+
+    def feed(self, pos: int, uniforms: Optional[UniformFn]) -> None:
+        if self.noise is not None:
+            self.noise.copy_(uniforms(pos))
+
+    def step(self, pos: int, attention: Optional[str] = None) -> None:
+        """Append the token after ``pos``; the stop test runs after the
+        append, and rows keep appending after their [SEP]."""
+        key_valid = (self.seqs != 0).to(torch.int32)
+        logits = decode_step(self.model, self.cfg, self.seqs[:, pos], pos,
+                             self.cache, key_valid, self.cross,
+                             self.cross_mask, self.anc,
+                             attention or self.attention)
+        if self.noise is not None:
+            logits = logits + _gumbel(self.noise).to(logits.dtype)
+        self.seqs[:, pos + 1] = logits.argmax(dim=-1)
+        self.stop.copy_((self.seqs == self.sep_id).any(dim=1).all())
+
+    def result(self, steps: int) -> dict:
+        return {"seqs": self.seqs.clone(), "steps": steps}
+
+
+def _drive(state: _Decode, run_step: Callable[[int], None], n_pos: int,
+           uniforms: Optional[UniformFn]) -> int:
+    """Positions 0, 1, ... up to ``n_pos``, each after its noise is fed
+    (so ``uniforms`` is called once a step run, in order); the host reads
+    the stop test after each step.  Returns the number of steps run."""
+    pos = 0
+    while pos < n_pos:
+        state.feed(pos, uniforms)
+        run_step(pos)
+        pos += 1
+        if pos < n_pos and state.stopped():
+            break
+    return pos
+
+
+# ---- the decode loop as captured CUDA graphs ----
+
+_thread = threading.local()
+_thread_ids = itertools.count()
+
+
+def _thread_token() -> int:
+    """A number for this thread, never given to another one."""
+    token = getattr(_thread, "token", None)
+    if token is None:
+        token = _thread.token = next(_thread_ids)
+    return token
+
+
+class _Entry:
+    """One shape's decode state, graphs (one a position) and their launches."""
+
+    def __init__(self, state: _Decode):
+        self.state = state
+        self.device = state.cache.device
+        self.graphs: dict = {}
+        self.launches: dict[int, dict] = {}
+        self.lock = threading.Lock()
+        self.warmed: set[int] = set()      # the threads it was warmed up in
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.stream = None
+        self.pool = None
+
+    def describe(self) -> dict:
+        return {**self.state.describe(), "graphs": len(self.graphs),
+                "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
+                "state_bytes": sum(t.nbytes for t in self.state.buffers())}
+
+
+class DecodeGraphs:
+    """The decode loops as captured CUDA graphs: the counterpart of the JAX
+    package's decode inside ``lax.while_loop`` segments, where one compiled
+    program runs a batch's decode.
+
+    Each decode shape (``_shape_key``: the decoder and its weights' storage,
+    the device, the inputs' and cache's shapes and dtypes, the search's
+    fields) has an entry: the decode's buffers (``_BeamDecode``,
+    ``_GreedyDecode``), one graph a position, captured from the step body
+    when a decode first reaches that position (kernel 1 sizes its shared
+    memory by position), all in one memory pool and replayed in position
+    order, and each graph's kernel launches, which ``count_launch`` adds at
+    every replay (the capture itself launches nothing).  A call copies its
+    inputs into the entry's buffers and resets the rest, so its result
+    equals a fresh eager decode's; then it replays, feeding each step's
+    noise before the replay and reading the stop test after it (one small
+    copy to the host), so ``steps`` and the draws are the eager loop's.
+
+    The entries of the ``MAX_SHAPES`` shapes used last are kept (each holds
+    its KV cache, up to 3.93 GB at bf16 m=512, k=2, T=104, and its
+    decoder); the least recently used is dropped past that.  A weight
+    updated in place is seen by the graphs; replaced storage makes a new
+    key.  A capture or replay error raises and drops the entry: nothing
+    falls back to the eager loop."""
+
+    MAX_SHAPES = 4
+
+    def __init__(self):
+        self.captured = 0               # graphs captured, over the process
+        self.capture_s = 0.0            # seconds spent capturing them
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def clear(self) -> None:
+        """Drop every entry (their graphs, pools, buffers and decoders)."""
+        with self._lock:
+            self._entries.clear()
+
+    def stats(self) -> dict:
+        """Graphs captured and capture seconds so far; each kept shape's
+        graphs, capture seconds, pool and buffer bytes."""
+        with self._lock:
+            entries = list(self._entries.values())
+        return {"captured": self.captured, "capture_s": self.capture_s,
+                "shapes": [e.describe() for e in entries]}
+
+    def run(self, key: tuple, make: Callable[[], _Decode],
+            cross_kv: dict[str, Tensor], cross_mask: Tensor, n_pos: int,
+            uniforms: Optional[UniformFn]) -> dict:
+        """One decode of shape ``key`` (``make`` builds its state the first
+        time) through the entry's graphs."""
+        entry = self._entry(key, make)
+        on_device = (torch.cuda.device(entry.device)
+                     if entry.device.type == "cuda" else contextlib.nullcontext())
+        with entry.lock, on_device:
+            try:
+                entry.state.load(cross_kv, cross_mask)
+                if _thread_token() not in entry.warmed:
+                    self._warm_up(entry)
+                    entry.warmed.add(_thread_token())
+                    entry.state.load(cross_kv, cross_mask)
+                steps = _drive(entry.state,
+                               lambda pos: self._replay(entry, pos), n_pos,
+                               uniforms)
+                return entry.state.result(steps)
+            except BaseException:
+                with self._lock:
+                    if self._entries.get(key) is entry:
+                        del self._entries[key]
+                raise
+
+    def _entry(self, key: tuple, make: Callable[[], _Decode]) -> _Entry:
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+                return entry
+        entry = _Entry(make())
+        with self._lock:
+            self._entries[key] = entry
+            while len(self._entries) > self.MAX_SHAPES:
+                self._entries.popitem(last=False)
+        return entry
+
+    def _replay(self, entry: _Entry, pos: int) -> None:
+        graph = entry.graphs.get(pos)
+        if graph is None:
+            t0 = time.perf_counter()
+            with captured_launches() as launches:
+                graph = self._capture(entry, pos)
+            seconds = time.perf_counter() - t0
+            entry.graphs[pos], entry.launches[pos] = graph, launches
+            entry.capture_s += seconds
+            with self._lock:
+                self.captured += 1
+                self.capture_s += seconds
+        graph.replay()
+        for wrapper, n in entry.launches[pos].items():
+            count_launch(wrapper, n)
+
+    def _warm_up(self, entry: _Entry) -> None:
+        """Before the first capture in a thread: kernel 1 loaded and its
+        shared-memory limit raised, with no launch; positions 0 and 1 of
+        the step body on the plain attention on the capture stream, so
+        that cuBLAS's handle and workspace for this thread and stream exist
+        before any capture.  It writes the state, which the call then
+        loads again."""
+        from spmm_tpu_torch.ops import decode_attention
+
+        state = entry.state
+        if entry.stream is None:
+            entry.stream = torch.cuda.Stream(entry.device)
+            entry.pool = torch.cuda.graph_pool_handle()
+        if state.attention == "kernel":
+            decode_attention.prepare(state.cache)
+        current = torch.cuda.current_stream(entry.device)
+        entry.stream.wait_stream(current)
+        with torch.cuda.stream(entry.stream):
+            for pos in (0, 1):
+                state.step(pos, attention="plain")
+        current.wait_stream(entry.stream)
+
+    def _capture(self, entry: _Entry, pos: int):
+        """The step body at ``pos`` captured on the entry's stream into its
+        pool (nothing runs); ``thread_local``, so that another thread's
+        work (a service's HTTP threads) does not break the capture."""
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(entry.device)
+        entry.stream.wait_stream(current)
+        reserved = torch.cuda.memory_reserved(entry.device)
+        with torch.cuda.stream(entry.stream):
+            graph.capture_begin(pool=entry.pool,
+                                capture_error_mode="thread_local")
+            try:
+                entry.state.step(pos)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        current.wait_stream(entry.stream)
+        entry.pool_bytes += torch.cuda.memory_reserved(entry.device) - reserved
+        return graph
+
+
+graph_cache = DecodeGraphs()
+
+
+def _tp_laid_out(model: BertForMaskedLM) -> bool:
+    """Whether ``parallel.tp`` laid the decoder out (DTensor weights)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(p, DTensor) for p in model.parameters())
+
+
+def _graphs_for(model: BertForMaskedLM, device: torch.device
+                ) -> Optional[DecodeGraphs]:
+    """The graph cache a decode on ``device`` runs through: ``graph_cache``
+    on a CUDA device, None (the eager loop) on the CPU and for a decoder
+    laid out by tensor parallelism, whose steps hold collectives."""
+    if device.type != "cuda" or _tp_laid_out(model):
+        return None
+    return graph_cache
+
+
+def _shape_key(kind: str, model: BertForMaskedLM, cross_kv: dict[str, Tensor],
+               cross_mask: Tensor, cache_dtype: torch.dtype,
+               **fields) -> tuple:
+    """What fixes a decode's graphs: the decoder object and the storage of
+    its weights (which the graphs read), the inputs' and the cache's shapes
+    and dtypes on their device (the cross K/V's is the decoder's dtype),
+    and the search's own fields."""
+    weights = tuple(t.data_ptr() for t in itertools.chain(
+        model.parameters(), model.buffers()))
+    return (kind, id(model), weights, cross_mask.device,
+            tuple(cross_kv["k"].shape), cross_kv["k"].dtype,
+            tuple(cross_mask.shape), cross_mask.dtype, cache_dtype,
+            tuple(sorted(fields.items())))
+
+
+def _run(graphs: Optional[DecodeGraphs], key: Callable[[], tuple],
+         make: Callable[[], _Decode], cross_kv: dict[str, Tensor],
+         cross_mask: Tensor, n_pos: int,
+         uniforms: Optional[UniformFn]) -> dict:
+    if graphs is not None:
+        return graphs.run(key(), make, cross_kv, cross_mask, n_pos, uniforms)
+    state = make()
+    state.load(cross_kv, cross_mask)
+    return state.result(_drive(state, state.step, n_pos, uniforms))
+
+
+# ---- the decode entry points ----
+
 @torch.no_grad()
 def beam_search_batched(
     model: BertForMaskedLM,
@@ -221,119 +720,59 @@ def beam_search_batched(
 ) -> dict[str, Tensor]:
     """Reference-exact k-beam decode over a batch of m queries.
 
-    Stochastic mode takes its noise from ``uniforms`` (step -> uniforms,
-    e.g. the JAX package's own draws in a parity test) or else from
-    ``generator``.  Returns, with leading molecule axis m:
+    Stochastic mode takes its noise from ``uniforms`` (step -> float32
+    uniforms, e.g. the JAX package's own draws in a parity test) or else
+    from ``generator``.  Returns, with leading molecule axis m:
       seqs [m, k, max_len], logp [m, k], lengths [m, k] (incl. the trailing
       SEP), n_finished [m] (0 => live-beam fallback), and ``steps``, the
       number of decoder steps run (each one launch per layer).
+
+    On a CUDA tensor the steps replay as CUDA graphs (``graph_cache``), on
+    the CPU and for a decoder laid out by tensor parallelism they run
+    eagerly (``beam_search_batched_eager``); both run one step body.
     """
+    return _beam_search(model, cfg, cross_hidden, cross_mask, spec, uniforms,
+                        generator, cache_dtype,
+                        _graphs_for(model, cross_hidden.device))
+
+
+@torch.no_grad()
+def beam_search_batched_eager(
+    model: BertForMaskedLM,
+    cfg: BertArchConfig,
+    cross_hidden: Tensor,
+    cross_mask: Tensor,
+    spec: BeamSpec,
+    uniforms: Optional[UniformFn] = None,
+    generator: Optional[torch.Generator] = None,
+    cache_dtype: torch.dtype = torch.float32,
+) -> dict[str, Tensor]:
+    """``beam_search_batched`` with every step's ops issued from Python, on
+    any device: the reference its graphs are held to on the card."""
+    return _beam_search(model, cfg, cross_hidden, cross_mask, spec, uniforms,
+                        generator, cache_dtype, None)
+
+
+def _beam_search(model, cfg, cross_hidden, cross_mask, spec, uniforms,
+                 generator, cache_dtype, graphs) -> dict[str, Tensor]:
     dev = cross_hidden.device
-    m = cross_hidden.shape[0]
-    k, T = spec.k, spec.max_len
     if spec.stochastic and uniforms is None:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        uniforms = torch_uniforms(generator, m, k, cfg.vocab_size, dev)
-    noise = uniforms if spec.stochastic else (lambda step: None)
-
+        uniforms = torch_uniforms(generator, cross_hidden.shape[0], spec.k,
+                                  cfg.vocab_size, dev)
     cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
-    cache = init_beam_cache_kv(cfg, m, k, T, cache_dtype, dev,
-                               decoder_heads(model, cfg))
-    # anc[m, b, t] = cache lane holding beam b's K/V for position t
-    lane_ids = torch.arange(k, device=dev)
-    anc = lane_ids[None, :, None].expand(m, k, T).contiguous()
-    t_ids = torch.arange(T, device=dev)
-
-    def step_logits(seqs: Tensor, pos: int, anc: Tensor) -> Tensor:
-        key_valid = (seqs != 0).reshape(m * k, T).to(torch.int32)
-        return decode_step(model, cfg, seqs.reshape(m * k, T)[:, pos], pos,
-                           cache, key_valid, cross_kv, cross_mask, anc,
-                           spec.attention).reshape(m, k, -1)
-
-    # ---- step 0: [CLS] on every beam, sample k continuations ----
-    seqs = torch.zeros((m, k, T), dtype=torch.int64, device=dev)
-    seqs[:, :, 0] = spec.cls_id
-    logits = step_logits(seqs, 0, anc)
-    vals, idx = _sample_topk(logits[:, 0], k, spec.stochastic, noise(0))
-    seqs[:, :, 1] = idx                   # beams share the CLS-cache entries
-    logp = vals                           # [m, k]
-    n_steps = 1
-
-    # running top-k of harvested beams; the buffer comes before the new
-    # candidates in the merge, so earlier harvests win ties
-    fin_seqs = torch.zeros((m, k, T), dtype=torch.int64, device=dev)
-    fin_logp = torch.full((m, k), float("-inf"), dtype=torch.float32,
-                          device=dev)
-    fin_len = torch.zeros((m, k), dtype=torch.int64, device=dev)
-    fin_cnt = torch.zeros((m,), dtype=torch.int64, device=dev)
-    done = torch.zeros((m,), dtype=torch.bool, device=dev)
-
-    step = 0
-    while step < spec.max_steps and not bool(done.all()):
-        pos = step + 1                    # position of the newest token
-        logits = step_logits(seqs, pos, anc)
-        n_steps += 1
-        vals, idx = _sample_topk(logits, k, spec.stochastic, noise(step + 1))
-        k2_p = logp[:, :, None] + vals                      # [m, k, k]
-
-        cand_seqs = seqs.repeat_interleave(k, dim=1)        # [m, k*k, T]
-        cand_seqs[:, :, pos + 1] = idx.reshape(m, k * k)
-
-        # ---- harvest SEP-ended candidates into the running top-k ----
-        ended = (idx == spec.sep_id).reshape(m, k * k)
-        flat_p = k2_p.reshape(m, k * k)
-        merged_logp = torch.cat(
-            [fin_logp, torch.where(ended, flat_p, float("-inf"))], dim=1)
-        merged_seqs = torch.cat([fin_seqs, cand_seqs], dim=1)
-        merged_len = torch.cat(
-            [fin_len, torch.full((m, k * k), pos + 2, dtype=torch.int64,
-                                 device=dev)], dim=1)
-        new_fin_logp, top = _top_k(merged_logp, k)
-        new_fin_seqs = torch.gather(
-            merged_seqs, 1, top[:, :, None].expand(m, k, T))
-        new_fin_len = torch.gather(merged_len, 1, top)
-        new_fin_cnt = fin_cnt + ended.sum(dim=1)
-
-        # ---- suppress harvested entries, then select the next beams ----
-        k2_sup = torch.where(ended.reshape(m, k, k),
-                             torch.full_like(k2_p, -1e5), k2_p)
-        new_logp, flat_idx = _top_k(k2_sup.reshape(m, k * k), k)
-        parent = flat_idx // k                              # [m, k]
-        new_seqs = torch.gather(cand_seqs, 1,
-                                flat_idx[:, :, None].expand(m, k, T))
-        # written positions inherit the parent's ancestry (this step wrote
-        # lane p at pos); later positions write into the beam's own lane
-        new_anc = torch.where(t_ids[None, None, :] > pos,
-                              lane_ids[None, :, None],
-                              torch.gather(anc, 1,
-                                           parent[:, :, None].expand(m, k, T)))
-
-        # freeze the outputs of finished molecules; the cache and the
-        # ancestry advance harmlessly
-        def keep(new: Tensor, old: Tensor) -> Tensor:
-            d = done.reshape((m,) + (1,) * (new.dim() - 1))
-            return torch.where(d, old, new)
-
-        seqs, logp = keep(new_seqs, seqs), keep(new_logp, logp)
-        fin_seqs = keep(new_fin_seqs, fin_seqs)
-        fin_logp = keep(new_fin_logp, fin_logp)
-        fin_len = keep(new_fin_len, fin_len)
-        fin_cnt, done = (keep(new_fin_cnt, fin_cnt),
-                         done | (new_fin_cnt >= spec.stop_count))
-        anc = new_anc.contiguous()
-        step += 1
-
-    # fallback: nothing harvested within max_steps -> the live beams
-    no_fin = (fin_cnt == 0)[:, None]
-    live_len = torch.full((m, k), step + 2, dtype=torch.int64, device=dev)
-    return {
-        "seqs": torch.where(no_fin[:, :, None], seqs, fin_seqs),
-        "logp": torch.where(no_fin, logp, fin_logp),
-        "lengths": torch.where(no_fin, live_len, fin_len),
-        "n_finished": fin_cnt,
-        "steps": n_steps,
-    }
+    return _run(
+        graphs,
+        lambda: _shape_key("beam", model, cross_kv, cross_mask, cache_dtype,
+                           k=spec.k, T=spec.max_len,
+                           stop_count=spec.stop_count,
+                           stochastic=spec.stochastic,
+                           attention=spec.attention, cls_id=spec.cls_id,
+                           sep_id=spec.sep_id),
+        lambda: _BeamDecode(model, cfg, spec, cross_kv, cross_mask,
+                            cache_dtype),
+        cross_kv, cross_mask, spec.max_steps + 1, uniforms)
 
 
 def beam_search(
@@ -380,29 +819,48 @@ def greedy_decode(
     their [SEP].  Keys are valid where ``seqs != 0``.  Stochastic mode
     takes argmax(logits + Gumbel noise), which is what
     ``jax.random.categorical`` computes, with the noise of step s made from
-    ``uniforms(s)`` [B, V] as ``_sample_topk`` makes it (e.g. from JAX's
-    own draws in a parity test).  Returns ``seqs`` [B, T] and ``steps``,
-    the number of decoder steps run."""
+    ``uniforms(s)`` [B, V] (float32) as ``_sample_topk`` makes it (e.g.
+    from JAX's own draws in a parity test).  Returns ``seqs`` [B, T] and
+    ``steps``, the number of decoder steps run.  Graphs on a CUDA tensor,
+    eager elsewhere, as ``beam_search_batched``."""
+    return _greedy(model, cfg, cross_hidden, cross_mask, max_steps,
+                   stochastic, uniforms, cls_id, sep_id, cache_dtype,
+                   attention, _graphs_for(model, cross_hidden.device))
+
+
+@torch.no_grad()
+def greedy_decode_eager(
+    model: BertForMaskedLM,
+    cfg: BertArchConfig,
+    cross_hidden: Tensor,
+    cross_mask: Tensor,
+    max_steps: int = 100,
+    stochastic: bool = False,
+    uniforms: Optional[UniformFn] = None,
+    cls_id: int = 2,
+    sep_id: int = 3,
+    cache_dtype: torch.dtype = torch.float32,
+    attention: str = "kernel",
+) -> dict:
+    """``greedy_decode`` with every step's ops issued from Python, on any
+    device: the reference its graphs are held to on the card."""
+    return _greedy(model, cfg, cross_hidden, cross_mask, max_steps,
+                   stochastic, uniforms, cls_id, sep_id, cache_dtype,
+                   attention, None)
+
+
+def _greedy(model, cfg, cross_hidden, cross_mask, max_steps, stochastic,
+            uniforms, cls_id, sep_id, cache_dtype, attention, graphs) -> dict:
     if stochastic and uniforms is None:
         raise ValueError("stochastic greedy decoding needs uniforms")
-    dev = cross_hidden.device
-    b = cross_hidden.shape[0]
     T = -8 * (-(max_steps + 2) // 8)
     cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
-    cache = init_beam_cache_kv(cfg, b, 1, T, cache_dtype, dev,
-                               decoder_heads(model, cfg))
-    anc = torch.zeros((b, 1, T), dtype=torch.int64, device=dev)
-    seqs = torch.zeros((b, T), dtype=torch.int64, device=dev)
-    seqs[:, 0] = cls_id
-    step = 0
-    ended_all = False
-    while step < max_steps and not ended_all:
-        key_valid = (seqs != 0).to(torch.int32)
-        logits = decode_step(model, cfg, seqs[:, step], step, cache,
-                             key_valid, cross_kv, cross_mask, anc, attention)
-        if stochastic:
-            logits = logits + _gumbel(uniforms(step)).to(logits.dtype)
-        seqs[:, step + 1] = logits.argmax(dim=-1)
-        ended_all = bool((seqs == sep_id).any(dim=1).all())
-        step += 1
-    return {"seqs": seqs, "steps": step}
+    return _run(
+        graphs,
+        lambda: _shape_key("greedy", model, cross_kv, cross_mask, cache_dtype,
+                           T=T, stochastic=stochastic, attention=attention,
+                           cls_id=cls_id, sep_id=sep_id),
+        lambda: _GreedyDecode(model, cfg, T, cross_kv, cross_mask,
+                              cache_dtype, stochastic, cls_id, sep_id,
+                              attention),
+        cross_kv, cross_mask, max_steps, uniforms)

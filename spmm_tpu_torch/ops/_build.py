@@ -9,6 +9,7 @@ builds the host libraries the same way).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -55,14 +56,34 @@ def build(name: str, source: Optional[Path] = None) -> Path:
 
 
 _count_lock = threading.Lock()
+_capturing = threading.local()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, under a lock: a process may launch
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``, under a lock: a process may launch
     from more than one thread (a service's batching thread beside its
-    caller's)."""
+    caller's).  Inside ``captured_launches`` this thread's calls are kept
+    in its record instead: a CUDA graph capture launches nothing."""
+    record = getattr(_capturing, "record", None)
+    if record is not None:
+        record[wrapper] = record.get(wrapper, 0) + n
+        return
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Yields a dict wrapper -> launches that collects this thread's
+    ``count_launch`` calls while the block runs, in place of the wrappers'
+    counts: what a CUDA graph captured, which its runner adds with
+    ``count_launch(wrapper, n)`` at each replay."""
+    outer = getattr(_capturing, "record", None)
+    _capturing.record = record = {}
+    try:
+        yield record
+    finally:
+        _capturing.record = outer
 
 
 def check_no_grad(kernel: str, *tensors) -> None:

@@ -56,6 +56,9 @@ def _library():
             + [ctypes.c_void_p])
         lib.bda_max_beams.restype = ctypes.c_int
         lib.bda_max_head_dim.restype = ctypes.c_int
+        lib.bda_occupancy.restype = ctypes.c_int
+        lib.bda_occupancy.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
         _lib = lib
     return _lib
 
@@ -63,6 +66,22 @@ def _library():
 def build() -> None:
     """Build (if needed) and load the kernel library."""
     _library()
+
+
+def prepare(cache: torch.Tensor) -> None:
+    """Load the kernel for ``cache``'s device and dtype and raise its
+    shared-memory limit, launching nothing (the occupancy query runs what
+    a launch runs first): done before a CUDA graph captures a launch, so
+    that the capture sets no attribute.  Raises if a launch at the last
+    position of ``cache`` would not fit."""
+    _, _, _, _, k, T, d = cache.shape
+    info = (ctypes.c_int * 2)()
+    with torch.cuda.device(cache.device):
+        err = _library().bda_occupancy(_CACHE_CODES[cache.dtype], k, d,
+                                       T - 1, info)
+    if err != 0:
+        raise RuntimeError(f"beam_decode_attention cannot launch at k={k}, "
+                           f"D={d}, pos {T - 1}: CUDA error {err}")
 
 
 def _check(q, k_new, v_new, cache, mask, pos, layer) -> None:

@@ -506,3 +506,153 @@ def test_downstream_step_on_card_matches_cpu(dev, task):
         assert (gd - gc).norm() <= 1e-4 * gc.norm() + floor, name
         torch.testing.assert_close(p_card.detach().cpu(), p_cpu.detach(),
                                    atol=1e-6, rtol=0, msg=name)
+
+
+# ---- the decode loops as captured CUDA graphs against the eager loop ----
+
+def _graph_decoder(dev):
+    """A small reaction decoder (D=32) whose weights are 5x the init's and
+    whose [SEP] logit is raised by 1: decodes stop early, at other steps
+    for other inputs, with rows that finish k or more beams and rows that
+    finish fewer."""
+    from spmm_tpu_torch.configs import BertArchConfig
+    from spmm_tpu_torch.models.rxn import Rxn
+
+    dc = BertArchConfig(hidden_size=64, num_hidden_layers=3,
+                        num_attention_heads=2, intermediate_size=128,
+                        fusion_layer=1, encoder_width=64)
+    ec = BertArchConfig(hidden_size=64, num_hidden_layers=1,
+                        num_attention_heads=2, intermediate_size=128,
+                        fusion_layer=1, add_cross_attention=False)
+    dec = Rxn.random_init(0, dc, ec, device=dev).text_encoder.eval()
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.dim() == 2:
+                p.mul_(5.0)
+        dec.cls.predictions.bias[3] += 1.0
+    return dec, dc
+
+
+def _graph_inputs(dev, seed, m=8, le=10, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    enc = torch.randn(m, le, 64, generator=g).to(dev, dtype)
+    mask = torch.ones(m, le, dtype=torch.int32, device=dev)
+    mask[m // 2:, le - 3:] = 0
+    return enc, mask
+
+
+def _graph_vs_eager(dev, graphed, eager, seeds=(0, 1)):
+    """Each input through the eager loop, then twice through the graphs
+    (the capturing call, then a replaying one): every output equal bit for
+    bit, ``steps`` equal, the same kernel-1 launches; a generator passed as
+    ``gen`` ends in the same state.  Returns the eager results."""
+    out = []
+    for seed in seeds:
+        runs = []
+        for fn in (eager, graphed, graphed):
+            gen = torch.Generator(device=dev).manual_seed(seed + 11)
+            before = beam_decode_attention.launches
+            res = fn(seed, gen)
+            torch.cuda.synchronize()
+            runs.append((res, beam_decode_attention.launches - before,
+                         gen.get_state()))
+        (want, n, state), *graph_runs = runs
+        for got, n_got, state_got in graph_runs:
+            assert got.keys() == want.keys()
+            for key, value in want.items():
+                if key == "steps":
+                    assert got[key] == value
+                else:
+                    assert got[key].dtype == value.dtype, key
+                    assert torch.equal(_bits(got[key]) if got[key]
+                                       .is_floating_point() else got[key],
+                                       _bits(value) if value
+                                       .is_floating_point() else value), key
+            assert n_got == n
+            assert torch.equal(state_got, state)
+        out.append(want)
+    return out
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16,
+                                         torch.float8_e4m3fn])
+def test_beam_search_graphs_match_eager(dev, cache_dtype, stochastic):
+    """beam_search_batched through its graphs against
+    beam_search_batched_eager: fp32 decoder for the fp32 cache, a bf16 copy
+    for the bf16 and fp8 caches; deterministic and from a generator."""
+    from spmm_tpu_torch.inference import decoding
+
+    dec, dc = _graph_decoder(dev)
+    dtype = torch.float32 if cache_dtype == torch.float32 else torch.bfloat16
+    dec = dec.to(dtype)
+    spec = decoding.BeamSpec(k=2, stop_count=2, max_steps=30,
+                             stochastic=stochastic)
+
+    def run(fn):
+        return lambda seed, gen: fn(dec, dc, *_graph_inputs(dev, seed,
+                                                            dtype=dtype),
+                                    spec, generator=gen,
+                                    cache_dtype=cache_dtype)
+
+    want = _graph_vs_eager(dev, run(decoding.beam_search_batched),
+                           run(decoding.beam_search_batched_eager))
+    assert all(w["steps"] <= spec.max_steps + 1 for w in want)
+    if not stochastic:               # the deterministic search stops early
+        assert any(w["steps"] < spec.max_steps + 1 for w in want)
+    assert beam_decode_attention.launches > 0
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_greedy_decode_graphs_match_eager(dev, stochastic):
+    from spmm_tpu_torch.inference import decoding
+
+    dec, dc = _graph_decoder(dev)
+
+    def run(fn):
+        def call(seed, gen):
+            draw = decoding.torch_uniforms(gen, 8, 1, dc.vocab_size, dev)
+            return fn(dec, dc, *_graph_inputs(dev, seed), max_steps=30,
+                      stochastic=stochastic,
+                      uniforms=(lambda step: draw(0)) if stochastic else None)
+        return call
+
+    want = _graph_vs_eager(dev, run(decoding.greedy_decode),
+                           run(decoding.greedy_decode_eager))
+    if not stochastic:
+        assert any(w["steps"] < 30 for w in want)
+
+
+def test_decode_graphs_two_shapes_in_turn_and_an_eviction(dev, monkeypatch):
+    """Two shapes in turn, each call equal to the eager loop's; past
+    MAX_SHAPES (4) shapes the least recently used is dropped, and captured
+    anew when it comes back."""
+    from spmm_tpu_torch.inference import decoding
+
+    graphs = decoding.DecodeGraphs()
+    monkeypatch.setattr(decoding, "graph_cache", graphs)
+    dec, dc = _graph_decoder(dev)
+    spec = decoding.BeamSpec(k=2, stop_count=2, max_steps=30)
+
+    def beam(m):
+        return lambda seed, gen: decoding.beam_search_batched(
+            dec, dc, *_graph_inputs(dev, seed, m=m), spec)
+
+    def beam_eager(m):
+        return lambda seed, gen: decoding.beam_search_batched_eager(
+            dec, dc, *_graph_inputs(dev, seed, m=m), spec)
+
+    def kept():
+        return [row["m"] for row in graphs.stats()["shapes"]]
+
+    for m in (8, 4, 8, 4, 2, 3):
+        _graph_vs_eager(dev, beam(m), beam_eager(m), seeds=(m,))
+    assert kept() == [8, 4, 2, 3]
+    _graph_vs_eager(dev, beam(6), beam_eager(6), seeds=(6,))
+    assert kept() == [4, 2, 3, 6]
+    captured = graphs.stats()["captured"]
+    _graph_vs_eager(dev, beam(8), beam_eager(8), seeds=(8,))
+    assert kept() == [2, 3, 6, 8]
+    assert graphs.stats()["captured"] > captured
+    for row in graphs.stats()["shapes"]:
+        assert row["graphs"] > 0 and row["state_bytes"] > 0

@@ -256,8 +256,11 @@ def test_services_shard_their_batches(quick_model, pools, n):
            for i in range(3)]
     outs = []
     for devices in (None, pools[n]):
+        # the three requests must share one batch in both runs: a batch's
+        # noise depends on which requests it holds, so a caller descheduled
+        # past the wait (a loaded CPU) would change the stochastic strings
         with Pv2SmilesService(model, tok, k=2, stochastic=True,
-                              batch_size=4, max_wait_ms=1, device=CPU,
+                              batch_size=4, max_wait_ms=1000, device=CPU,
                               devices=devices) as svc:
             strings = svc.map(pvs)
         with Smiles2PvService(model, tok, batch_size=4, max_wait_ms=1,
