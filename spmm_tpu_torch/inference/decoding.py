@@ -36,6 +36,11 @@ parallelism, it calls the body step by step (``beam_search_batched_eager``,
 ``greedy_decode_eager``, also callable on the card by name).  Either way
 the host reads the stop test after each step, so ``steps``, the early exit
 and the noise drawn are the same.
+
+Under ``torch.profiler`` the runner names its parts as ranges of the trace
+(``utils.spans.span``): ``spmm.decode.cross_kv``, ``.load``, ``.loop``
+holding each ``.step`` (a replay, or an eager step) and ``.stop_test``,
+and ``.result``; never inside a captured step body.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from spmm_tpu_torch.ops.decode_attention import (
     compute_dtype,
 )
 from spmm_tpu_torch.ops.masks import MASK_VALUE
+from spmm_tpu_torch.utils.spans import span
 
 Tensor = torch.Tensor
 # step -> uniforms in (0, 1): beam search [m, V] at step 0 and [m, k, V]
@@ -468,12 +474,16 @@ def _drive(state: _Decode, run_step: Callable[[int], None], n_pos: int,
     (so ``uniforms`` is called once a step run, in order); the host reads
     the stop test after each step.  Returns the number of steps run."""
     pos = 0
-    while pos < n_pos:
-        state.feed(pos, uniforms)
-        run_step(pos)
-        pos += 1
-        if pos < n_pos and state.stopped():
-            break
+    with span("spmm.decode.loop"):
+        while pos < n_pos:
+            state.feed(pos, uniforms)
+            with span("spmm.decode.step"):
+                run_step(pos)
+            pos += 1
+            if pos < n_pos:
+                with span("spmm.decode.stop_test"):
+                    if state.stopped():
+                        break
     return pos
 
 
@@ -568,15 +578,17 @@ class DecodeGraphs:
                      if entry.device.type == "cuda" else contextlib.nullcontext())
         with entry.lock, on_device:
             try:
-                entry.state.load(cross_kv, cross_mask)
-                if _thread_token() not in entry.warmed:
-                    self._warm_up(entry)
-                    entry.warmed.add(_thread_token())
+                with span("spmm.decode.load"):
                     entry.state.load(cross_kv, cross_mask)
+                    if _thread_token() not in entry.warmed:
+                        self._warm_up(entry)
+                        entry.warmed.add(_thread_token())
+                        entry.state.load(cross_kv, cross_mask)
                 steps = _drive(entry.state,
                                lambda pos: self._replay(entry, pos), n_pos,
                                uniforms)
-                return entry.state.result(steps)
+                with span("spmm.decode.result"):
+                    return entry.state.result(steps)
             except BaseException:
                 with self._lock:
                     if self._entries.get(key) is entry:
@@ -701,8 +713,11 @@ def _run(graphs: Optional[DecodeGraphs], key: Callable[[], tuple],
     if graphs is not None:
         return graphs.run(key(), make, cross_kv, cross_mask, n_pos, uniforms)
     state = make()
-    state.load(cross_kv, cross_mask)
-    return state.result(_drive(state, state.step, n_pos, uniforms))
+    with span("spmm.decode.load"):
+        state.load(cross_kv, cross_mask)
+    steps = _drive(state, state.step, n_pos, uniforms)
+    with span("spmm.decode.result"):
+        return state.result(steps)
 
 
 # ---- the decode entry points ----
@@ -761,7 +776,8 @@ def _beam_search(model, cfg, cross_hidden, cross_mask, spec, uniforms,
             generator = torch.Generator(device=dev).manual_seed(0)
         uniforms = torch_uniforms(generator, cross_hidden.shape[0], spec.k,
                                   cfg.vocab_size, dev)
-    cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
+    with span("spmm.decode.cross_kv"):
+        cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
     return _run(
         graphs,
         lambda: _shape_key("beam", model, cross_kv, cross_mask, cache_dtype,
@@ -854,7 +870,8 @@ def _greedy(model, cfg, cross_hidden, cross_mask, max_steps, stochastic,
     if stochastic and uniforms is None:
         raise ValueError("stochastic greedy decoding needs uniforms")
     T = -8 * (-(max_steps + 2) // 8)
-    cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
+    with span("spmm.decode.cross_kv"):
+        cross_kv = precompute_cross_kv(model, cfg, cross_hidden)
     return _run(
         graphs,
         lambda: _shape_key("greedy", model, cross_kv, cross_mask, cache_dtype,

@@ -36,6 +36,7 @@ from spmm_tpu_torch.models.spmm import N_PROPERTIES, SPMM
 from spmm_tpu_torch.parallel.replicas import Replicas, concat_rows
 from spmm_tpu_torch.tokenizer import SmilesTokenizer
 from spmm_tpu_torch.utils.device import check_on, resolve_device
+from spmm_tpu_torch.utils.spans import span
 
 Tensor = torch.Tensor
 
@@ -70,15 +71,18 @@ def _beam_batch(model: SPMM, decoder: BertForMaskedLM, pv: Tensor,
     the property encoder itself stays fp32.  ``kv_fp8`` stores the KV cache
     in float8_e4m3fn (compute stays bf16/fp32).  ``uniforms`` (step ->
     noise) replaces the generator's draws in the stochastic mode."""
-    prop_embeds = encode_pv(model, pv, prop_mask)                # [B, 54, H]
-    cross_mask = torch.ones(prop_embeds.shape[:2], dtype=torch.int32,
-                            device=pv.device)
-    dtype = next(decoder.parameters()).dtype
-    prop_embeds = prop_embeds.to(dtype)
-    cache_dtype = torch.float8_e4m3fn if kv_fp8 else dtype
-    return beam_search_batched(decoder, model.text_cfg, prop_embeds,
-                               cross_mask, spec, uniforms=uniforms,
-                               generator=generator, cache_dtype=cache_dtype)
+    with span("spmm.pv2smiles.batch"):
+        with span("spmm.pv2smiles.encode"):
+            prop_embeds = encode_pv(model, pv, prop_mask)        # [B, 54, H]
+        cross_mask = torch.ones(prop_embeds.shape[:2], dtype=torch.int32,
+                                device=pv.device)
+        dtype = next(decoder.parameters()).dtype
+        prop_embeds = prop_embeds.to(dtype)
+        cache_dtype = torch.float8_e4m3fn if kv_fp8 else dtype
+        return beam_search_batched(decoder, model.text_cfg, prop_embeds,
+                                   cross_mask, spec, uniforms=uniforms,
+                                   generator=generator,
+                                   cache_dtype=cache_dtype)
 
 
 def with_decoder(model, bf16: bool) -> tuple:
@@ -150,8 +154,9 @@ def _decode_beams(tok: SmilesTokenizer, result: dict, i: int, k: int,
 
 
 def to_host(result: dict) -> dict:
-    return {key: (v.cpu().numpy() if isinstance(v, Tensor) else v)
-            for key, v in result.items()}
+    with span("spmm.to_host"):
+        return {key: (v.cpu().numpy() if isinstance(v, Tensor) else v)
+                for key, v in result.items()}
 
 
 def generate_with_property(

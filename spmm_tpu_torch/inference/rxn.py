@@ -38,6 +38,7 @@ from spmm_tpu_torch.models.rxn import Rxn, encode_reactants
 from spmm_tpu_torch.parallel.replicas import Replicas, concat_rows, pad_rows
 from spmm_tpu_torch.tokenizer import SmilesTokenizer
 from spmm_tpu_torch.utils.device import DeviceLike, check_on, resolve_device
+from spmm_tpu_torch.utils.spans import span
 
 Tensor = torch.Tensor
 
@@ -45,8 +46,10 @@ Tensor = torch.Tensor
 def _encode(model: Rxn, decoder: BertForMaskedLM, src_ids: Tensor,
             src_mask: Tensor, attention: str) -> Tensor:
     """fp32 reactant hiddens, cast to the decoder's dtype."""
-    enc = encode_reactants(model, src_ids, src_mask, attention_impl=attention)
-    return enc.to(next(decoder.parameters()).dtype)
+    with span("spmm.rxn.encode"):
+        enc = encode_reactants(model, src_ids, src_mask,
+                               attention_impl=attention)
+        return enc.to(next(decoder.parameters()).dtype)
 
 
 @torch.no_grad()
@@ -56,10 +59,11 @@ def _greedy_batch(model: Rxn, decoder: BertForMaskedLM, src_ids: Tensor,
     """Greedy decode of one batch of sources (``_greedy_batch`` of the JAX
     package).  ``attention`` ("kernel" or "plain") selects both kernels or
     both plain versions."""
-    enc = _encode(model, decoder, src_ids, src_mask, attention)
-    return greedy_decode(decoder, model.decoder_cfg, enc, src_mask,
-                         max_steps=max_steps, cache_dtype=enc.dtype,
-                         attention=attention)
+    with span("spmm.rxn.batch"):
+        enc = _encode(model, decoder, src_ids, src_mask, attention)
+        return greedy_decode(decoder, model.decoder_cfg, enc, src_mask,
+                             max_steps=max_steps, cache_dtype=enc.dtype,
+                             attention=attention)
 
 
 @torch.no_grad()
@@ -67,9 +71,10 @@ def _beam_batch(model: Rxn, decoder: BertForMaskedLM, src_ids: Tensor,
                 src_mask: Tensor, spec: BeamSpec) -> dict:
     """k-beam decode of one batch of sources (``_beam_batch`` of the JAX
     package); ``spec.attention`` also selects the encoder's attention."""
-    enc = _encode(model, decoder, src_ids, src_mask, spec.attention)
-    return beam_search_batched(decoder, model.decoder_cfg, enc, src_mask,
-                               spec, cache_dtype=enc.dtype)
+    with span("spmm.rxn.batch"):
+        enc = _encode(model, decoder, src_ids, src_mask, spec.attention)
+        return beam_search_batched(decoder, model.decoder_cfg, enc, src_mask,
+                                   spec, cache_dtype=enc.dtype)
 
 
 def _truncate_at_sep(ids: np.ndarray, sep_id: int = 3) -> np.ndarray:

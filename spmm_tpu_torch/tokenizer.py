@@ -30,6 +30,8 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
+from spmm_tpu_torch.utils.spans import span
+
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
 
 PAD, UNK, CLS, SEP = "[PAD]", "[UNK]", "[CLS]", "[SEP]"
@@ -126,12 +128,13 @@ class SmilesTokenizer:
 
     def decode(self, ids: Sequence[int], strip_special: bool = True) -> str:
         """ids -> string with '##' continuations merged; [UNK] is kept."""
-        tokens = self.convert_ids_to_tokens(ids)
-        s = " ".join(tokens).replace(" ##", "").strip()
-        if strip_special:
-            for t in (PAD, CLS, SEP):
-                s = s.replace(t, "")
-            s = s.strip()
+        with span("spmm.detokenize"):
+            tokens = self.convert_ids_to_tokens(ids)
+            s = " ".join(tokens).replace(" ##", "").strip()
+            if strip_special:
+                for t in (PAD, CLS, SEP):
+                    s = s.replace(t, "")
+                s = s.strip()
         return s
 
     def encode_batch(

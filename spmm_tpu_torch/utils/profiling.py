@@ -1,13 +1,14 @@
 """Profiling hooks (counterpart of ``spmm_tpu.utils.profiling`` for the CUDA
 port).
 
-``device_breakdown`` runs one call under ``torch.profiler``: how much of its
-wall time the device spends in kernels (its busy share), and which kernels
-take that time.  ``trace`` exports a ``torch.profiler`` trace of a block;
-``StepTimer`` measures steady-state step time with device synchronization;
-``count_flops`` counts a call's FLOPs (``FlopCounterMode``) and ``mfu``
-sets a step's FLOP rate against the H100's published peak for the dtype
-that runs.
+``span`` (``utils/spans.py``) names a part of the program's work as a
+range of the ``torch.profiler`` trace, while one is collecting.
+``device_breakdown`` runs one call under ``torch.profiler``: how much of
+its wall time the device spends in kernels (its busy share), and which
+kernels take that time.  ``trace`` exports a ``torch.profiler`` trace of a
+block; ``count_flops`` counts a call's FLOPs (``FlopCounterMode``) and
+``mfu`` sets a step's FLOP rate against the H100's published peak for the
+dtype that runs.
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ from typing import Callable, Optional
 
 import torch
 
+from spmm_tpu_torch.utils.spans import span  # noqa: F401
+
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): fp32 on the
 # CUDA cores (TF32 off, as the port keeps it), bf16 on the tensor cores
 H100_PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
-
 
 def count_flops(fn: Callable[[], object]) -> tuple[object, float]:
     """(``fn()``, the FLOPs it ran, its backward too if it calls one), by
@@ -74,45 +76,6 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Wallclock per-step timing with warmup exclusion; ``tick`` waits for
-    ``device``'s queued work before it reads the clock.
-
-    timer = StepTimer(warmup=2, device=dev)
-    for batch in data:
-        step(...)
-        timer.tick()
-    print(timer.mean_step_time, timer.throughput(global_batch))
-    """
-
-    def __init__(self, warmup: int = 2, device: Optional[torch.device] = None):
-        self.warmup = warmup
-        self.device = device
-        self._times: list[float] = []
-        self._last: Optional[float] = None
-
-    def tick(self) -> None:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        if self._last is not None:
-            self._times.append(now - self._last)
-        self._last = now
-
-    @property
-    def steps(self) -> int:
-        return max(len(self._times) - self.warmup, 0)
-
-    @property
-    def mean_step_time(self) -> float:
-        if not self.steps:
-            return float("nan")
-        return sum(self._times[self.warmup:]) / self.steps
-
-    def throughput(self, items_per_step: int) -> float:
-        return items_per_step / self.mean_step_time
 
 
 def device_breakdown(fn: Callable[[], object], top: int = 8) -> dict:

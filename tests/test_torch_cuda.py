@@ -10,8 +10,10 @@ after the call equals the plain version's bit for bit; kernel 2 within 2e-5
 (f32) and 3e-2 (bf16), the Pallas kernel's bars, and past 256 keys (its
 long and streaming kernels, whose tiles and softmax sums change the order
 of summation) within kernel 1's bars.
-Also: both wrappers refuse a call that would need a gradient, and one
-fine-tune step on the card equals the same step on the CPU.
+Also: both wrappers refuse a call that would need a gradient, one
+fine-tune step on the card equals the same step on the CPU, the decode
+loops' CUDA graphs equal the eager loop, and the decode path's spans read
+as the benchmark reads them.
 """
 
 import pytest
@@ -656,3 +658,45 @@ def test_decode_graphs_two_shapes_in_turn_and_an_eviction(dev, monkeypatch):
     assert graphs.stats()["captured"] > captured
     for row in graphs.stats()["shapes"]:
         assert row["graphs"] > 0 and row["state_bytes"] > 0
+
+
+def test_decode_spans_on_the_card(dev, monkeypatch):
+    """Under ``torch.profiler``, two k=2 reaction batches: the first
+    captures a graph a position, the second replays them.  One
+    ``spmm.decode.step`` a step, and the same ``spmm.*`` spans in the same
+    order in both batches, so none opens inside a captured step body (its
+    Python runs while a graph is captured, never on a replay); readings of
+    the benchmark's ``loop_gap_us`` and ``prologue_idle_ms``."""
+    from portbench import trace as trace_mod
+    from portbench.metrics import loop_gap_us, prologue_idle_ms
+    from spmm_tpu_torch.configs import BertArchConfig
+    from spmm_tpu_torch.inference import decoding, rxn
+    from spmm_tpu_torch.models.rxn import Rxn
+
+    monkeypatch.setattr(decoding, "graph_cache", decoding.DecodeGraphs())
+    dc = BertArchConfig(hidden_size=64, num_hidden_layers=3,
+                        num_attention_heads=2, intermediate_size=128,
+                        fusion_layer=1, encoder_width=64)
+    ec = BertArchConfig(hidden_size=64, num_hidden_layers=1,
+                        num_attention_heads=2, intermediate_size=128,
+                        fusion_layer=1, add_cross_attention=False)
+    model = Rxn.random_init(0, dc, ec, device=dev).eval()
+    spec = decoding.BeamSpec(k=2, stop_count=2 * 2 * 11, max_steps=10)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(4, 300, (8, 16), generator=g)
+    ids[:, 0] = 2
+    ids, mask = ids.to(dev), torch.ones(8, 16, dtype=torch.int32, device=dev)
+    results, trace = trace_mod.capture(
+        lambda j: rxn._beam_batch(model, model.text_encoder, ids, mask, spec),
+        2, dev)
+    captured = decoding.graph_cache.stats()["captured"]
+    spans = [ev for ev in trace.host if ev[0].startswith("spmm.")]
+    by_batch = [[name for name, a, _ in spans if lo <= a <= hi]
+                for lo, hi in trace.batches]
+    assert [r["steps"] for r in results] == [spec.max_steps + 1] * 2
+    assert captured == spec.max_steps + 1
+    assert by_batch[0] == by_batch[1]
+    assert by_batch[0].count("spmm.decode.step") == spec.max_steps + 1
+    assert trace.device
+    assert loop_gap_us.read(trace, [], {}) is not None
+    assert prologue_idle_ms.read(trace, [], {}) is not None

@@ -314,19 +314,19 @@ def test_pretrain_config_fields_reach_the_cli_step(tmp_path, corpus,
 
 
 def test_profiling_helpers_on_cpu(tmp_path):
-    """StepTimer, count_flops, mfu and trace, as the pretrain CLI and
-    chip_smoke use them (here on CPU tensors: a count, no device time)."""
+    """count_flops, mfu and trace, as the pretrain CLI and chip_smoke use
+    them (here on CPU tensors: a count, no device time); a span inside
+    ``trace`` is a range of its trace.json."""
     from spmm_tpu_torch.utils import profiling
 
-    timer = profiling.StepTimer(warmup=1, device=torch.device("cpu"))
-    for _ in range(4):
-        timer.tick()
-    assert timer.steps == 2 and timer.throughput(8) > 0
     a, b = torch.ones(8, 16), torch.ones(16, 4)
     out, flops = profiling.count_flops(lambda: a @ b)
     assert out.shape == (8, 4) and flops == 2 * 8 * 16 * 4
     assert profiling.mfu(flops, 1e-6, 2, 1e9) == pytest.approx(0.512)
     assert profiling.mfu(None, 1.0) is None
     with profiling.trace(str(tmp_path / "prof")):
-        a @ b
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+        with profiling.span("spmm.test.product"):
+            a @ b
+    with open(tmp_path / "prof" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert [ev for ev in events if ev.get("name") == "spmm.test.product"]
