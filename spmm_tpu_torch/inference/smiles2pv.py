@@ -8,10 +8,14 @@ fusion layers as a causal decoder cross-attending over the SMILES hiddens,
 (iii) read property i off position i with the MTR head, and (iv) write its
 ``property_embed`` into slot i+1 (reference d_smiles2pv.py:14-26,46-57).
 
-As in the JAX package, the SMILES section runs once, the fusion layers'
-cross-attention K/V are computed once (``precompute_cross_kv``), and the
-re-encodes run over a buffer that grows in segments 16 -> 32 -> 54: step i
-reads only slots <= i, and the mask ``positions <= i`` makes the cut exact.
+As in the JAX package, the SMILES section runs once and the fusion layers'
+cross-attention K/V are computed once (``precompute_cross_kv``).  Step i
+reads only slots 0..i, so it re-encodes exactly those ``i + 1`` slots of a
+buffer of ``n_properties + 1``.  The JAX package runs the re-encodes over
+a buffer that grows in segments 16 -> 32 -> 54, with the mask
+``positions <= i`` cutting out the slots past i, because XLA compiles one
+program per shape; PyTorch runs any width without a compile, so the port
+computes no masked slot.  Only the order of summation differs.
 
 ``predict_pv_rows`` splits a batch's rows over several cards
 (``parallel.replicas``), the counterpart of calling JAX's ``predict_pv`` on
@@ -24,7 +28,6 @@ import copy
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from spmm_tpu_torch.inference.decoding import precompute_cross_kv
 from spmm_tpu_torch.models.spmm import N_PROPERTIES, SPMM
@@ -38,13 +41,6 @@ def cast_params_bf16(model: SPMM) -> SPMM:
     """A bfloat16 copy of ``model`` for ``predict_pv(bf16=True)`` (LayerNorm,
     scores and softmax still run in fp32).  Make it once, not per call."""
     return copy.deepcopy(model).to(torch.bfloat16)
-
-
-def segment_sizes(n_properties: int) -> list[int]:
-    """Buffer sizes of the segmented re-encode: step i writes slot i+1, so a
-    segment of size S carries steps i <= S - 2."""
-    n_slots = n_properties + 1
-    return [s for s in (16, 32) if s < n_slots] + [n_slots]
 
 
 @torch.no_grad()
@@ -75,28 +71,23 @@ def predict_pv(model: SPMM, input_ids, attention_mask, *,
 
     b, h = ids.shape[0], text_cfg.hidden_size
     cdtype = torch.bfloat16 if bf16 else torch.float32
-    seg_sizes = segment_sizes(n_properties)
-    buf = torch.zeros((b, seg_sizes[0], h), dtype=cdtype, device=dev)
+    buf = torch.zeros((b, n_properties + 1, h), dtype=cdtype, device=dev)
     buf[:, 0] = model.property_cls[0, 0].to(cdtype)
+    ones = torch.ones(n_properties, dtype=torch.int32,
+                      device=dev).expand(b, -1)
     preds = []
-    start = 0
-    for n, S in enumerate(seg_sizes):
-        positions = torch.arange(S, device=dev)
-        for i in range(start, min(S - 1, n_properties)):
-            pmask = (positions <= i).to(torch.int32).expand(b, S)
-            prop_embeds = model.encode_properties(buf, pmask,
-                                                  attention_impl=impl)
-            fused = model.text_encoder.bert(
-                encoder_embeds=prop_embeds, attention_mask=pmask,
-                cross_kv=cross_kv, encoder_attention_mask=mask,
-                is_decoder=True, mode="fusion", attention_impl=impl)
-            # the MTR head on position i only
-            pred = model.mtr_head_forward(fused[:, i])                # [B]
-            buf[:, i + 1] = model.property_embed(pred[:, None])
-            preds.append(pred.float())
-        start = min(S - 1, n_properties)
-        if n + 1 < len(seg_sizes):              # grow the buffer
-            buf = F.pad(buf, (0, 0, 0, seg_sizes[n + 1] - S))
+    for i in range(n_properties):
+        prefix, pmask = buf[:, :i + 1], ones[:, :i + 1]
+        prop_embeds = model.encode_properties(prefix, pmask,
+                                              attention_impl=impl)
+        fused = model.text_encoder.bert(
+            encoder_embeds=prop_embeds, attention_mask=pmask,
+            cross_kv=cross_kv, encoder_attention_mask=mask,
+            is_decoder=True, mode="fusion", attention_impl=impl)
+        # the MTR head on position i only
+        pred = model.mtr_head_forward(fused[:, i])                    # [B]
+        buf[:, i + 1] = model.property_embed(pred[:, None])
+        preds.append(pred.float())
     return torch.stack(preds, dim=1)
 
 

@@ -10,10 +10,11 @@ after the call equals the plain version's bit for bit; kernel 2 within 2e-5
 (f32) and 3e-2 (bf16), the Pallas kernel's bars, and past 256 keys (its
 long and streaming kernels, whose tiles and softmax sums change the order
 of summation) within kernel 1's bars.
-Also: both wrappers refuse a call that would need a gradient, one
-fine-tune step on the card equals the same step on the CPU, the decode
-loops' CUDA graphs equal the eager loop, and the decode path's spans read
-as the benchmark reads them.
+Also: both wrappers refuse a call that would need a gradient, SMILES->PV
+on the card equals the plain route on the CPU, one fine-tune step on the
+card equals the same step on the CPU, the decode loops' CUDA graphs equal
+the eager loop, and the decode path's spans read as the benchmark reads
+them.
 """
 
 import pytest
@@ -218,10 +219,12 @@ def test_fused_mha_matches_plain(dev, dtype, b, h, lq, lk, d, mask_kind):
 
 
 def _launch_classes():
-    """Every launch class of SMILES->PV: text 100x100; per segment S the
-    property S x S, the causal fusion S x S and the cross S x 100."""
+    """Launch classes of SMILES->PV: text 100x100; at step i, over its
+    n = i + 1 slots, the property n x n, the causal fusion n x n and the
+    cross n x 100; here n at the ends and around 16 and 32 (every n from 1
+    to 53 runs in ``test_predict_pv_on_card_matches_cpu``)."""
     classes = [("text", 100, 100, "padding")]
-    for s in (16, 32, 54):
+    for s in (1, 2, 16, 17, 32, 33, 53):
         classes += [("property", s, s, "padding"),
                     ("fusion-self", s, s, "causal"),
                     ("fusion-cross", s, 100, "padding")]
@@ -238,6 +241,38 @@ def test_fused_mha_launch_classes(dev, dtype, label, lq, lk, mask_kind):
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+def test_predict_pv_on_card_matches_cpu(dev):
+    """fp32 ``predict_pv`` of a padded, ragged batch at 53 properties on the
+    card, every attention through kernel 2 (step i over its i + 1 slots, so
+    every width from 1 to 53), against the plain route on the CPU from the
+    same weights: within 1e-4 (sums run in other orders; TF32 is off)."""
+    import copy
+
+    from spmm_tpu_torch.configs import BertArchConfig
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv
+    from spmm_tpu_torch.models.spmm import SPMM
+
+    arch = dict(hidden_size=128, num_attention_heads=2, intermediate_size=256)
+    tc = BertArchConfig(vocab_size=300, num_hidden_layers=3, fusion_layer=1,
+                        encoder_width=128, add_cross_attention=True, **arch)
+    pc = BertArchConfig(vocab_size=1, num_hidden_layers=2, fusion_layer=2,
+                        add_cross_attention=False, **arch)
+    cpu_model = SPMM.random_init(0, tc, pc, device="cpu").eval()
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    g = torch.Generator().manual_seed(3)
+    lengths = torch.tensor([40, 31, 20, 9, 3, 25])
+    mask = (torch.arange(40)[None] < lengths[:, None]).int()
+    ids = torch.randint(4, 300, (6, 40), generator=g) * mask
+    before = fused_mha.launches
+    got = predict_pv(card_model, ids.to(dev), mask.to(dev), device=dev)
+    torch.cuda.synchronize()
+    assert fused_mha.launches - before == 1 + 6 * 53
+    want = predict_pv(cpu_model, ids, mask, attention_impl="plain",
+                      device="cpu")
+    assert got.dtype == torch.float32 and got.shape == (6, 53)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("length", [96, 160])

@@ -4,12 +4,14 @@ on the same weights.
 - ``inference.smiles2pv.predict_pv`` against JAX's ``predict_pv``: the
   kernel route (its plain version on the CPU) against attention_impl=
   "pallas" in interpret mode, the plain route against "xla", for 4, 20 and
-  53 properties (20 crosses the 16-slot segment, 53 both boundaries), with
-  padded SMILES rows.  Bar 2e-5 (tests/test_pallas_attention.py:80).
+  53 properties (JAX's buffer grows in segments 16 -> 32 -> 54: 20 crosses
+  the first boundary, 53 both), with padded SMILES rows.  Bar 2e-5
+  (tests/test_pallas_attention.py:80).
   bf16 against JAX's bf16 within 2e-2: both round to bf16's 8 significant
   bits, at different places (XLA's fusions against PyTorch's per-op
   rounding), and each prediction feeds the next step, so the two drift by
   a few bf16 ulps of |pred| < 1 (5e-3 measured over 53 steps).
+- step i re-encodes exactly its i + 1 slots;
 - every attention of the path goes through ``fused_mha``: 1 + 6 per step
   here (1 text layer; 2 property layers; 2 fusion layers, self and cross);
 - ``Smiles2PvService`` against offline ``predict_pv``;
@@ -30,8 +32,7 @@ import jax.numpy as jnp
 from spmm_tpu.inference.smiles2pv import predict_pv as jpredict_pv
 
 from spmm_tpu_torch.chem.normalize import PropertyStats
-from spmm_tpu_torch.inference.smiles2pv import (
-    cast_params_bf16, predict_pv, segment_sizes)
+from spmm_tpu_torch.inference.smiles2pv import cast_params_bf16, predict_pv
 from spmm_tpu_torch.tokenizer import SmilesTokenizer
 
 from torch_parity import CPU, jax_configs, jax_tree, port_model, to_jax
@@ -91,10 +92,20 @@ def test_predict_pv_bf16_matches_jax(pair, batch):
         got.numpy())
 
 
-def test_segments():
-    assert segment_sizes(53) == [16, 32, 54]
-    assert segment_sizes(20) == [16, 21]
-    assert segment_sizes(4) == [5]
+@pytest.mark.parametrize("n", [4, 20, 53])
+def test_each_step_runs_its_own_prefix(pair, batch, monkeypatch, n):
+    _, model = pair
+    ids, mask = batch
+    widths = []
+    real = model.encode_properties
+
+    def recording(prop_inputs, attention_mask=None, **kwargs):
+        widths.append((prop_inputs.shape[1], attention_mask.shape[1]))
+        return real(prop_inputs, attention_mask, **kwargs)
+
+    monkeypatch.setattr(model, "encode_properties", recording)
+    predict_pv(model, ids, mask, n_properties=n, device=CPU)
+    assert widths == [(i + 1, i + 1) for i in range(n)]
 
 
 @pytest.mark.parametrize("impl,calls", [("kernel", 1 + 6 * 20),
@@ -118,7 +129,8 @@ def test_every_attention_goes_through_the_kernel(pair, batch, monkeypatch,
     assert len(seen) == calls
     if calls:
         assert seen[0] == (24, 24)                       # the text section
-        assert set(seen[1:]) == {(16, 16), (16, 24), (21, 21), (21, 24)}
+        assert set(seen[1:]) == ({(n, n) for n in range(1, 21)}
+                                 | {(n, 24) for n in range(1, 21)})
 
 
 def test_service_matches_offline(pair):
