@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (spmm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--only lm]
 
 Drives the port's paths at the full width of the SPMM model (12-layer
 768-wide text BERT with fusion from layer 6, 6-layer property BERT, 53
@@ -240,6 +240,13 @@ Phases, in order; any failure exits non-zero:
               busy share and the kernels that take the device time;
               kernel 2's profiled total beside phase 3's sum of launches x
               ms.
+  lm          Moonlight-16B-A3B at every published width over cell M's
+              session cache (128 rows x 8,192 positions, histories of
+              2,048-7,680): kernel 3 and the expert layer's kernels (router,
+              grouped products, pairs' sum) against their plain versions on
+              a turn's own inputs, with kernel, plain and bound ms; the
+              launches of a turn through the decode graphs.  ``--only lm``
+              runs phase 1 and this phase alone.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -3526,6 +3533,254 @@ def log_mha_timing(label: str, row: dict, dtype: str = "f32") -> None:
 
 
 # --------------------------------------------------------------------------- #
+# phase lm: the latent MoE LM at cell M's shapes, kernel 3 and the expert
+# layer's kernels against their plain versions on a turn's own inputs
+# --------------------------------------------------------------------------- #
+
+KERNEL3 = {"name": "mla_decode_attention", "route": "cuda",
+           "source": "spmm_tpu_torch/csrc/mla_decode_attention.cu",
+           "replaces": None}
+KERNEL_MOE = {"name": "routed_experts", "route": "cuda",
+              "source": "spmm_tpu_torch/csrc/moe_experts.cu",
+              "replaces": None}
+# cell M (portbench/traffic/moonlight-8k-turn256-b128.json): rows, cache
+# positions, history lengths (the rows' quantiles of the range), turn and
+# answer tokens
+LM_ROWS, LM_POSITIONS, LM_HISTORY = 128, 8192, (2048, 7680)
+LM_TURN, LM_ANSWER = 256, 128
+LM_CONFIG = os.path.join(REPO, "portbench", "configs",
+                         "moonlight-16b-a3b.json")
+
+
+def event_ms(fn, iters: int) -> float:
+    """Mean wall time of ``fn()`` between two CUDA events (for a plain
+    version whose host reads keep it out of a CUDA graph)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def recording_lm_calls():
+    """Keeps the arguments of the first calls of kernel 3 and of the expert
+    layer's router and products in a decode step (128 tokens) and in the
+    turn's prefill (more), as the model makes them."""
+    from spmm_tpu_torch.models import latent_moe
+    from spmm_tpu_torch.ops import moe
+
+    calls = {}
+    saved = (latent_moe.mla_decode_attention, moe.route, moe.routed_experts)
+
+    def keep(name, fn):
+        def wrapped(*args):
+            kind = "decode" if args[0].shape[0] == LM_ROWS else "prefill"
+            calls.setdefault(f"{name} {kind}", args)
+            return fn(*args)
+        # a wrapper stands in for the wrapped function's launch count too
+        wrapped.launches = 0
+        return wrapped
+
+    latent_moe.mla_decode_attention = keep("k3", saved[0])
+    moe.route = keep("route", saved[1])
+    moe.routed_experts = keep("experts", saved[2])
+    try:
+        yield calls
+    finally:
+        (latent_moe.mla_decode_attention, moe.route,
+         moe.routed_experts) = saved
+
+
+def lm_phase(dev) -> tuple:
+    """Moonlight-16B-A3B at every published width and all 27 layers
+    (weights made per tensor from SEED, as the benchmark makes them) over a
+    session cache of cell M's 128 rows x 8,192 positions, whose histories
+    (the cell's lengths) hold random latent rows in place of a prefill; one
+    256-token turn a row:
+
+    1. eagerly, 4 answers, the calls of kernel 3 and of the expert layer
+       kept at the first decode step and at the turn's prefill;
+    2. kernel 3, the router and the grouped products (with the pairs' sum)
+       against their plain versions on those inputs: kernel 3 and the
+       products within 2e-2 and 1e-2 of the largest magnitude (bf16
+       against fp32, as tests/test_torch_cuda.py), the router's choice the
+       plain one's wherever its 6th and 7th scores are apart by 1e-5;
+       the kernel's, the plain version's and the bound's ms of each;
+    3. the cell's turn (128 answers) through the decode graphs, twice
+       (the first captures, after two warm-up steps on the plain
+       attention); launch counts zeroed before the second and read after
+       it: kernel 3 27 x 127 calls, the router 2 x 26 x 128 launches, the
+       products and sum 3 x 26 x 128.
+
+    Returns the two kernels' records."""
+    import torch
+    import torch.nn.functional as F
+
+    from portbench import lm_counts
+    from portbench.counts import PEAK_FLOPS, bound_s
+    from portbench.reference.latent_moe import make_tensor, tensor_kinds
+    from spmm_tpu_torch.configs import LatentMoeConfig
+    from spmm_tpu_torch.inference import lm
+    from spmm_tpu_torch.models.latent_moe import LatentMoe
+    from spmm_tpu_torch.ops import mla_decode, moe
+
+    from spmm_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    for name in ("mla_decode_attention", "moe_experts"):
+        _build.build(name)
+        report = _build.library_path(name).with_suffix(".log")
+        for entry, usage in ptxas_usage(report.read_text()):
+            log(f"  ptxas {entry}: {usage}")
+    log(f"[lm] kernel 3 and the expert kernels built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with open(LM_CONFIG) as f:
+        cfg = json.load(f)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = LatentMoe(LatentMoeConfig.from_dict(cfg))
+    kinds = tensor_kinds(cfg)
+    model.load_checkpoint(lambda name, shape: make_tensor(
+        cfg, SEED, name, shape, kinds[name], dev))
+    model.eval()
+    session = lm.SessionCache(model, LM_ROWS, LM_POSITIONS, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for layer in session.cache:
+        layer.normal_(generator=g)
+    lo, hi = LM_HISTORY
+    session.history = [round(lo + j * (hi - lo) / (LM_ROWS - 1))
+                       for j in range(LM_ROWS)]
+    turn = torch.randint(0, cfg["vocab_size"], (LM_ROWS, LM_TURN),
+                         generator=g, device=dev)
+    sync(dev)
+    log(f"[lm] model ({model.cfg.num_hidden_layers} layers) and a "
+        f"{session.cache.numel() * 2 / 1e9:.1f} GB session cache in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    with recording_lm_calls() as calls:
+        lm.answer_turn(model, session, turn, 4, eager=True)
+    sync(dev)
+    missing = {f"{n} {k}" for n in ("k3", "route", "experts")
+               for k in ("decode", "prefill")} - {"k3 prefill"} - set(calls)
+    if missing:
+        fail(f"[lm] no call recorded for {sorted(missing)}")
+
+    # kernel 3 at the first decode step (layer 0)
+    q, cache, lens, latent, scale = calls["k3 decode"]
+    got = mla_decode.mla_decode_attention(q, cache, lens, latent, scale)
+    want = mla_decode.mla_decode_attention_reference(q, cache, lens, latent,
+                                                     scale)
+    k3_err = float((got.float() - want.float()).abs().max()
+                   / want.float().abs().max())
+    if not k3_err < 2e-2:
+        fail(f"[lm] kernel 3 against plain: {k3_err:.2e} of the largest "
+             f"magnitude")
+    live = lens.tolist()
+    k3 = {"shape": f"{LM_ROWS} rows, 16 heads on a latent of 512 + 64, mean "
+                   f"length {sum(live) / len(live):.0f}, T {LM_POSITIONS}",
+          "ms": cuda_ms(lambda i: mla_decode.mla_decode_attention(
+              q, cache, lens, latent, scale), 50),
+          "plain_ms": event_ms(
+              lambda: mla_decode.mla_decode_attention_reference(
+                  q, cache, lens, latent, scale), 3),
+          "bound_ms": 1e3 * bound_s(*lm_counts.k3_launch(cfg, live),
+                                    PEAK_FLOPS["bf16"]),
+          "max_err_of_largest": k3_err}
+    log(f"[lm] kernel 3 {k3['shape']}: kernel {k3['ms']:.4f} ms, plain "
+        f"{k3['plain_ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms = "
+        f"{100 * k3['bound_ms'] / k3['ms']:.1f}% of the kernel; against "
+        f"plain {k3_err:.2e} of the largest magnitude")
+
+    experts = {}
+    for kind in ("decode", "prefill"):
+        x, gate, bias, k, rscale = calls[f"route {kind}"]
+        idx, w = moe.route(x, gate, bias, k, rscale)
+        ridx, rw = moe.route_reference(x, gate, bias, k, rscale)
+        top = (torch.sigmoid(F.linear(x.float(), gate.float()))
+               + bias.float()).topk(k + 1, dim=-1).values
+        clear = top[:, k - 1] - top[:, k] > 1e-5
+        sidx, order = idx[clear].sort(-1)
+        ridx_s, rorder = ridx[clear].sort(-1)
+        route_w_err = float((w[clear].gather(-1, order)
+                             - rw[clear].gather(-1, rorder)).abs().max())
+        if (clear.float().mean() < 0.99 or not torch.equal(sidx, ridx_s)
+                or not route_w_err < 1e-5):
+            fail(f"[lm] router kernel at {kind} against plain: "
+                 f"{int((~clear).sum())} near ties, weights {route_w_err:.2e}")
+        xe, idx, w, gate_up, down = calls[f"experts {kind}"]
+        got = moe.routed_experts(xe, idx, w, gate_up, down)
+        want = moe.routed_experts_reference(xe, idx, w, gate_up, down)
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err < 1e-2:
+            fail(f"[lm] expert products at {kind} against plain: {err:.2e} "
+                 f"of the largest magnitude")
+        tokens = xe.shape[0]
+        iters = 20 if kind == "decode" else 3   # a prefill call holds 1.6 GB
+        row = {"tokens": tokens,
+               "ms": cuda_ms(lambda i: moe.routed_experts(
+                   xe, idx, w, gate_up, down), iters),
+               "route_ms": cuda_ms(lambda i: moe.route(
+                   x, gate, bias, k, rscale), iters),
+               "plain_ms": event_ms(lambda: moe.routed_experts_reference(
+                   xe, idx, w, gate_up, down), 2),
+               "bound_ms": 1e3 * bound_s(*lm_counts.moe_launches(cfg, tokens),
+                                         PEAK_FLOPS["bf16"]),
+               "max_err_of_largest": err,
+               "router_near_ties": int((~clear).sum()),
+               "router_weight_err": route_w_err}
+        experts[kind] = row
+        log(f"[lm] expert layer at {kind} ({tokens} tokens): dispatch, "
+            f"products and sum {row['ms']:.4f} ms (bound of the products "
+            f"{row['bound_ms']:.4f} ms = "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}%), plain "
+            f"{row['plain_ms']:.4f} ms, router {row['route_ms']:.4f} ms; "
+            f"against plain {err:.2e} of the largest magnitude, router "
+            f"weights {route_w_err:.1e} ({row['router_near_ties']} near ties)")
+    del calls, got, want
+
+    t0 = time.perf_counter()
+    lm.answer_turn(model, session, turn, LM_ANSWER)
+    sync(dev)
+    first = time.perf_counter() - t0
+    wrappers = (mla_decode.mla_decode_attention, moe.route,
+                moe.routed_experts)
+    for wrapper in wrappers:
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    out = lm.answer_turn(model, session, turn, LM_ANSWER)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counted = [wrapper.launches for wrapper in wrappers]
+    layers = cfg["num_hidden_layers"]
+    moe_layers = layers - cfg["first_k_dense_replace"]
+    want_counts = [layers * (LM_ANSWER - 1), 2 * moe_layers * LM_ANSWER,
+                   3 * moe_layers * LM_ANSWER]
+    if counted != want_counts or out["answers"].shape != (LM_ROWS,
+                                                          LM_ANSWER):
+        fail(f"[lm] graph turn: launches {counted} (want {want_counts}), "
+             f"answers {out['answers'].shape}")
+    log(f"[lm] a turn through the decode graphs: {first:.2f} s the first "
+        f"(its capture and warm-up), {wall:.2f} s the second; the second's "
+        f"launches: kernel 3 {counted[0]}, router {counted[1]}, products "
+        f"and sum {counted[2]}")
+    del model, session
+    torch.cuda.empty_cache()
+    record3 = dict(KERNEL3, launches=counted[0], **k3)
+    record_moe = dict(KERNEL_MOE, launches=counted[2],
+                      route_launches=counted[1], **experts["decode"],
+                      prefill=experts["prefill"])
+    return record3, record_moe
+
+
+# --------------------------------------------------------------------------- #
 # phase 6: where one serving batch spends its time
 # --------------------------------------------------------------------------- #
 
@@ -3611,6 +3866,8 @@ def main(argv=None) -> int:
                         help="a checkout of another commit (git archive): "
                              "time its kernel-2 library beside this one at "
                              "the inputs past 256 keys")
+    parser.add_argument("--only", choices=["lm"], default=None,
+                        help="run phase 1 and this phase alone")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -3645,6 +3902,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    device_line = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    if args.only == "lm":
+        mark("lm")
+        print(json.dumps({"kernels": list(lm_phase(dev))}))
+        print(device_line)
+        return 0
 
     # ---- 2. build: one nvcc per source, all started together ----
     from concurrent.futures import ThreadPoolExecutor
@@ -4215,10 +4480,11 @@ def main(argv=None) -> int:
                    profile_ms=in_profile,
                    occupancy={key: row for key, row in occ.items()
                               if key.startswith(KERNEL2["name"])})
-    print(json.dumps({"kernels": [record, record2]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    mark("lm")
+    torch.cuda.empty_cache()
+    record3, record_moe = lm_phase(dev)
+    print(json.dumps({"kernels": [record, record2, record3, record_moe]}))
+    print(device_line)
     return 0
 
 

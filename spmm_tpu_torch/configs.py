@@ -120,3 +120,50 @@ class PretrainConfig:
     remat: bool = False           # objective+layer rematerialization (memory for FLOPs)
     bf16_moments: bool = False    # bf16 Adam first moment (optax mu_dtype)
     zero1: bool = False           # ZeRO-1: Adam moments sharded over the ranks
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentMoeConfig:
+    """A decoder-only LM with latent attention (MLA) and routed experts, in
+    DeepSeek-V3's layout (``models/latent_moe.py``); the defaults are
+    Moonlight-16B-A3B's published config.json.
+
+    ``first_k_dense_replace`` leading layers have a dense SwiGLU FFN of
+    ``intermediate_size``; the rest route each token to
+    ``num_experts_per_tok`` of ``n_routed_experts`` SwiGLU experts of
+    ``moe_intermediate_size`` by sigmoid scores with a correction bias,
+    beside ``n_shared_experts`` shared ones.  ``kv_norm_eps`` is the
+    ``kv_a_layernorm``'s eps (the norm class's default; the config gives
+    none)."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    rms_norm_eps: float = 1e-5
+    kv_norm_eps: float = 1e-6
+    rope_theta: float = 50000.0
+    max_position_embeddings: int = 8192
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a token a layer in the cache: the latent and the shared
+        rotated key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LatentMoeConfig":
+        """The fields of ``d`` that this class has (a config.json)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})

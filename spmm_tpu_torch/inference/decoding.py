@@ -29,7 +29,8 @@ segments.  Here a decode has three parts: a prologue (the cross K/V,
 ``precompute_cross_kv``, and the state loaded and reset), a step body that
 reads and writes a fixed set of state tensors in place (``_BeamDecode``,
 ``_GreedyDecode``), and a runner.  On a CUDA tensor the runner replays the
-body as CUDA graphs, one captured per position and kept per shape
+body as CUDA graphs, one captured per position (one for every step of the
+latent decode, ``_LatentDecode``) and kept per shape
 (``DecodeGraphs``, ``graph_cache``), with no per-step Python dispatch of
 the step's ops; on a CPU tensor, and for a decoder laid out by tensor
 parallelism, it calls the body step by step (``beam_search_batched_eager``,
@@ -253,6 +254,32 @@ class _Decode:
                 out.append(value)
         return out
 
+    def stopped(self) -> bool:
+        """The stop test of the last step, read on the host."""
+        return bool(self.stop)
+
+    def graph_key(self, pos: int) -> int:
+        """Which captured graph replays the step at ``pos``: one a position
+        (kernel 1 sizes its shared memory by position)."""
+        return pos
+
+    def prepare(self) -> None:
+        """Before the first capture: the step's kernel loaded and its
+        shared-memory limit raised, with no launch."""
+        raise NotImplementedError
+
+
+class _CrossDecode(_Decode):
+    """A decoder cross-attending to an encoder: a call loads its cross K/V
+    and mask into the state; the beam-layout cache [2, L, m, h, k, T, D]
+    and kernel 1."""
+
+    def prepare(self) -> None:
+        if self.attention == "kernel":
+            from spmm_tpu_torch.ops import decode_attention
+
+            decode_attention.prepare(self.cache)
+
     def _load_inputs(self, cross_kv: dict[str, Tensor],
                      cross_mask: Tensor) -> None:
         for name, value in cross_kv.items():
@@ -260,10 +287,6 @@ class _Decode:
         self.cross_mask.copy_(cross_mask)
         self.cache.zero_()
         self.stop.zero_()
-
-    def stopped(self) -> bool:
-        """The stop test of the last step, read on the host."""
-        return bool(self.stop)
 
     def describe(self) -> dict:
         _, _, m, _, k, T, _ = self.cache.shape
@@ -273,7 +296,7 @@ class _Decode:
                 "attention": self.attention, "stochastic": self.stochastic}
 
 
-class _BeamDecode(_Decode):
+class _BeamDecode(_CrossDecode):
     """State of ``beam_search_batched``: seqs, logp and anc; the running
     top-k of harvested beams (fin_*), done and the stop flag; the KV cache;
     this call's cross K/V and mask; the noise buffers of the stochastic
@@ -416,7 +439,7 @@ class _BeamDecode(_Decode):
         }
 
 
-class _GreedyDecode(_Decode):
+class _GreedyDecode(_CrossDecode):
     """State of ``greedy_decode``: seqs [B, T], the single-lane cache, an
     all-zero ancestry, this call's cross K/V and mask, the stop flag and
     the noise buffer of the stochastic mode (float32)."""
@@ -468,6 +491,70 @@ class _GreedyDecode(_Decode):
         return {"seqs": self.seqs.clone(), "steps": steps}
 
 
+class _LatentDecode(_Decode):
+    """State of ``latent_decode``: greedy decoding of a decoder-only latent
+    MoE model (``models.latent_moe``) over a session cache [L, B, T, latent
+    + rope] that the caller holds (``inference.lm.SessionCache``), each row
+    at its own position.  Its prologue is the caller's prefill into that
+    cache; ``load`` takes the first answer token and the rows' positions.
+    A step feeds each row's last token at its position, writes its cache
+    row there and appends the argmax, with no stop; the step body does not
+    depend on ``pos`` (the positions and the answer column live on the
+    device), so one graph replays every step."""
+
+    kind = "latent"
+
+    def __init__(self, model, cache: Tensor, n_answer: int):
+        dev = cache.device
+        b = cache.shape[1]
+        self.model, self.cache = model, cache
+        ints = {"dtype": torch.int64, "device": dev}
+        self.tokens = torch.zeros((b,), **ints)
+        self.pos = torch.zeros((b,), **ints)
+        self.answers = torch.zeros((b, n_answer), **ints)
+        self.column = torch.zeros((b, 1), **ints)
+        self.stop = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def load(self, first: Tensor, positions: Tensor) -> None:
+        """The first answer token of each row (from the prefill) and the
+        position it takes; the answers reset."""
+        self.tokens.copy_(first)
+        self.pos.copy_(positions)
+        self.answers.zero_()
+        self.answers[:, 0] = first
+        self.column.fill_(1)
+
+    def feed(self, pos: int, uniforms: Optional[UniformFn]) -> None:
+        pass
+
+    def step(self, pos: int, attention: Optional[str] = None) -> None:
+        logits = self.model.decode_step(self.cache, self.tokens, self.pos,
+                                        attention or "kernel")
+        nxt = logits.argmax(dim=-1)
+        self.answers.scatter_(1, self.column, nxt[:, None])
+        self.tokens.copy_(nxt)
+        self.pos += 1
+        self.column += 1
+
+    def graph_key(self, pos: int) -> int:
+        return 0
+
+    def prepare(self) -> None:
+        from spmm_tpu_torch.ops import mla_decode, moe
+
+        mla_decode.prepare(self.cache)
+        moe.prepare(self.cache.device)
+
+    def describe(self) -> dict:
+        layers, b, T, width = self.cache.shape
+        return {"kind": self.kind, "rows": b, "T": T, "layers": layers,
+                "width": width, "answer": self.answers.shape[1],
+                "cache_dtype": str(self.cache.dtype).split(".")[-1]}
+
+    def result(self, steps: int) -> dict:
+        return {"answers": self.answers.clone(), "steps": steps}
+
+
 def _drive(state: _Decode, run_step: Callable[[int], None], n_pos: int,
            uniforms: Optional[UniformFn]) -> int:
     """Positions 0, 1, ... up to ``n_pos``, each after its noise is fed
@@ -502,7 +589,8 @@ def _thread_token() -> int:
 
 
 class _Entry:
-    """One shape's decode state, graphs (one a position) and their launches."""
+    """One shape's decode state, its graphs (by ``_Decode.graph_key``) and
+    their launches."""
 
     def __init__(self, state: _Decode):
         self.state = state
@@ -530,19 +618,22 @@ class DecodeGraphs:
     Each decode shape (``_shape_key``: the decoder and its weights' storage,
     the device, the inputs' and cache's shapes and dtypes, the search's
     fields) has an entry: the decode's buffers (``_BeamDecode``,
-    ``_GreedyDecode``), one graph a position, captured from the step body
-    when a decode first reaches that position (kernel 1 sizes its shared
-    memory by position), all in one memory pool and replayed in position
-    order, and each graph's kernel launches, which ``count_launch`` adds at
-    every replay (the capture itself launches nothing).  A call copies its
+    ``_GreedyDecode``, ``_LatentDecode``), its graphs, captured from the
+    step body when a decode first reaches a position of a new
+    ``graph_key`` (one a position where kernel 1 sizes its shared memory
+    by position; one for all of the latent decode's steps), all in one
+    memory pool and replayed in position order, and each graph's kernel
+    launches, which ``count_launch`` adds at every replay (the capture
+    itself launches nothing).  A call copies its
     inputs into the entry's buffers and resets the rest, so its result
     equals a fresh eager decode's; then it replays, feeding each step's
     noise before the replay and reading the stop test after it (one small
     copy to the host), so ``steps`` and the draws are the eager loop's.
 
     The entries of the ``MAX_SHAPES`` shapes used last are kept (each holds
-    its KV cache, up to 3.93 GB at bf16 m=512, k=2, T=104, and its
-    decoder); the least recently used is dropped past that.  A weight
+    its KV cache, up to 3.93 GB at bf16 m=512, k=2, T=104, or a reference
+    to the session cache of a latent decode, and its decoder); the least
+    recently used is dropped past that.  A weight
     updated in place is seen by the graphs; replaced storage makes a new
     key.  A capture or replay error raises and drops the entry: nothing
     falls back to the eager loop."""
@@ -568,22 +659,22 @@ class DecodeGraphs:
         return {"captured": self.captured, "capture_s": self.capture_s,
                 "shapes": [e.describe() for e in entries]}
 
-    def run(self, key: tuple, make: Callable[[], _Decode],
-            cross_kv: dict[str, Tensor], cross_mask: Tensor, n_pos: int,
-            uniforms: Optional[UniformFn]) -> dict:
+    def run(self, key: tuple, make: Callable[[], _Decode], inputs: tuple,
+            n_pos: int, uniforms: Optional[UniformFn]) -> dict:
         """One decode of shape ``key`` (``make`` builds its state the first
-        time) through the entry's graphs."""
+        time) through the entry's graphs; ``inputs`` are what the state's
+        ``load`` takes."""
         entry = self._entry(key, make)
         on_device = (torch.cuda.device(entry.device)
                      if entry.device.type == "cuda" else contextlib.nullcontext())
         with entry.lock, on_device:
             try:
                 with span("spmm.decode.load"):
-                    entry.state.load(cross_kv, cross_mask)
+                    entry.state.load(*inputs)
                     if _thread_token() not in entry.warmed:
                         self._warm_up(entry)
                         entry.warmed.add(_thread_token())
-                        entry.state.load(cross_kv, cross_mask)
+                        entry.state.load(*inputs)
                 steps = _drive(entry.state,
                                lambda pos: self._replay(entry, pos), n_pos,
                                uniforms)
@@ -609,36 +700,34 @@ class DecodeGraphs:
         return entry
 
     def _replay(self, entry: _Entry, pos: int) -> None:
-        graph = entry.graphs.get(pos)
+        key = entry.state.graph_key(pos)
+        graph = entry.graphs.get(key)
         if graph is None:
             t0 = time.perf_counter()
             with captured_launches() as launches:
                 graph = self._capture(entry, pos)
             seconds = time.perf_counter() - t0
-            entry.graphs[pos], entry.launches[pos] = graph, launches
+            entry.graphs[key], entry.launches[key] = graph, launches
             entry.capture_s += seconds
             with self._lock:
                 self.captured += 1
                 self.capture_s += seconds
         graph.replay()
-        for wrapper, n in entry.launches[pos].items():
+        for wrapper, n in entry.launches[key].items():
             count_launch(wrapper, n)
 
     def _warm_up(self, entry: _Entry) -> None:
-        """Before the first capture in a thread: kernel 1 loaded and its
-        shared-memory limit raised, with no launch; positions 0 and 1 of
-        the step body on the plain attention on the capture stream, so
-        that cuBLAS's handle and workspace for this thread and stream exist
-        before any capture.  It writes the state, which the call then
-        loads again."""
-        from spmm_tpu_torch.ops import decode_attention
-
+        """Before the first capture in a thread: the step's kernel loaded
+        and its shared-memory limit raised, with no launch
+        (``_Decode.prepare``); positions 0 and 1 of the step body on the
+        plain attention on the capture stream, so that cuBLAS's handle and
+        workspace for this thread and stream exist before any capture.  It
+        writes the state, which the call then loads again."""
         state = entry.state
         if entry.stream is None:
             entry.stream = torch.cuda.Stream(entry.device)
             entry.pool = torch.cuda.graph_pool_handle()
-        if state.attention == "kernel":
-            decode_attention.prepare(state.cache)
+        state.prepare()
         current = torch.cuda.current_stream(entry.device)
         entry.stream.wait_stream(current)
         with torch.cuda.stream(entry.stream):
@@ -707,14 +796,14 @@ def _shape_key(kind: str, model: BertForMaskedLM, cross_kv: dict[str, Tensor],
 
 
 def _run(graphs: Optional[DecodeGraphs], key: Callable[[], tuple],
-         make: Callable[[], _Decode], cross_kv: dict[str, Tensor],
-         cross_mask: Tensor, n_pos: int,
+         make: Callable[[], _Decode], inputs: tuple, n_pos: int,
          uniforms: Optional[UniformFn]) -> dict:
+    """A decode through ``graphs``, or eagerly where there are none."""
     if graphs is not None:
-        return graphs.run(key(), make, cross_kv, cross_mask, n_pos, uniforms)
+        return graphs.run(key(), make, inputs, n_pos, uniforms)
     state = make()
     with span("spmm.decode.load"):
-        state.load(cross_kv, cross_mask)
+        state.load(*inputs)
     steps = _drive(state, state.step, n_pos, uniforms)
     with span("spmm.decode.result"):
         return state.result(steps)
@@ -788,7 +877,7 @@ def _beam_search(model, cfg, cross_hidden, cross_mask, spec, uniforms,
                            sep_id=spec.sep_id),
         lambda: _BeamDecode(model, cfg, spec, cross_kv, cross_mask,
                             cache_dtype),
-        cross_kv, cross_mask, spec.max_steps + 1, uniforms)
+        (cross_kv, cross_mask), spec.max_steps + 1, uniforms)
 
 
 def beam_search(
@@ -880,4 +969,26 @@ def _greedy(model, cfg, cross_hidden, cross_mask, max_steps, stochastic,
         lambda: _GreedyDecode(model, cfg, T, cross_kv, cross_mask,
                               cache_dtype, stochastic, cls_id, sep_id,
                               attention),
-        cross_kv, cross_mask, max_steps, uniforms)
+        (cross_kv, cross_mask), max_steps, uniforms)
+
+
+@torch.no_grad()
+def latent_decode(model, cache: Tensor, first: Tensor, positions: Tensor,
+                  n_answer: int, eager: bool = False) -> dict:
+    """Greedy decoding of ``n_answer`` tokens a row of a latent MoE model
+    over its session ``cache`` [L, B, T, latent + rope]: ``first`` [B] is
+    each row's first answer token (the prefill's) and ``positions`` [B] the
+    position it takes.  Each of the ``n_answer - 1`` steps runs every layer
+    through kernel 3 (its plain version on the CPU), writing the rows' cache
+    rows at their positions.  Returns ``answers`` [B, n_answer] and
+    ``steps``.  Graphs on a CUDA tensor (``graph_cache``, one graph for
+    every step), eager on the CPU or with ``eager``."""
+    graphs = None if eager else _graphs_for(model, cache.device)
+    weights = tuple(t.data_ptr() for t in itertools.chain(
+        model.parameters(), model.buffers()))
+    return _run(
+        graphs,
+        lambda: ("latent", id(model), weights, cache.device, cache.data_ptr(),
+                 tuple(cache.shape), cache.dtype, n_answer),
+        lambda: _LatentDecode(model, cache, n_answer),
+        (first, positions), n_answer - 1, None)

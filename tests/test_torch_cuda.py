@@ -1,6 +1,8 @@
-"""Kernels 1 and 2 on the card: the CUDA kernels of
-spmm_tpu_torch.ops.decode_attention and spmm_tpu_torch.ops.fused_attention
-against their plain PyTorch versions.
+"""Kernels 1, 2 and 3 on the card: the CUDA kernels of
+spmm_tpu_torch.ops.decode_attention, spmm_tpu_torch.ops.fused_attention and
+spmm_tpu_torch.ops.mla_decode, and the expert layer's kernels of
+spmm_tpu_torch.ops.moe (router, grouped products, pairs' sum), against
+their plain PyTorch versions.
 
 Marked ``cuda``: each test skips without a GPU.  This file imports no JAX, so
 on a machine without it run it as
@@ -10,11 +12,15 @@ after the call equals the plain version's bit for bit; kernel 2 within 2e-5
 (f32) and 3e-2 (bf16), the Pallas kernel's bars, and past 256 keys (its
 long and streaming kernels, whose tiles and softmax sums change the order
 of summation) within kernel 1's bars.
+Kernel 3 and the expert products within 2e-2 and 1e-2 of the largest
+magnitude (bf16 probabilities and outputs against fp32); the router's
+choice the plain one's wherever the 6th and 7th scores are apart by more
+than the fp32 sum's rounding, its weights within 1e-5.
 Also: both wrappers refuse a call that would need a gradient, SMILES->PV
 on the card equals the plain route on the CPU, one fine-tune step on the
 card equals the same step on the CPU, the decode loops' CUDA graphs equal
-the eager loop, and the decode path's spans read as the benchmark reads
-them.
+the eager loop (the latent MoE turn's too), and the decode path's spans
+read as the benchmark reads them.
 """
 
 import pytest
@@ -735,3 +741,199 @@ def test_decode_spans_on_the_card(dev, monkeypatch):
     assert trace.device
     assert loop_gap_us.read(trace, [], {}) is not None
     assert prologue_idle_ms.read(trace, [], {}) is not None
+
+
+# ---- kernel 3 (latent attention decode) and the latent MoE turn ----
+
+def _mla_case(dev, lens, T=8192, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = len(lens)
+    q = torch.randn(b, 16, 576, generator=g, device=dev).bfloat16()
+    cache = torch.randn(b, T, 576, generator=g, device=dev).bfloat16()
+    return q, cache, torch.tensor(lens, device=dev)
+
+
+def _check_mla(q, cache, lens):
+    from spmm_tpu_torch.ops.mla_decode import (
+        mla_decode_attention, mla_decode_attention_reference)
+
+    scale = 192 ** -0.5
+    calls = mla_decode_attention.launches
+    got = mla_decode_attention(q, cache, lens, 512, scale)
+    torch.cuda.synchronize()
+    want = mla_decode_attention_reference(q, cache, lens, 512, scale)
+    assert mla_decode_attention.launches == calls + 1
+    # bf16 probabilities and output against fp32: kernel 1's bf16 bar
+    err = (got.float() - want.float()).abs().max() / want.abs().max()
+    assert err < 2e-2, float(err)
+
+
+def test_mla_kernel_matches_plain_published_widths(dev):
+    """128 rows of 2,048-8,064 live positions in an 8,192-position cache,
+    16 heads sharing one latent of 512 + 64."""
+    g = torch.Generator().manual_seed(1)
+    lens = torch.randint(2048, 8065, (128,), generator=g).tolist()
+    _check_mla(*_mla_case(dev, lens))
+
+
+def test_mla_kernel_tile_and_split_edges(dev):
+    _check_mla(*_mla_case(dev, [1, 2, 31, 32, 33, 511, 512, 513, 1025,
+                                8191, 8192], seed=2))
+
+
+def test_moe_kernel_matches_plain(dev):
+    """The grouped expert products at the published widths, at a decode
+    step's 128 tokens and at a prefill's 4,096, against the plain loop over
+    the experts on the card."""
+    from spmm_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    gate_up = (torch.randn(64, 2816, 2048, generator=g, device=dev)
+               * 0.02).bfloat16()
+    down = (torch.randn(64, 2048, 1408, generator=g, device=dev)
+            * 0.02).bfloat16()
+    router = (torch.randn(64, 2048, generator=g, device=dev)
+              * 0.02).bfloat16()
+    bias = torch.randn(64, generator=g, device=dev) * 0.02
+    for n in (128, 4096):
+        x = torch.randn(n, 2048, generator=g, device=dev).bfloat16()
+        idx, w = moe.route(x, router, bias, 6, 2.446)
+        calls = moe.routed_experts.launches
+        got = moe.routed_experts(x, idx, w, gate_up, down)
+        torch.cuda.synchronize()
+        assert moe.routed_experts.launches == calls + 3
+        want = moe.routed_experts_reference(x, idx, w, gate_up, down)
+        # the same bf16 roundings; fp32 sums in another order
+        err = (got - want).abs().max() / want.abs().max()
+        assert err < 1e-2, (n, float(err))
+
+
+def test_moe_products_with_every_token_on_one_expert(dev):
+    """Every token's first choice one expert (the prefill tiling's many
+    blocks of one expert, the decode tiling's blocks full), against the
+    plain loop."""
+    from spmm_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    gate_up = (torch.randn(64, 2816, 2048, generator=g, device=dev)
+               * 0.02).bfloat16()
+    down = (torch.randn(64, 2048, 1408, generator=g, device=dev)
+            * 0.02).bfloat16()
+    for n in (128, 2048):
+        x = torch.randn(n, 2048, generator=g, device=dev).bfloat16()
+        idx = torch.stack([torch.randperm(63, device=dev)[:6] + 1
+                           for _ in range(n)])
+        idx[:, 0] = 0
+        w = torch.rand(n, 6, generator=g, device=dev)
+        got = moe.routed_experts(x, idx, w, gate_up, down)
+        want = moe.routed_experts_reference(x, idx, w, gate_up, down)
+        err = (got - want).abs().max() / want.abs().max()
+        assert err < 1e-2, (n, float(err))
+
+
+def test_moe_router_kernel_matches_plain(dev):
+    """The router kernel at the published widths (64 experts, 6 a token,
+    hidden 2,048), at a decode step's 128 tokens and a prefill's 4,096:
+    the same experts as the plain router wherever the plain biased scores'
+    6th and 7th are apart by more than 1e-5 (two fp32 sums of 2,048 terms
+    in another order differ by about 1e-6), and the same weights."""
+    import torch.nn.functional as F
+
+    from spmm_tpu_torch.ops import moe
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    gate = (torch.randn(64, 2048, generator=g, device=dev) * 0.02).bfloat16()
+    bias = torch.randn(64, generator=g, device=dev) * 0.02
+    for n in (128, 4096):
+        x = torch.randn(n, 2048, generator=g, device=dev).bfloat16()
+        calls = moe.route.launches
+        idx, w = moe.route(x, gate, bias, 6, 2.446)
+        torch.cuda.synchronize()
+        assert moe.route.launches == calls + 2
+        ridx, rw = moe.route_reference(x, gate, bias, 6, 2.446)
+        s = torch.sigmoid(F.linear(x.float(), gate.float())) + bias
+        top = s.topk(7, dim=-1).values
+        clear = top[:, 5] - top[:, 6] > 1e-5
+        assert clear.float().mean() > 0.99
+        # within the 6 the order may differ where two scores nearly tie
+        idx, order = idx[clear].sort(-1)
+        ridx, rorder = ridx[clear].sort(-1)
+        assert torch.equal(idx, ridx)
+        assert (w[clear].gather(-1, order)
+                - rw[clear].gather(-1, rorder)).abs().max() < 1e-5
+
+
+def _latent_model(dev, layers=3):
+    """Published widths at 3 layers (one dense, two expert layers)."""
+    from portbench.reference.latent_moe import make_tensor, tensor_kinds
+    from spmm_tpu_torch.configs import LatentMoeConfig
+    from spmm_tpu_torch.models.latent_moe import LatentMoe
+
+    cfg = LatentMoeConfig(num_hidden_layers=layers)
+    d = {"initializer_range": 0.02, **{f: getattr(cfg, f) for f in (
+        "vocab_size", "hidden_size", "num_hidden_layers",
+        "num_attention_heads", "kv_lora_rank", "qk_nope_head_dim",
+        "qk_rope_head_dim", "v_head_dim", "intermediate_size",
+        "moe_intermediate_size", "n_routed_experts", "n_shared_experts",
+        "first_k_dense_replace")}}
+    kinds = tensor_kinds(d)
+    with torch.device(dev):
+        model = LatentMoe(cfg)
+    model.load_checkpoint(lambda name, shape: make_tensor(
+        d, 5, name, shape, kinds[name], dev))
+    return model.eval()
+
+
+def _latent_session(dev, model, rows=8, seed=0):
+    from spmm_tpu_torch.inference import lm
+
+    g = torch.Generator().manual_seed(seed)
+    s = lm.SessionCache(model, rows, 4096, dev)
+    lengths = torch.randint(100, 3000, (rows,), generator=g).tolist()
+    lm.prefill_history(model, s, [
+        torch.randint(0, 163840, (n,), generator=g).to(dev) for n in lengths])
+    turn = torch.randint(0, 163840, (rows, 64), generator=g).to(dev)
+    return s, turn
+
+
+def test_latent_turn_graphs_equal_eager(dev, monkeypatch):
+    """A turn through the decode graphs (one graph, captured on the first
+    call, replayed on the second) equals the eager decode bit for bit."""
+    from spmm_tpu_torch.inference import decoding, lm
+
+    monkeypatch.setattr(decoding, "graph_cache", decoding.DecodeGraphs())
+    model = _latent_model(dev)
+    s, turn = _latent_session(dev, model)
+    first = lm.answer_turn(model, s, turn, 16)
+    again = lm.answer_turn(model, s, turn, 16)
+    eager = lm.answer_turn(model, s, turn, 16, eager=True)
+    assert (first["answers"] == eager["answers"]).all()
+    assert (again["answers"] == eager["answers"]).all()
+    stats = decoding.graph_cache.stats()
+    assert stats["captured"] == 1
+    assert stats["shapes"][0]["kind"] == "latent"
+
+
+def test_latent_turn_spans_on_the_card(dev, monkeypatch):
+    """Under ``torch.profiler``, two turns: the same ``spmm.*`` spans in
+    the same order in both (none opens inside the captured step body), one
+    ``spmm.decode.step`` a step, kernel 3 and the expert products in the
+    device trace, and the new readers reading them."""
+    from portbench import trace as trace_mod
+    from portbench.metrics import k3_roofline, moe_ms, turn_ms
+    from spmm_tpu_torch.inference import decoding, lm
+
+    monkeypatch.setattr(decoding, "graph_cache", decoding.DecodeGraphs())
+    model = _latent_model(dev)
+    s, turn = _latent_session(dev, model, seed=1)
+    results, trace = trace_mod.capture(
+        lambda j: lm.answer_turn(model, s, turn, 12), 2, dev)
+    spans = [ev for ev in trace.host if ev[0].startswith("spmm.")]
+    by_batch = [[name for name, a, _ in spans if lo <= a <= hi]
+                for lo, hi in trace.batches]
+    assert by_batch[0] == by_batch[1]
+    assert by_batch[0].count("spmm.decode.step") == 11
+    assert by_batch[0].count("spmm.lm.prefill") == 1
+    assert len(trace.named(k3_roofline.NAMES)) == 2 * 2 * 3 * 11
+    assert moe_ms.read(trace, [], {}) > 0
+    assert turn_ms.read(trace, [], {}) > 0
