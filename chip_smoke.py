@@ -242,10 +242,12 @@ Phases, in order; any failure exits non-zero:
               ms.
   lm          Moonlight-16B-A3B at every published width over cell M's
               session cache (128 rows x 8,192 positions, histories of
-              2,048-7,680): kernel 3 and the expert layer's kernels (router,
-              grouped products, pairs' sum) against their plain versions on
-              a turn's own inputs, with kernel, plain and bound ms; the
-              launches of a turn through the decode graphs.  ``--only lm``
+              2,048-7,680): kernel 3, the expert layer's kernels (router,
+              grouped products, pairs' sum) and the prefill attention
+              against their plain versions on a turn's own inputs (the
+              prefill attention also at a group of histories), with kernel,
+              plain and bound ms; the launches of a turn through the decode
+              graphs.  ``--only lm``
               runs phase 1 and this phase alone.
 
 The last two lines are the kernels' JSON record and the device record.
@@ -3543,6 +3545,9 @@ KERNEL3 = {"name": "mla_decode_attention", "route": "cuda",
 KERNEL_MOE = {"name": "routed_experts", "route": "cuda",
               "source": "spmm_tpu_torch/csrc/moe_experts.cu",
               "replaces": None}
+KERNEL_PREFILL = {"name": "mla_prefill_attention", "route": "cuda",
+                  "source": "spmm_tpu_torch/csrc/mla_prefill_attention.cu",
+                  "replaces": None}
 # cell M (portbench/traffic/moonlight-8k-turn256-b128.json): rows, cache
 # positions, history lengths (the rows' quantiles of the range), turn and
 # answer tokens
@@ -3571,14 +3576,16 @@ def event_ms(fn, iters: int) -> float:
 
 @contextlib.contextmanager
 def recording_lm_calls():
-    """Keeps the arguments of the first calls of kernel 3 and of the expert
-    layer's router and products in a decode step (128 tokens) and in the
-    turn's prefill (more), as the model makes them."""
+    """Keeps the arguments of the first calls of kernel 3, of the expert
+    layer's router and products and of the prefill attention in a decode
+    step (128 tokens) and in the turn's prefill (more), as the model makes
+    them."""
     from spmm_tpu_torch.models import latent_moe
     from spmm_tpu_torch.ops import moe
 
     calls = {}
-    saved = (latent_moe.mla_decode_attention, moe.route, moe.routed_experts)
+    saved = (latent_moe.mla_decode_attention, moe.route, moe.routed_experts,
+             latent_moe.mla_prefill_attention)
 
     def keep(name, fn):
         def wrapped(*args):
@@ -3592,11 +3599,78 @@ def recording_lm_calls():
     latent_moe.mla_decode_attention = keep("k3", saved[0])
     moe.route = keep("route", saved[1])
     moe.routed_experts = keep("experts", saved[2])
+    latent_moe.mla_prefill_attention = keep("attention", saved[3])
     try:
         yield calls
     finally:
-        (latent_moe.mla_decode_attention, moe.route,
-         moe.routed_experts) = saved
+        (latent_moe.mla_decode_attention, moe.route, moe.routed_experts,
+         latent_moe.mla_prefill_attention) = saved
+
+
+
+def prefill_attention(dev, label: str, q, cache, kv_b, segments,
+                      iters: int = 5) -> dict:
+    """The latent attention prefill at one layer's inputs: the kernel
+    against the plain route (within 2e-2 of the largest magnitude, as
+    tests/test_torch_cuda.py); the kernel's ms (its launches alone, each
+    group's expansion made first), the whole call's (expansions and
+    launches), the plain route's, and the bound's: ``lm_counts``' attention
+    term (q.k over nope + rope and p.v over v, a head, for each query and
+    each key up to its own) at the bf16 peak."""
+    import torch
+
+    from spmm_tpu_torch.ops import mla_prefill
+
+    heads, nope = q.shape[1], 128
+    key_bytes = kv_b.shape[0] * q.element_size()
+    groups = mla_prefill.plan(segments, heads, key_bytes, device=dev)
+    got = mla_prefill.mla_prefill_attention(q, cache, kv_b, segments, nope,
+                                            groups)
+    want = mla_prefill.mla_prefill_attention_reference(q, cache, kv_b,
+                                                       segments, nope)
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    if not err < 2e-2:
+        fail(f"[lm] prefill attention at {label} against plain: {err:.2e} "
+             f"of the largest magnitude")
+    del want
+    kernel_ms = 0.0
+    for g in groups:
+        kvb = mla_prefill.expand(cache, kv_b, g)
+        kernel_ms += cuda_ms(lambda i: mla_prefill.launch(q, kvb, cache, g,
+                                                          got), iters)
+        del kvb
+    pairs = sum(count * start + count * (count + 1) // 2
+                for _, start, count, _ in segments)
+    row = {"shape": f"{label}: {len(segments)} rows, {q.shape[0]} queries, "
+                    f"{pairs / 1e6:.1f} M query-key pairs",
+           "ms": kernel_ms,
+           "call_ms": event_ms(lambda: mla_prefill.mla_prefill_attention(
+               q, cache, kv_b, segments, nope, groups), 3),
+           "plain_ms": event_ms(
+               lambda: mla_prefill.mla_prefill_attention_reference(
+                   q, cache, kv_b, segments, nope), 1),
+           "bound_ms": 1e3 * pairs * heads * (192 + 128) * 2 / BF16_FLOPS,
+           "groups": len(groups),
+           "max_err_of_largest": err}
+    log(f"[lm] prefill attention, {row['shape']}: kernel {row['ms']:.3f} ms "
+        f"over {len(groups)} launches (bound {row['bound_ms']:.3f} ms = "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}%), with the expansions "
+        f"{row['call_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms; against "
+        f"plain {err:.2e} of the largest magnitude")
+    return row
+
+
+def history_segments(lengths: list, budget: int = 16384) -> list:
+    """The first prefill call of set-up's histories (``inference.lm``'s
+    grouping: rows in order while their tokens fit ``PREFILL_TOKENS``)."""
+    out, off = [], 0
+    for row, n in enumerate(lengths):
+        if out and off + n > budget:
+            break
+        out.append((row, 0, n, off))
+        off += n
+    return out
 
 
 def lm_phase(dev) -> tuple:
@@ -3606,21 +3680,25 @@ def lm_phase(dev) -> tuple:
     (the cell's lengths) hold random latent rows in place of a prefill; one
     256-token turn a row:
 
-    1. eagerly, 4 answers, the calls of kernel 3 and of the expert layer
-       kept at the first decode step and at the turn's prefill;
-    2. kernel 3, the router and the grouped products (with the pairs' sum)
-       against their plain versions on those inputs: kernel 3 and the
-       products within 2e-2 and 1e-2 of the largest magnitude (bf16
-       against fp32, as tests/test_torch_cuda.py), the router's choice the
-       plain one's wherever its 6th and 7th scores are apart by 1e-5;
+    1. eagerly, 4 answers, the calls of kernel 3, of the expert layer and
+       of the prefill attention kept at the first decode step and at the
+       turn's prefill;
+    2. kernel 3, the router, the grouped products (with the pairs' sum)
+       and the prefill attention against their plain versions on those
+       inputs: kernel 3 and the products within 2e-2 and 1e-2 of the
+       largest magnitude (bf16 against fp32, as tests/test_torch_cuda.py),
+       the router's choice the plain one's wherever its 6th and 7th scores
+       are apart by 1e-5, the prefill attention within 2e-2 of its plain
+       route in bf16, also at a group of set-up's histories (the longest);
        the kernel's, the plain version's and the bound's ms of each;
     3. the cell's turn (128 answers) through the decode graphs, twice
        (the first captures, after two warm-up steps on the plain
        attention); launch counts zeroed before the second and read after
        it: kernel 3 27 x 127 calls, the router 2 x 26 x 128 launches, the
-       products and sum 3 x 26 x 128.
+       products and sum 3 x 26 x 128, the prefill attention 27 x the
+       turn's groups.
 
-    Returns the two kernels' records."""
+    Returns the three kernels' records."""
     import torch
     import torch.nn.functional as F
 
@@ -3630,17 +3708,17 @@ def lm_phase(dev) -> tuple:
     from spmm_tpu_torch.configs import LatentMoeConfig
     from spmm_tpu_torch.inference import lm
     from spmm_tpu_torch.models.latent_moe import LatentMoe
-    from spmm_tpu_torch.ops import mla_decode, moe
-
-    from spmm_tpu_torch.ops import _build
+    from spmm_tpu_torch.ops import _build, mla_decode, mla_prefill, moe
 
     t0 = time.perf_counter()
-    for name in ("mla_decode_attention", "moe_experts"):
+    for name in ("mla_decode_attention", "moe_experts",
+                 "mla_prefill_attention"):
         _build.build(name)
         report = _build.library_path(name).with_suffix(".log")
         for entry, usage in ptxas_usage(report.read_text()):
             log(f"  ptxas {entry}: {usage}")
-    log(f"[lm] kernel 3 and the expert kernels built in "
+    log(f"[lm] kernel 3, the expert kernels and the prefill attention "
+        f"built in "
         f"{time.perf_counter() - t0:.1f} s")
     with open(LM_CONFIG) as f:
         cfg = json.load(f)
@@ -3668,8 +3746,9 @@ def lm_phase(dev) -> tuple:
     with recording_lm_calls() as calls:
         lm.answer_turn(model, session, turn, 4, eager=True)
     sync(dev)
-    missing = {f"{n} {k}" for n in ("k3", "route", "experts")
-               for k in ("decode", "prefill")} - {"k3 prefill"} - set(calls)
+    missing = ({f"{n} {k}" for n in ("k3", "route", "experts")
+                for k in ("decode", "prefill")} - {"k3 prefill"}
+               | {"attention prefill"}) - set(calls)
     if missing:
         fail(f"[lm] no call recorded for {sorted(missing)}")
 
@@ -3744,14 +3823,25 @@ def lm_phase(dev) -> tuple:
             f"{row['plain_ms']:.4f} ms, router {row['route_ms']:.4f} ms; "
             f"against plain {err:.2e} of the largest magnitude, router "
             f"weights {route_w_err:.1e} ({row['router_near_ties']} near ties)")
-    del calls, got, want
+
+    # the prefill attention at the turn's layer 0 and at a history group
+    q, cache, kv_b, segments, nope, groups = calls["attention prefill"]
+    prefill = {"turn": prefill_attention(dev, "M's turn", q, cache, kv_b,
+                                         segments)}
+    hist = history_segments(sorted(session.history, reverse=True))
+    qh = (torch.randn(sum(n for _, _, n, _ in hist), *q.shape[1:],
+                      generator=g, device=dev) * q.float().std()).bfloat16()
+    prefill["history"] = prefill_attention(dev, "a history group", qh,
+                                           session.cache[0], kv_b, hist)
+    turn_groups = len(groups)
+    del calls, got, want, q, qh, cache
 
     t0 = time.perf_counter()
     lm.answer_turn(model, session, turn, LM_ANSWER)
     sync(dev)
     first = time.perf_counter() - t0
     wrappers = (mla_decode.mla_decode_attention, moe.route,
-                moe.routed_experts)
+                moe.routed_experts, mla_prefill.mla_prefill_attention)
     for wrapper in wrappers:
         wrapper.launches = 0
     t0 = time.perf_counter()
@@ -3762,7 +3852,7 @@ def lm_phase(dev) -> tuple:
     layers = cfg["num_hidden_layers"]
     moe_layers = layers - cfg["first_k_dense_replace"]
     want_counts = [layers * (LM_ANSWER - 1), 2 * moe_layers * LM_ANSWER,
-                   3 * moe_layers * LM_ANSWER]
+                   3 * moe_layers * LM_ANSWER, layers * turn_groups]
     if counted != want_counts or out["answers"].shape != (LM_ROWS,
                                                           LM_ANSWER):
         fail(f"[lm] graph turn: launches {counted} (want {want_counts}), "
@@ -3770,14 +3860,18 @@ def lm_phase(dev) -> tuple:
     log(f"[lm] a turn through the decode graphs: {first:.2f} s the first "
         f"(its capture and warm-up), {wall:.2f} s the second; the second's "
         f"launches: kernel 3 {counted[0]}, router {counted[1]}, products "
-        f"and sum {counted[2]}")
+        f"and sum {counted[2]}, prefill attention {counted[3]} "
+        f"({counted[3] // layers} a layer)")
     del model, session
     torch.cuda.empty_cache()
     record3 = dict(KERNEL3, launches=counted[0], **k3)
     record_moe = dict(KERNEL_MOE, launches=counted[2],
                       route_launches=counted[1], **experts["decode"],
                       prefill=experts["prefill"])
-    return record3, record_moe
+    record_prefill = dict(KERNEL_PREFILL, launches=counted[3],
+                          launches_a_layer=counted[3] // layers,
+                          **prefill["turn"], history=prefill["history"])
+    return record3, record_moe, record_prefill
 
 
 # --------------------------------------------------------------------------- #
@@ -4482,8 +4576,9 @@ def main(argv=None) -> int:
                               if key.startswith(KERNEL2["name"])})
     mark("lm")
     torch.cuda.empty_cache()
-    record3, record_moe = lm_phase(dev)
-    print(json.dumps({"kernels": [record, record2, record3, record_moe]}))
+    record3, record_moe, record_prefill = lm_phase(dev)
+    print(json.dumps({"kernels": [record, record2, record3, record_moe,
+                                  record_prefill]}))
     print(device_line)
     return 0
 

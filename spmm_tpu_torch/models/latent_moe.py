@@ -17,7 +17,9 @@ MLA without a q LoRA, for a token at position p:
   layer (``cache[layer, row, position]``);
 - prefill (``prefill``), the expanded form: ``[k_nope | v] = W_kvb c`` a
   head over the row's cached positions, scores ``(q_nope.k_nope +
-  q_pe.k_pe) / sqrt(nope + rope)``, causal, then ``W_o [softmax . v]``;
+  q_pe.k_pe) / sqrt(nope + rope)``, causal, then ``W_o [softmax . v]``
+  (``ops.mla_prefill``: one fused kernel a layer and group of rows on a
+  card);
 - decode (``decode_step``), the absorbed form: with ``W_kvb`` split into
   ``W_uk`` and ``W_uv`` [heads, nope | v, latent], ``q_lat = W_uk^T
   q_nope`` and the scores ``q_lat.c + q_pe.k_pe`` over the cache, ``o_lat
@@ -37,19 +39,19 @@ names, and ``load_checkpoint`` fills them from a name -> tensor function.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from spmm_tpu_torch.configs import LatentMoeConfig
-from spmm_tpu_torch.ops import moe
+from spmm_tpu_torch.ops import mla_prefill, moe
 from spmm_tpu_torch.ops.mla_decode import (
     mla_decode_attention, mla_decode_attention_reference)
+from spmm_tpu_torch.ops.mla_prefill import mla_prefill_attention
 
 Tensor = torch.Tensor
-QUERY_BLOCK = 1024       # prefill queries a score block
 
 
 def rms_norm(x: Tensor, w: Tensor, eps: float) -> Tensor:
@@ -131,45 +133,21 @@ class LatentMoeLayer(nn.Module):
                 torch.cat([c, k_pe], -1))
 
     def attend_prefill(self, x: Tensor, pos: Tensor, inv_freq: Tensor,
-                       cache: Tensor, row_ids: Tensor, segments: list
-                       ) -> Tensor:
+                       cache: Tensor, row_ids: Tensor, segments: list,
+                       groups: Optional[list] = None) -> Tensor:
         """Normed ``x`` [N, H] of tokens at ``pos`` of rows ``row_ids``:
         their cache rows written, then each row's tokens (``segments``:
         (row, start, count, offset into x)) attend its cached positions up
-        to their own, in the expanded form: scores in x's dtype (the scale
-        folded into q; the shared rotated key one product for all heads),
-        the softmax computed in fp32 and rounded to x's dtype for the
-        value product.  Returns W_o's output [N, H]."""
+        to their own, in the expanded form, the scale folded into q
+        (``ops.mla_prefill``: the kernel on a card, over ``groups``, its
+        plan; the plain version on the CPU).  Returns W_o's output [N, H]."""
         cfg = self.cfg
-        nh, dn, dv = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
-                      cfg.v_head_dim)
-        r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         q_nope, q_pe, lat = self._qkv(x, pos, inv_freq)
         cache[row_ids, pos] = lat
-        scale = 1.0 / math.sqrt(dn + dr)
-        q_nope = (q_nope * scale).transpose(0, 1)          # [nh, N, dn]
-        q_pe = (q_pe * scale).transpose(0, 1)              # [nh, N, dr]
-        out = torch.empty((x.shape[0], nh * dv), dtype=x.dtype,
-                          device=x.device)
-        for row, start, count, off in segments:
-            n_keys = start + count
-            rows = cache[row, :n_keys]                     # [L, r + dr]
-            kvb = F.linear(rows[:, :r], self.kv_b).view(n_keys, nh, dn + dv)
-            k_nope = kvb[..., :dn].permute(1, 2, 0)        # [nh, dn, L]
-            v = kvb[..., dn:].transpose(0, 1)              # [nh, L, dv]
-            k_pe = rows[:, r:].t()                         # [dr, L], shared
-            for lo in range(0, count, QUERY_BLOCK):
-                hi = min(lo + QUERY_BLOCK, count)
-                a, b = off + lo, off + hi
-                s = torch.matmul(q_pe[:, a:b], k_pe).baddbmm_(
-                    q_nope[:, a:b], k_nope)                # [nh, b, L]
-                # the causal part: the run's own keys past each query
-                future = (torch.arange(count, device=x.device)[None, :]
-                          > torch.arange(lo, hi, device=x.device)[:, None])
-                s[..., start:].masked_fill_(future, float("-inf"))
-                p = torch.softmax(s, -1)                   # fp32 inside
-                ctx = torch.matmul(p, v)                   # [nh, b, dv]
-                out[a:b] = ctx.transpose(0, 1).reshape(hi - lo, nh * dv)
+        q = torch.cat([q_nope, q_pe], -1) * (1.0 / math.sqrt(dn + dr))
+        out = mla_prefill_attention(q, cache, self.kv_b, segments, dn,
+                                    groups)
         return F.linear(out, self.o_proj)
 
     def attend_decode(self, x: Tensor, pos: Tensor, inv_freq: Tensor,
@@ -290,11 +268,18 @@ class LatentMoe(nn.Module):
         ``row_ids`` [N]) through every layer against the rows' caches,
         writing their cache rows; returns the logits [len(segments), V] of
         the token after each run's last."""
+        cfg = self.cfg
         x = self.embed[tokens]
+        groups = None
+        if x.device.type == "cuda":     # one plan for every layer
+            key_bytes = (cfg.num_attention_heads * x.element_size()
+                         * (cfg.qk_nope_head_dim + cfg.v_head_dim))
+            groups = mla_prefill.plan(segments, cfg.num_attention_heads,
+                                      key_bytes, device=x.device)
         for i, layer in enumerate(self.layers):
             attn = layer.attend_prefill(
-                rms_norm(x, layer.input_norm, self.cfg.rms_norm_eps), pos,
-                self.inv_freq, cache[i], row_ids, segments)
+                rms_norm(x, layer.input_norm, cfg.rms_norm_eps), pos,
+                self.inv_freq, cache[i], row_ids, segments, groups)
             x = layer.finish(x, attn)
         last = torch.tensor([off + count - 1 for _, _, count, off in segments],
                             device=x.device)

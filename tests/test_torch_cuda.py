@@ -13,7 +13,9 @@ after the call equals the plain version's bit for bit; kernel 2 within 2e-5
 long and streaming kernels, whose tiles and softmax sums change the order
 of summation) within kernel 1's bars.
 Kernel 3 and the expert products within 2e-2 and 1e-2 of the largest
-magnitude (bf16 probabilities and outputs against fp32); the router's
+magnitude (bf16 probabilities and outputs against fp32), the latent
+attention prefill (ops/mla_prefill.py) within 2e-2 of its plain route in
+bf16 and 1e-2 of it in fp32; the router's
 choice the plain one's wherever the 6th and 7th scores are apart by more
 than the fp32 sum's rounding, its weights within 1e-5.
 Also: both wrappers refuse a call that would need a gradient, SMILES->PV
@@ -937,3 +939,133 @@ def test_latent_turn_spans_on_the_card(dev, monkeypatch):
     assert len(trace.named(k3_roofline.NAMES)) == 2 * 2 * 3 * 11
     assert moe_ms.read(trace, [], {}) > 0
     assert turn_ms.read(trace, [], {}) > 0
+
+
+# ---- the latent attention prefill (ops/mla_prefill.py) ----
+
+def _prefill_case(dev, segments, T=8192, seed=0):
+    """Queries of ``segments`` at M's widths (16 heads, nope 128, rope 64,
+    v 128, latent 512; scale folded in, as the model passes them), a cache
+    of random latent rows and a random W_kvb."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = sum(count for _, _, count, _ in segments)
+    rows = 1 + max(row for row, _, _, _ in segments)
+    q = (torch.randn(n, 16, 192, generator=g, device=dev)
+         * 2 * 192 ** -0.5).bfloat16()
+    cache = torch.randn(rows, T, 576, generator=g, device=dev).bfloat16()
+    kv_b = (torch.randn(4096, 512, generator=g, device=dev)
+            * 0.05).bfloat16()
+    return q, cache, kv_b
+
+
+def _segments(starts, counts):
+    out, off = [], 0
+    for row, (start, count) in enumerate(zip(starts, counts)):
+        out.append((row, start, count, off))
+        off += count
+    return out
+
+
+def _check_prefill(dev, segments, budget=None, T=8192, seed=0):
+    """The kernel against the plain route in bf16 and against it in fp32,
+    within 2e-2 and 1e-2 of the largest magnitude (kernel 3's bar: bf16
+    probabilities and outputs); one launch a group."""
+    from spmm_tpu_torch.ops import mla_prefill
+
+    q, cache, kv_b = _prefill_case(dev, segments, T, seed)
+    groups = mla_prefill.plan(segments, 16, 8192, device=dev,
+                              **({} if budget is None else {"budget": budget}))
+    calls = mla_prefill.mla_prefill_attention.launches
+    got = mla_prefill.mla_prefill_attention(q, cache, kv_b, segments, 128,
+                                            groups)
+    torch.cuda.synchronize()
+    assert mla_prefill.mla_prefill_attention.launches == calls + len(groups)
+    plain = mla_prefill.mla_prefill_attention_reference(q, cache, kv_b,
+                                                        segments, 128)
+    exact = mla_prefill.mla_prefill_attention_reference(
+        q.float(), cache.float(), kv_b.float(), segments, 128)
+    top = exact.abs().max()
+    err = float((got.float() - plain.float()).abs().max() / top)
+    err32 = float((got.float() - exact).abs().max() / top)
+    assert err < 2e-2 and err32 < 1e-2, (err, err32)
+    return groups
+
+
+def test_mla_prefill_turn_rows_match_plain(dev):
+    """A group of turn rows (256 new tokens each) over histories of mixed
+    lengths, 2,048 to 7,680 cached positions."""
+    segments = _segments([2048, 7680, 3001, 5120, 6333, 4097],
+                         [256] * 6)
+    assert len(_check_prefill(dev, segments)) == 1
+
+
+def test_mla_prefill_history_group_causal(dev):
+    """A history group from position 0 (set-up's prefill): every query
+    over the causal diagonal, tiles past it skipped."""
+    segments = _segments([0, 0, 0], [2100, 1536, 701])
+    assert len(_check_prefill(dev, segments, seed=1)) == 1
+
+
+@pytest.mark.parametrize("starts,counts", [
+    ([0], [1]),                                  # one query, one key
+    ([129], [1]),                                # one query past a tile
+    ([255, 0, 17], [3, 127, 129]),               # key counts off the tile
+    ([4000], [256]),                             # a group of one row
+])
+def test_mla_prefill_edges(dev, starts, counts):
+    _check_prefill(dev, _segments(starts, counts), T=4400, seed=2)
+
+
+def test_mla_prefill_budget_splits_the_group(dev):
+    """A budget of two rows' expansion: three launches, one a group."""
+    segments = _segments([1000, 3000, 2000, 1500, 2500], [200] * 5)
+    groups = _check_prefill(dev, segments, budget=2 * 3200 * 8192,
+                            T=4096, seed=3)
+    assert [len(g.segments) for g in groups] == [2, 2, 1]
+
+
+def test_latent_prefill_kernel_equals_plain_route(dev, monkeypatch):
+    """Histories prefilled, then a turn, at 3 layers of published widths:
+    the logits and the cache through the kernel against the plain route
+    (``mla_prefill_attention_reference`` put in the kernel's place); one
+    kernel launch a layer and group.  Layer 0's cache rows precede any
+    attention and agree bit for bit; later layers' rows agree within bf16
+    rounding for the median token (a token whose sixth and seventh expert
+    nearly tie may flip its choice under either route, and differ more)."""
+    from spmm_tpu_torch.inference import lm
+    from spmm_tpu_torch.models import latent_moe
+    from spmm_tpu_torch.ops import mla_prefill
+
+    model = _latent_model(dev)
+    g = torch.Generator().manual_seed(6)
+    lengths = [300, 2900, 1200, 2049]
+    hist = [torch.randint(0, 163840, (n,), generator=g).to(dev)
+            for n in lengths]
+    turn = torch.randint(0, 163840, (4, 64), generator=g).to(dev)
+
+    def run():
+        s = lm.SessionCache(model, 4, 4096, dev)
+        lm.prefill_history(model, s, hist)
+        logits = lm._prefill(model, s, [(r, lengths[r], turn[r])
+                                        for r in range(4)])
+        return logits.float(), s.cache
+
+    calls = mla_prefill.mla_prefill_attention.launches
+    got, cache = run()
+    torch.cuda.synchronize()
+    # histories: one prefill call of 6,449 tokens, one group; the turn one
+    assert mla_prefill.mla_prefill_attention.launches == calls + 2 * 3
+    monkeypatch.setattr(
+        latent_moe, "mla_prefill_attention",
+        lambda q, cache, kv_b, segments, nope, groups:
+        mla_prefill.mla_prefill_attention_reference(q, cache, kv_b,
+                                                    segments, nope))
+    want, want_cache = run()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err < 3e-2, err
+    assert torch.equal(cache[0], want_cache[0])
+    live = torch.cat([cache[1:, r, :lengths[r] + 64] for r in range(4)], 1)
+    ref = torch.cat([want_cache[1:, r, :lengths[r] + 64] for r in range(4)],
+                    1).float()
+    token_err = (live.float() - ref).norm(dim=-1) / ref.norm(dim=-1)
+    assert float(token_err.median()) < 1e-2, float(token_err.median())

@@ -20,7 +20,7 @@ from portbench.reference.latent_moe import (
 from spmm_tpu_torch.configs import LatentMoeConfig
 from spmm_tpu_torch.inference import decoding, lm
 from spmm_tpu_torch.models.latent_moe import LatentMoe
-from spmm_tpu_torch.ops import mla_decode, moe
+from spmm_tpu_torch.ops import mla_decode, mla_prefill, moe
 
 CFG = dict(vocab_size=97, hidden_size=64, num_hidden_layers=3,
            num_attention_heads=4, kv_lora_rank=32, qk_nope_head_dim=16,
@@ -290,3 +290,110 @@ def test_bf16_witness_rounds_between_fp32_and_fp8(model, ref):
                                 .logits(seqs, wanted)), want)
              for p in ("bf16", "fp8")}
     assert TOL < moved["bf16"] < moved["fp8"]
+
+
+# ---- the prefill attention's plan (ops/mla_prefill.py), plain Python ----
+
+KEY_BYTES = 16 * 256 * 2      # M's expansion a key: 16 heads x (128 + 128)
+
+
+def random_segments(n, seed, turn=None):
+    """(row, start, count, offset) of ``n`` rows: a turn of ``turn`` tokens
+    after histories of 2,048-7,680 (M's), or histories from 0 of 1-7,680
+    (set-up's) when ``turn`` is None."""
+    g = torch.Generator().manual_seed(seed)
+    out, off = [], 0
+    for row in torch.randperm(n, generator=g).tolist():
+        if turn is None:
+            start, count = 0, int(torch.randint(1, 7681, (1,), generator=g))
+        else:
+            start = int(torch.randint(2048, 7681, (1,), generator=g))
+            count = turn
+        out.append((row, start, count, off))
+        off += count
+    return out
+
+
+PLANS = [(random_segments(128, 1, turn=256), mla_prefill.GROUP_BYTES),
+         (random_segments(9, 2), mla_prefill.GROUP_BYTES),
+         (random_segments(40, 3, turn=1), 5 * 8192 * KEY_BYTES),
+         (random_segments(17, 4, turn=131), 3 * 7000 * KEY_BYTES)]
+
+
+@pytest.mark.parametrize("segments,budget", PLANS)
+def test_prefill_plan_groups_stay_within_the_budget(segments, budget):
+    groups = mla_prefill.plan(segments, 16, KEY_BYTES, budget)
+    assert sorted(i for g in groups for i in g.segments) == list(
+        range(len(segments)))
+    for g in groups:
+        keys = [segments[i][1] + segments[i][2] for i in g.segments]
+        assert g.keys == max(keys) == keys[0]
+        assert (len(g.segments) * g.keys * KEY_BYTES <= budget
+                or len(g.segments) == 1)
+    # longest first, so each group pads its rows little
+    firsts = [g.keys for g in groups]
+    assert firsts == sorted(firsts, reverse=True)
+
+
+@pytest.mark.parametrize("segments,budget", PLANS)
+def test_prefill_plan_covers_each_query_tile_once(segments, budget):
+    groups = mla_prefill.plan(segments, 16, KEY_BYTES, budget)
+    seen = []
+    for g in groups:
+        for slot, row, head, q0, nq, start, off, _ in g.items:
+            i = g.segments[slot]
+            assert (row, start, off) == (segments[i][0], segments[i][1],
+                                         segments[i][3])
+            assert 0 < nq <= mla_prefill.BLOCK_Q
+            assert q0 % mla_prefill.BLOCK_Q == 0
+            seen += [(i, head, q0 + j) for j in range(nq)]
+    want = [(i, h, j) for i, (_, _, count, _) in enumerate(segments)
+            for h in range(16) for j in range(count)]
+    assert sorted(seen) == sorted(want)
+
+
+@pytest.mark.parametrize("segments,budget", PLANS)
+def test_prefill_plan_skips_only_tiles_past_the_diagonal(segments, budget):
+    """An item's key tiles (the kernel loops over ``tiles``) are every tile
+    holding a key its queries attend; of the segment's other tiles, none
+    holds one.  Heads share the tiles, so head 0's items are checked."""
+    bk = mla_prefill.BLOCK_K
+    for g in mla_prefill.plan(segments, 16, KEY_BYTES, budget):
+        for slot, _, head, q0, nq, start, _, tiles in g.items:
+            if head:
+                continue
+            n_keys = start + segments[g.segments[slot]][2]
+            n_tiles = -(-n_keys // bk)
+            keys = torch.arange(n_tiles * bk)
+            pos = start + torch.arange(q0, q0 + nq)
+            attends = (keys[None] <= pos[:, None]) & (keys[None] < n_keys)
+            attended = attends.view(nq, n_tiles, bk).any(2).any(0)
+            assert torch.equal(attended, torch.arange(n_tiles) < tiles)
+
+
+def test_prefill_plan_tables_on_a_device():
+    segments = random_segments(5, 5, turn=7)
+    for g in mla_prefill.plan(segments, 16, KEY_BYTES, device="cpu"):
+        assert g.table.dtype == torch.int32
+        assert g.table.tolist() == [list(it) for it in g.items]
+        assert g.rows.tolist() == [segments[i][0] for i in g.segments]
+
+
+def test_prefill_attention_cpu_runs_the_plain_route():
+    """On the CPU the wrapper is the plain version, whatever the plan."""
+    g = torch.Generator().manual_seed(7)
+    segments = [(1, 3, 5, 0), (0, 0, 4, 5)]
+    q = torch.randn(9, 4, 24, generator=g)
+    cache = torch.randn(2, 12, 40, generator=g)
+    kv_b = torch.randn(4 * 32, 32, generator=g)
+    got = mla_prefill.mla_prefill_attention(q, cache, kv_b, segments, 16)
+    want = mla_prefill.mla_prefill_attention_reference(q, cache, kv_b,
+                                                       segments, 16)
+    assert torch.equal(got, want)
+    # the second query of row 1 (position 4) against its five keys
+    kvb = (cache[1, :5, :32] @ kv_b.T).view(5, 4, 32)
+    s = (q[1, :, None, :16] * kvb[None, :, :, :16].transpose(1, 2)).sum(-1)
+    s = s[0] + q[1, :, 16:] @ cache[1, :5, 32:].T
+    want_row = (torch.softmax(s, -1)[:, :, None]
+                * kvb[:, :, 16:].transpose(0, 1)).sum(1)
+    assert torch.allclose(got[1].view(4, 16), want_row, atol=1e-5)

@@ -17,7 +17,7 @@ import torch
 
 from portbench.metrics import (
     gemm_ms, idle_pct, k3_roofline, mfu, moe_ms, moe_product_roofline,
-    turn_ms)
+    prefill_attention_ms, turn_ms)
 from portbench.tests.test_portbench_harness import (
     test_benchmark_json_meets_the_contract)
 from portbench.tests.tiny import REPO, edit, tiny_root
@@ -28,6 +28,8 @@ CONFIG = "moonlight-16b-a3b"
 NEW_METRICS = ["k3_roofline.moonlight", "moe_ms.moonlight",
                "moe_product_roofline.moonlight", "turn_ms.moonlight",
                "mfu.moonlight", "idle_pct.moonlight", "gemm_ms.moonlight"]
+# the cell's metrics added after it, in order, at the end of the list
+LATER_METRICS = ["prefill_attention_ms.moonlight"]
 TINY = {"vocab_size": 97, "hidden_size": 64, "num_hidden_layers": 3,
         "num_attention_heads": 4, "num_key_value_heads": 4,
         "kv_lora_rank": 32, "qk_nope_head_dim": 16, "qk_rope_head_dim": 8,
@@ -57,9 +59,9 @@ def test_the_cell_is_new_files_and_entries_beside_the_others():
     assert b["configs"][-1]["reduced"] == []
     assert b["workloads"][-1]["name"] == CELL
     assert b["workloads"][-1]["config"] == CONFIG
-    assert [m["name"] for m in b["per_layer"][-len(NEW_METRICS):]] == \
-        NEW_METRICS
-    for m in b["per_layer"][-len(NEW_METRICS):]:
+    cells = NEW_METRICS + LATER_METRICS
+    assert [m["name"] for m in b["per_layer"][-len(cells):]] == cells
+    for m in b["per_layer"][-len(cells):]:
         assert m["workloads"] == [CELL]
         assert m["moves"] == "mol_per_s.pv2smiles"
     rates = {m["name"]: m.get("workloads") for m in b["end_to_end"]}
@@ -79,7 +81,7 @@ def test_the_cell_is_new_files_and_entries_beside_the_others():
                  "reference/latent_moe.py", f"traffic/{CELL}.json",
                  "metrics/k3_roofline.py", "metrics/moe_ms.py",
                  "metrics/moe_product_roofline.py", "metrics/turn_ms.py",
-                 "metrics/gemm_ms.py"):
+                 "metrics/gemm_ms.py", "metrics/prefill_attention_ms.py"):
         assert os.path.exists(os.path.join(REPO, "portbench", kind))
 
 
@@ -218,3 +220,19 @@ def test_readers_give_none_where_their_kernels_are_absent():
         assert reader.read(t, works(), CELL) is None
     # the parent of this change: no such work counted either
     assert k3_roofline.read(hand_trace(), [{"steps": 2}], CELL) is None
+
+
+def test_prefill_attention_reader_sums_its_launches():
+    """``prefill_attention_ms``: the prefill kernel's launches summed a
+    batch (not the expansions' GEMMs beside them); None in a trace without
+    them, as the parent of the kernel's change gives."""
+    dev = [("(anonymous namespace)::mla_prefill_attention_kernel(...)",
+            100.0, 104.0),
+           ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", 104.0, 106.0),
+           ("(anonymous namespace)::mla_prefill_attention_kernel(...)",
+            106.0, 109.0),
+           ("(anonymous namespace)::mla_prefill_attention_kernel(...)",
+            300.0, 305.0)]
+    t = Trace(dev, [], [(90.0, 200.0), (290.0, 400.0)], 0.00022)
+    assert prefill_attention_ms.read(t, works(), CELL) == pytest.approx(0.006)
+    assert prefill_attention_ms.read(hand_trace(), works(), CELL) is None
