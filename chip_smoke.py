@@ -26,9 +26,7 @@ against its plain PyTorch version:
     fusion layers' cross-attention maps;
   - pipeline parallelism over the text section (kernel 2 in its forward
     under no_grad), the mixture-of-experts block, the multi-process dry
-    run of every parallel path, entry() and the native tokenizer;
-  - the port's bench (spmm_tpu_torch/bench.py): each of its workloads
-    once, with one timed batch.
+    run of every parallel path, entry() and the native tokenizer.
 
 Phases, in order; any failure exits non-zero:
 
@@ -98,14 +96,14 @@ Phases, in order; any failure exits non-zero:
               decoding.py's DecodeGraphs, which every decode on the card
               runs through) against the eager loop (decoding.*_eager) on
               the same inputs, at full width through the entry points the
-              services and the bench call: bf16 k=2 PV->SMILES at batch 128
-              and 512, fp32 at 128, the fp8 cache at 128, the stochastic
-              mode at 128 (a generator from one seed each run), rxn greedy
-              bf16 at 128 and the k=5 beam at 32, 100 steps at most: the
-              capturing call, then turns of eager, graph, graph, eager;
-              seqs, lengths, n_finished and steps equal, logp bit for bit
-              (else within 1e-5 + 5e-7 |logp|), the generator's state and
-              the kernel launches equal (12 kernel-1 launches a step: a
+              services and the benchmark's cells call: bf16 k=2 PV->SMILES
+              at batch 128 and 512, fp32 at 128, the fp8 cache at 128, the
+              stochastic mode at 128 (a generator from one seed each run),
+              rxn greedy bf16 at 128 and the k=5 beam at 32, 100 steps at
+              most: the capturing call, then turns of eager, graph, graph,
+              eager; seqs, lengths, n_finished and steps equal, logp bit for
+              bit (else within 1e-5 + 5e-7 |logp|), the generator's state
+              and the kernel launches equal (12 kernel-1 launches a step: a
               replay adds what its capture recorded); the walls, the
               graphs' capture seconds, pool and state memory, and one graph
               batch's device busy time under torch.profiler.  Every later
@@ -116,8 +114,8 @@ Phases, in order; any failure exits non-zero:
               batch 128): a wave of 128 requests, an empty one (400),
               /healthz.  Each path is a main path: every kernel's launches
               are counted from 0 over it;
-  rxn         reaction prediction, each run a main path: bench.py's bf16
-              greedy batch (128 sources of 96 random tokens, 100 steps)
+  rxn         reaction prediction, each run a main path: a bf16 greedy
+              batch (128 sources of 96 random tokens, 100 steps)
               timed, predict_beam bf16 k=5 over 32 reactions timed,
               cli.rxn_prediction --evaluate at n_beam 1 and 3 over a
               temporary USPTO-480k directory of synthetic reactions
@@ -145,7 +143,8 @@ Phases, in order; any failure exits non-zero:
               CPU, with the finetune phase's bars and the EMA twins (1e-6),
               the written queue columns (1e-5) and queue_ptr; then batch
               96, queue 36,864, dropout on, in fp32 and in bf16_compute
-              (with remat only if fp32 does not fit): 3 warm-up steps, one
+              (with remat only if fp32 does not fit), and in bf16_compute
+              with remat and bf16 Adam moments: 3 warm-up steps, one
               under FlopCounterMode, 20 timed (samples/s, MFU against the
               H100's published fp32 or bf16 peak, peak memory) and one
               under torch.profiler; then cli.pretrain --max_steps 4
@@ -212,17 +211,10 @@ Phases, in order; any failure exits non-zero:
               gloo ranks, every stage), entry()'s full-width loss on the
               card, and the native tokenizer in use, equal to the Python
               path over 10,000 lines, both in lines/s;
-  bench       each workload of spmm_tpu_torch/bench.py once through its
-              Bench at full width with one timed batch (or window) each,
-              as one main path: PV->SMILES at batch 128 and 60 steps, the
-              host pipeline, SMILES->PV, rxn greedy and k=5 beam, the bf16
-              pretrain step at batch 96 and the MFU line; every line must
-              carry its metric's unit, this card's name and power limit and
-              "correct": true (the bench's own kernel-vs-plain checks), and
-              both kernels must launch;
-  shapes      over phases 5, rxn, finetune, chain and bench, and over the
-              bench's headline decodes (bf16 k=2 PV->SMILES batches of 512
-              at 60 and 100 steps, run here), every call of a kernel
+  shapes      over phases 5, rxn, finetune and chain, and over cells A's
+              and B's decodes (one bf16 k=2 PV->SMILES batch of 512 at 100
+              steps; rxn's fp32 encoder over 32 sources of 96 and its bf16
+              k=5 beam over all 100 steps; run here), every call of a kernel
               wrapper was recorded (KernelCalls); each kernel is held to
               its plain version at every launch shape those paths passed
               it:
@@ -276,7 +268,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 S2P_INPUT = os.path.join(REPO, "examples", "s2p_input.txt")
 S2P_LAUNCHES = 6 + 53 * 18      # text layers + 53 steps x (6 + 6 x 2)
 RXN_ENC_LAYERS = 6              # kernel-2 launches per reaction batch
-RXN_SRC_LEN = 96                # bench.py's rxn greedy source length
+RXN_SRC_LEN = 96                # cell B's source length
 # (label, Lq, Lk, mask, cross K/V, launches per batch) of the reactant
 # encoder: the 96 bucket, and a source past the 150 bucket (no truncation)
 RXN_ENCODER_CLASSES = [("rxn encoder 96x96", 96, 96, "padding", False, 6),
@@ -333,12 +325,6 @@ TP_HEADS = (6, 3)
 PP_MICRO, PP_ITERS = 4, 5
 MOE, MOE_ITERS = (64, 8, 8), 10
 TOKENIZE_LINES = 10000
-# bench: spmm_tpu_torch.bench.Setup's counts cut to one timed batch or
-# window a workload (the widths stay full)
-BENCH_SETUP = dict(decode_steps=(60,), decode_batches=(128,), n_molecules=128,
-                   s2p_batches=(128,), s2p_timed=1, rxn_batches=(128,),
-                   rxn_timed=1, pretrain_runs=((96, "bf16"),), windows=1,
-                   window=2)
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1264,9 +1250,10 @@ def rxn_batch(dev, n: int) -> tuple:
     return _encode_sources(make_tokenizer(), rxn_sources(n), 150, dev)
 
 
-def rxn_bench_batch(dev, batch: int, seed: int) -> tuple:
-    """bench.py's rxn greedy workload: random ids in [4, 300) of length 96,
-    [CLS] first, no padding."""
+def rxn_source_batch(dev, batch: int, seed: int) -> tuple:
+    """Cell B's sources (portbench/traffic/rxn-beam-k5-b32.json), also fed
+    to the greedy decodes: random ids in [4, 300) of length 96, [CLS]
+    first, no padding."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1426,7 +1413,7 @@ def graph_paths(dev, model, rxn) -> list:
     path the phase holds: PV->SMILES k=2 (bf16 at 128 and 512, fp32, the
     fp8 cache, stochastic from a generator), rxn greedy bf16 at 128 and
     the k=5 beam at 32, all 100 steps at most, through the entry points
-    the services and the bench call."""
+    the services and the benchmark's cells call."""
     import numpy as np
     import torch
 
@@ -1447,8 +1434,8 @@ def graph_paths(dev, model, rxn) -> list:
         return lambda gen: pv2smiles._beam_batch(
             model, decoder, pv, None, spec, generator=gen, kv_fp8=kv_fp8)
 
-    greedy_in = rxn_bench_batch(dev, 128, SEED + 51)
-    beam_in = rxn_bench_batch(dev, 32, SEED + 52)
+    greedy_in = rxn_source_batch(dev, 128, SEED + 51)
+    beam_in = rxn_source_batch(dev, 32, SEED + 52)
     beam_spec = BeamSpec(k=5, stop_count=25)
     pl, rl = (model.text_cfg.num_hidden_layers,
               rxn.decoder_cfg.num_hidden_layers)
@@ -1752,8 +1739,8 @@ def serving_s2p(dev, model, ref: dict, batch: int = 128) -> dict:
 
 def rxn_decoding(dev, rxn, calls, batch: int = 128,
                  beam_batch: int = 32) -> dict:
-    """bench.py's rxn greedy workload (bf16, batch 128, sources of 96
-    tokens, 100 steps) through ``_greedy_batch``, the call predict_greedy
+    """An rxn greedy batch (bf16, batch 128, cell B's sources of 96 tokens,
+    100 steps) through ``_greedy_batch``, the call predict_greedy
     makes per batch, and predict_beam (bf16, k=5, stop_count 25) over
     ``beam_batch`` synthetic reactions; each timed after one warm-up call
     of its shapes, with the launches counted from 0 over it and its kernel
@@ -1763,9 +1750,9 @@ def rxn_decoding(dev, rxn, calls, batch: int = 128,
         _greedy_batch, decoder_for, predict_beam)
 
     decoder = decoder_for(rxn, bf16=True)
-    ids, mask = rxn_bench_batch(dev, batch, SEED + 4)
+    ids, mask = rxn_source_batch(dev, batch, SEED + 4)
     with calls.recording("rxn greedy batch"):   # the warm-up captures
-        _greedy_batch(rxn, decoder, *rxn_bench_batch(dev, batch, SEED + 5))
+        _greedy_batch(rxn, decoder, *rxn_source_batch(dev, batch, SEED + 5))
         reset_launch_counts()                   # the main path starts here
         res, greedy_s, g1, g2 = run_counted(    # ... and ends here
             dev, lambda: _greedy_batch(rxn, decoder, ids, mask))
@@ -1929,7 +1916,7 @@ def rxn_train_batch(dev, seed: int) -> dict:
     import torch
 
     batch, _, tgt_len = RXN_TRAIN
-    src_ids, src_mask = rxn_bench_batch(dev, batch, seed)
+    src_ids, src_mask = rxn_source_batch(dev, batch, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     tgt_ids = torch.randint(4, 300, (batch, tgt_len), generator=g, device=dev)
     tgt_ids[:, 0] = 2
@@ -2129,7 +2116,8 @@ def pretrain_gate(dev, bf16_moments: bool = False) -> dict:
                 temp=want["temp"].item())
 
 
-def pretrain_timing(dev, bf16: bool, remat: bool = False) -> dict:
+def pretrain_timing(dev, bf16: bool, remat: bool = False,
+                    bf16_moments: bool = False) -> dict:
     """PRETRAIN's batch and queue at full width, dropout on (a generator
     per step from the seed): PT_WARMUP steps, one step under
     FlopCounterMode, PT_TIMED steps timed between synchronizations (peak
@@ -2144,7 +2132,8 @@ def pretrain_timing(dev, bf16: bool, remat: bool = False) -> dict:
         H100_PEAK_FLOPS, count_flops, device_breakdown)
 
     n, queue = PRETRAIN
-    pcfg = PretrainConfig(queue_size=queue, bf16_compute=bf16, remat=remat)
+    pcfg = PretrainConfig(queue_size=queue, bf16_compute=bf16, remat=remat,
+                          bf16_moments=bf16_moments)
     model = init_pretrain_state(SEED, pcfg, device=dev)
     _, step = make_pretrain_step(model, pcfg, 1000)
     batch, _ = pretrain_batch(dev, n, SEED + 21)
@@ -2170,7 +2159,8 @@ def pretrain_timing(dev, bf16: bool, remat: bool = False) -> dict:
         torch.cuda.empty_cache()
         log(f"  pretrain {'bf16' if bf16 else 'fp32'} at batch {n} does "
             f"not fit without remat: running it with --remat")
-        return pretrain_timing(dev, bf16, remat=True)
+        return pretrain_timing(dev, bf16, remat=True,
+                               bf16_moments=bf16_moments)
     peak_mem = torch.cuda.max_memory_allocated()
     prof = device_breakdown(lambda: run(PT_WARMUP + 1 + PT_TIMED), top=8)
     losses = [x.item() for x in losses]
@@ -2182,7 +2172,8 @@ def pretrain_timing(dev, bf16: bool, remat: bool = False) -> dict:
     step_s = secs / PT_TIMED
     del model, step, batch
     torch.cuda.empty_cache()
-    return {"dtype": "bf16" if bf16 else "fp32", "remat": remat, "batch": n,
+    return {"dtype": "bf16" if bf16 else "fp32", "remat": remat,
+            "bf16_moments": bf16_moments, "batch": n,
             "queue": queue, "samples_per_s": n / step_s,
             "step_ms": 1e3 * step_s, "flops_per_step": flops,
             "peak_flops": peak, "mfu": flops / step_s / peak,
@@ -3416,38 +3407,6 @@ def finetune_clis(dev, workdir: str, calls) -> dict:
     return out
 
 
-def bench_phase(dev, calls, card: str) -> dict:
-    """Each workload of spmm_tpu_torch/bench.py once, through its ``Bench``
-    at full width with BENCH_SETUP's counts, as one main path (launches
-    counted from 0 over it, kernel calls recorded in ``calls``): every line
-    must carry its metric's unit, this card and ``"correct": true``, and
-    both kernels must launch."""
-    import math
-
-    from spmm_tpu_torch import bench
-
-    runner = bench.Bench(dev, "kernel", bench.Setup(**BENCH_SETUP))
-    lines, secs = [], {}
-    reset_launch_counts()                       # the main path starts here
-    with calls.recording("bench"):
-        for name in bench.WORKLOADS:
-            t0 = time.perf_counter()
-            lines += getattr(runner, name)()
-            secs[name] = time.perf_counter() - t0
-    launches = launch_counts()                  # ... and ends here
-    want = set(bench.UNITS) - {"pv2smiles_beam_k2_throughput_100step"}
-    if {ln["metric"] for ln in lines} != want:
-        fail(f"the bench printed {sorted(ln['metric'] for ln in lines)}")
-    for ln in lines:
-        if (ln["unit"] != bench.UNITS[ln["metric"]] or ln["card"] != card
-                or ln["correct"] is not True or ln["value"] is None
-                or not math.isfinite(ln["value"])):
-            fail(f"bench line {json.dumps(ln)}")
-    if min(launches) <= 0:
-        fail(f"the bench launched the kernels {launches} times")
-    return {"lines": lines, "launches": list(launches), "seconds": secs}
-
-
 def main_path_shapes(dev, calls, worst, worst2) -> list:
     """Each kernel against its plain version, and timed, at every launch
     shape the main paths passed it: kernel 1 on the masks they passed (held
@@ -3489,11 +3448,10 @@ def main_path_shapes(dev, calls, worst, worst2) -> list:
     return rows
 
 
-def headline_decodes(dev, model, calls) -> dict:
-    """The bench's headline decodes, recorded in ``calls`` for the phase
-    "shapes": one bf16 k=2 PV->SMILES batch of 512 at 60 steps (T=64,
-    pv2smiles_beam_k2_throughput) and one at 100 (T=104, its _100step
-    line), with the service's mask (no property masked); each batch's
+def cell_a_decode(dev, model, calls) -> dict:
+    """Cell A's decode (portbench/traffic/pv2smiles-k2-b512.json), recorded
+    in ``calls`` for the phase "shapes": one bf16 k=2 PV->SMILES batch of
+    512 at 100 steps (T=104), no property masked, the stop unreachable; its
     steps, kernel-1 launches and seconds."""
     import numpy as np
     import torch
@@ -3504,14 +3462,32 @@ def headline_decodes(dev, model, calls) -> dict:
     pv = torch.as_tensor(np.random.default_rng(SEED + 40).normal(
         size=(512, 53)).astype(np.float32), device=dev)
     decoder = decoder_for(model, bf16=True)
-    out = {}
-    for steps in (60, 100):
-        spec = BeamSpec(k=2, stop_count=2, max_steps=steps)
-        with calls.recording(f"bench headline, batch 512, {steps} steps"):
-            res, secs, l1, _ = run_counted(dev, lambda: _beam_batch(
-                model, decoder, pv, torch.zeros_like(pv), spec))
-        out[steps] = {"steps": res["steps"], "launches": l1, "s": secs}
-    return out
+    spec = BeamSpec(k=2, stop_count=2 * 2 * 100, max_steps=100)
+    with calls.recording("cell A, batch 512, 100 steps"):
+        res, secs, l1, _ = run_counted(dev, lambda: _beam_batch(
+            model, decoder, pv, None, spec))
+    return {"steps": res["steps"], "launches": l1, "s": secs}
+
+
+def cell_b_decode(dev, rxn, calls) -> dict:
+    """Cell B's decode (portbench/traffic/rxn-beam-k5-b32.json), recorded in
+    ``calls`` for the phase "shapes": rxn ``_beam_batch`` over 32 sources of
+    96 random ids, the encoder in fp32 (kernel 2 at B=32 96x96), the bf16
+    k=5 beam (kernel 1 at m=160) over all 100 steps, the stop unreachable;
+    its steps, kernel-1 and kernel-2 launches and seconds."""
+    from spmm_tpu_torch.inference.decoding import BeamSpec
+    from spmm_tpu_torch.inference.rxn import _beam_batch, decoder_for
+
+    decoder = decoder_for(rxn, bf16=True)
+    spec = BeamSpec(k=5, stop_count=5 * 5 * 100, max_steps=100)
+    ids, mask = rxn_source_batch(dev, 32, SEED + 41)
+    with calls.recording("cell B, batch 32, 100 steps"):
+        res, secs, l1, l2 = run_counted(dev, lambda: _beam_batch(
+            rxn, decoder, ids, mask, spec))
+    if res["steps"] != spec.max_steps + 1:       # positions 0 to 100
+        fail(f"cell B's decode ran {res['steps']} positions, not 101")
+    check_rxn_launches("cell B's decode", res["steps"], l1, l2)
+    return {"steps": res["steps"], "launches": [l1, l2], "s": secs}
 
 
 def log_bda_timing(label: str, tm: dict) -> None:
@@ -3908,13 +3884,13 @@ def profile_batch(dev, model, batch: int = 128) -> dict:
 
 
 def profile_rxn(dev, rxn, batch: int = 128) -> dict:
-    """One bf16 rxn greedy batch of bench.py's workload under
+    """One bf16 rxn greedy batch of 128 of cell B's sources under
     torch.profiler."""
     from spmm_tpu_torch.inference.rxn import _greedy_batch, decoder_for
     from spmm_tpu_torch.utils.profiling import device_breakdown
 
     decoder = decoder_for(rxn, bf16=True)
-    ids, mask = rxn_bench_batch(dev, batch, SEED + 7)
+    ids, mask = rxn_source_batch(dev, batch, SEED + 7)
     out = {}
 
     def run():
@@ -4262,11 +4238,13 @@ def main(argv=None) -> int:
         f"({gate['params_past_1e-6']} elements past 1e-6, each within lr * "
         f"|dg| / eps of it), twins {gate['twin_max_abs_diff']:.2e}, queues "
         f"{gate['queue_max_abs_diff']:.2e}, ptr equal")
-    for bf16 in (False, True):
-        row = pt["bf16" if bf16 else "fp32"] = pretrain_timing(dev, bf16)
+    for key, bf16, remat in (("fp32", False, False), ("bf16", True, False),
+                             ("bf16_remat_moments", True, True)):
+        row = pt[key] = pretrain_timing(dev, bf16, remat=remat,
+                                        bf16_moments=remat)
         prof = row["profile"]
         log(f"[pretrain] {row['dtype']}{' with remat' if row['remat'] else ''}"
-            f", batch {row['batch']}, queue {row['queue']}, dropout on: "
+            f"{', bf16 moments' if row['bf16_moments'] else ''}, batch {row['batch']}, queue {row['queue']}, dropout on: "
             f"{row['samples_per_s']:.1f} samples/s ({row['step_ms']:.1f} ms "
             f"a step over {PT_TIMED}), {row['flops_per_step'] / 1e12:.2f} "
             f"TFLOP a step (FlopCounterMode), MFU {100 * row['mfu']:.1f}% of "
@@ -4455,24 +4433,16 @@ def main(argv=None) -> int:
         f"{row['lines_per_s']['python']:.0f} lines/s; "
         + ", ".join(f"{k} {v:.1f} s" for k, v in ppe["part_s"].items()))
 
-    # ---- bench: spmm_tpu_torch/bench.py's workloads, one timed batch each --
-    mark("bench")
-    bench_run = bench_phase(dev, calls, card)
-    for ln in bench_run["lines"]:
-        log(f"[bench] {ln['metric']}: {ln['value']:.6g} {ln['unit']} at batch "
-            f"{ln['batch']}" + (f", {ln['attention']}" if "attention" in ln
-                                else "")
-            + f", median {ln['median_batch_ms']:.1f} ms a batch over "
-            f"{ln['n_samples']}, correct {ln['correct']}")
-    log(f"[bench] launches {bench_run['launches']} (kernel 1, kernel 2); "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in bench_run["seconds"].items()))
-
     # ---- shapes: every launch shape of the main paths vs plain ----
     mark("shapes")
-    headline = headline_decodes(dev, model, calls)
-    log("[shapes] the bench's headline decodes, bf16 k=2 batch 512: "
-        + ", ".join(f"{n} steps ran {r['steps']}, {r['launches']} kernel-1 "
-                    f"launches, {r['s']:.3f} s" for n, r in headline.items()))
+    cell_a = cell_a_decode(dev, model, calls)
+    log(f"[shapes] cell A's decode, bf16 k=2 batch 512, 100 steps: ran "
+        f"{cell_a['steps']}, {cell_a['launches']} kernel-1 launches, "
+        f"{cell_a['s']:.3f} s")
+    cell_b = cell_b_decode(dev, rxn, calls)
+    log(f"[shapes] cell B's decode, fp32 encoder over 32 sources of 96, bf16 "
+        f"k=5, 100 steps: ran {cell_b['steps']} positions, launches "
+        f"{cell_b['launches']} (kernel 1, kernel 2), {cell_b['s']:.3f} s")
     log("[shapes] each kernel against its plain version, and timed, at every "
         "launch shape the main paths passed it")
     main_shapes = main_path_shapes(dev, calls, worst, worst2)
@@ -4520,12 +4490,11 @@ def main(argv=None) -> int:
                       "exact": exact, "graphs": graphs, "rxn": rxn_run,
                       "finetune": ft,
                       "pretrain": pt, "chain": chain, "parallel": par,
-                      "pp_ep": ppe, "bench": bench_run,
+                      "pp_ep": ppe,
                       "profile": profiles}))
     record = dict(KERNEL, launches=serve["launches"],
                   rxn_launches=rxn_run["greedy_launches"][0],
                   chain_launches=chain["rxn_prediction"]["launches"][0],
-                  bench_launches=bench_run["launches"][0],
                   max_abs_err=worst["bfloat16"],
                   max_abs_err_by_cache_dtype=worst, **timing,
                   decoder_mask=timing_decoder, small_batch=timing_small,
@@ -4533,8 +4502,8 @@ def main(argv=None) -> int:
                   evidence_greedy_k1=timing_evidence,
                   main_path_shapes=[row for row in main_shapes
                                     if row["kernel"] == KERNEL["name"]],
-                  headline_launches={steps: row["launches"] for steps, row
-                                     in headline.items()},
+                  cell_a_launches=cell_a["launches"],
+                  cell_b_launches=cell_b["launches"][0],
                   tp_heads=par["kernels"]["beam_decode_attention"],
                   tp_heads_max_abs_err=par["kernels"]["max_abs_err"][
                       KERNEL["name"]],
@@ -4550,7 +4519,7 @@ def main(argv=None) -> int:
                        "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")},
                    rxn_launches=rxn_run["greedy_launches"][1],
-                   bench_launches=bench_run["launches"][1],
+                   cell_b_launches=cell_b["launches"][1],
                    finetune_eval_launches=ft["eval"]["launches"],
                    chain_launches={name: chain[name]["launches"][1] for name
                                    in ("rxn_prediction", "classification")},
@@ -4575,7 +4544,17 @@ def main(argv=None) -> int:
                    occupancy={key: row for key, row in occ.items()
                               if key.startswith(KERNEL2["name"])})
     mark("lm")
+    # M's weights and session cache take 71 GB of the card: the decode
+    # graphs and models of the phases above go first
+    import gc
+
+    held = torch.cuda.memory_allocated()
+    graph_cache.clear()
+    del model, rxn, decoder
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"[lm] {held / 2**30:.2f} GiB held by the phases above, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after freeing")
     record3, record_moe, record_prefill = lm_phase(dev)
     print(json.dumps({"kernels": [record, record2, record3, record_moe,
                                   record_prefill]}))

@@ -45,12 +45,11 @@ def pv_generate(model, tok, smiles_list, stats, batch_size: int = 128,
             ids, mask = tok.encode_batch(texts, max_len=100,
                                          buckets=default_buckets(100))
             if replicas is None:
-                preds = predict_pv(model, ids, mask, bf16=bf16,
+                preds = predict_pv(model, ids, mask,
                                    device=device).cpu().numpy()
             else:
                 ids, mask = pad_rows(ids, mask, batch_size, tok.cls_token_id)
-                preds = predict_pv_rows(replicas, ids, mask,
-                                        bf16=bf16)[:len(chunk)]
+                preds = predict_pv_rows(replicas, ids, mask)[:len(chunk)]
             out.append(stats.denormalize(preds))
     finally:
         if replicas is not None:

@@ -38,15 +38,15 @@ Tensor = torch.Tensor
 
 
 def cast_params_bf16(model: SPMM) -> SPMM:
-    """A bfloat16 copy of ``model`` for ``predict_pv(bf16=True)`` (LayerNorm,
-    scores and softmax still run in fp32).  Make it once, not per call."""
+    """A bfloat16 copy of ``model``: ``predict_pv`` runs it in bfloat16
+    (LayerNorm, scores and softmax still in fp32).  Make it once."""
     return copy.deepcopy(model).to(torch.bfloat16)
 
 
 @torch.no_grad()
 def predict_pv(model: SPMM, input_ids, attention_mask, *,
                n_properties: int = N_PROPERTIES,
-               attention_impl: str = "kernel", bf16: bool = False,
+               attention_impl: str = "kernel",
                device: DeviceLike = None) -> Tensor:
     """Normalized property predictions, fp32 [B, n_properties].
 
@@ -54,13 +54,11 @@ def predict_pv(model: SPMM, input_ids, attention_mask, *,
     leading [CLS] dropped (``SmilesTokenizer.encode_batch``), numpy or
     tensors.  ``attention_impl="kernel"`` (the default) runs every attention
     through ``ops.fused_attention.fused_mha``, the hand-written kernel on
-    the GPU; "plain" runs the unfused matmul-softmax-matmul.  ``bf16`` runs
-    in bfloat16: pass a model from ``cast_params_bf16``, or an fp32 model is
-    cast here on every call."""
+    the GPU; "plain" runs the unfused matmul-softmax-matmul.  The model's
+    parameter dtype is the compute dtype: a model from ``cast_params_bf16``
+    runs in bfloat16."""
     dev = resolve_device(device)
     check_on(model, dev)
-    if bf16 and next(model.parameters()).dtype != torch.bfloat16:
-        model = cast_params_bf16(model)
     ids = torch.as_tensor(input_ids, device=dev)
     mask = torch.as_tensor(attention_mask, device=dev)
     text_cfg = model.text_cfg
@@ -70,9 +68,9 @@ def predict_pv(model: SPMM, input_ids, attention_mask, *,
     cross_kv = precompute_cross_kv(model.text_encoder, text_cfg, text_embeds)
 
     b, h = ids.shape[0], text_cfg.hidden_size
-    cdtype = torch.bfloat16 if bf16 else torch.float32
-    buf = torch.zeros((b, n_properties + 1, h), dtype=cdtype, device=dev)
-    buf[:, 0] = model.property_cls[0, 0].to(cdtype)
+    buf = torch.zeros((b, n_properties + 1, h),
+                      dtype=model.property_cls.dtype, device=dev)
+    buf[:, 0] = model.property_cls[0, 0]
     ones = torch.ones(n_properties, dtype=torch.int32,
                       device=dev).expand(b, -1)
     preds = []

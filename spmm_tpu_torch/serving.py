@@ -237,10 +237,9 @@ class Smiles2PvService(BatchingService):
             ids, mask = tok.encode_batch(texts, max_len=max_len,
                                          buckets=(max_len,))
             if self._replicas is not None:
-                preds = predict_pv_rows(self._replicas, ids, mask,
-                                        bf16=bf16)[:n]
+                preds = predict_pv_rows(self._replicas, ids, mask)[:n]
             else:
-                preds = predict_pv(model, ids, mask, bf16=bf16,
+                preds = predict_pv(model, ids, mask,
                                    device=dev).cpu().numpy()[:n]
             if stats is not None:
                 preds = stats.denormalize(preds)

@@ -219,30 +219,6 @@ def test_entry_points_need_a_gpu_unless_told_otherwise():
         init_moe_params(0, tc, 4)
 
 
-def test_bench_needs_a_gpu_unless_told_otherwise():
-    """``python -m spmm_tpu_torch.bench`` with no GPU and no --device cpu
-    exits non-zero before it prints any line."""
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the default device is valid here")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-m", "spmm_tpu_torch.bench"],
-                          cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode != 0
-    assert proc.stdout == "" and "device='cpu'" in proc.stderr
-
-
-def test_bench_is_held_by_the_import_scans():
-    """The bench is a module of the package, so both scans above cover it:
-    the import check imports it and the AST scan reads it."""
-    assert "spmm_tpu_torch.bench" in _modules()
-    path = os.path.join(PKG, "bench.py")
-    walked = [os.path.join(root, f) for root, _, files in os.walk(PKG)
-              for f in files]
-    assert path in walked and not _offending_imports(path)
-
-
 def test_rxn_entry_points_need_a_gpu_unless_told_otherwise(tmp_path):
     """Reaction prediction and the three file CLIs: cuda by default,
     raising without a GPU before they read any file."""
