@@ -32,8 +32,8 @@ Phases, in order; any failure exits non-zero:
 
   1. device   needs CUDA; prints the card's name and power limit
               (nvidia-smi), turns TF32 off;
-  2. build    builds both kernels from the sources in the checkout, one
-              nvcc each, started together (with --parent DIR, a checkout of
+  2. build    builds kernels 1, 2 and 4 from the sources in the checkout,
+              one nvcc each, started together (with --parent DIR, a checkout of
               another commit, its kernel-2 source too); prints each
               kernel's registers and spills (ptxas) and, from the CUDA
               occupancy API, the blocks per SM and shared memory of its
@@ -78,6 +78,11 @@ Phases, in order; any failure exits non-zero:
               the streaming kernel forced (fmha_launch_route) at the long
               kernel's two main-path inputs (B=64 512x512 with 505 live
               keys, B=16 288x288), timed in turns with the long kernel;
+              decode_cross_attention (kernel 4) against its plain route
+              and timed beside its bound, bf16 and f32, at cell A's shape
+              (m=512, k=2, Le=54), cell B's (32, 5, 96), rxn greedy's
+              (128, 1, 96) and a tp rank's 6 heads at A's, walking 6
+              layers of K/V so that A's launches read cold;
   4. exact    captures the mask that inference/decoding.py passes kernel 1
               at the last step of a full-width bf16 batch of 128 (by
               wrapping the name it calls), holds kernel 1 to its plain
@@ -219,9 +224,11 @@ Phases, in order; any failure exits non-zero:
               its plain version at every launch shape those paths passed
               it:
               kernel 1 on the masks they passed at steps 0, 1, 33, 100 and
-              the last, kernel 2 on the inputs of its first call; and each
+              the last, kernel 2 on the inputs of its first call, kernel 4
+              on the cross K/V and mask of its first call; and each
               shape is timed as in phase 3 (kernel 1 on the last mask it
-              was passed, bf16 caches; kernel 2 on those inputs); with
+              was passed, bf16 caches; kernel 2 on those inputs); cells
+              A's and B's decodes launch kernel 4 6 times a step; with
               --parent, kernel 2 at every input past 256 keys (the eval's
               512x512, the rxn training CLI's 288x288, the mixed batch, the
               streaming kernel's rows of phase 3) timed in turns with the
@@ -264,6 +271,14 @@ KERNEL = {"name": "beam_decode_attention", "route": "cuda",
 KERNEL2 = {"name": "fused_mha", "route": "cuda",
            "source": "spmm_tpu_torch/csrc/fused_attention.cu",
            "replaces": "spmm_tpu/ops/pallas_attention.py:28"}
+KERNEL4 = {"name": "decode_cross_attention", "route": "cuda",
+           "source": "spmm_tpu_torch/csrc/decode_cross_attention.cu",
+           "replaces": None}
+# kernel 4's timed shapes, bf16 D=64: (label, m, k, h, Le) of cell A, cell
+# B, rxn greedy at batch 128 and a tp rank's 6 heads at cell A's batch
+CROSS_SHAPES = (("cell A", 512, 2, 12, 54), ("cell B", 32, 5, 12, 96),
+                ("rxn greedy", 128, 1, 12, 96), ("tp h=6", 512, 2, 6, 54))
+CROSS_LAYERS = 6                # the decoder's fusion layers
 REPO = os.path.dirname(os.path.abspath(__file__))
 S2P_INPUT = os.path.join(REPO, "examples", "s2p_input.txt")
 S2P_LAUNCHES = 6 + 53 * 18      # text layers + 53 steps x (6 + 6 x 2)
@@ -411,7 +426,8 @@ def occupancy() -> dict:
     occupancy API gives them for the launch each wrapper makes."""
     import ctypes
 
-    from spmm_tpu_torch.ops import decode_attention, fused_attention
+    from spmm_tpu_torch.ops import (decode_attention, decode_cross_attention,
+                                    fused_attention)
 
     info = (ctypes.c_int * 4)()
     rows = {}
@@ -435,6 +451,10 @@ def occupancy() -> dict:
                                 ("bf16 k=5 pos=103 (rxn beam)", 1, 5, 103)):
         ask(f"beam_decode_attention {label}", lib1.bda_occupancy, code, k, 64,
             pos)
+    lib4 = decode_cross_attention._library()
+    for label, _, k, _, le in CROSS_SHAPES:
+        ask(f"{KERNEL4['name']} bf16 {label} k={k} Le={le}",
+            lib4.dca_occupancy, 1, k, le, 64)
     for label, lq, lk, *_ in s2p_launch_classes() + RXN_ENCODER_CLASSES:
         ask2(f"fused_mha f32 {label}", -1, 0, 64, 128, 12, lq, lk)
     for lq, lk, _ in LONG_KEY_CASES:
@@ -597,13 +617,14 @@ def compare_kernel(dev) -> dict:
 
 
 class KernelCalls:
-    """What the port passes its two kernel wrappers while ``recording``: the
-    names it calls them through (inference/decoding's beam_decode_attention,
-    ops/attention's fused_mha) are wrapped, and the wrappers launch as
-    before, so their launch counts are untouched.  Per launch shape, kernel
-    1's mask at layer 0 of the steps at POS_SAMPLES and of the deepest step
-    (a later decode of the same shape that stops sooner does not replace
-    it), and kernel 2's inputs at its first call.  A decode on the card
+    """What the port passes its kernel wrappers while ``recording``: the
+    names it calls them through (inference/decoding's beam_decode_attention
+    and decode_cross_attention, ops/attention's fused_mha) are wrapped, and
+    the wrappers launch as before, so their launch counts are untouched.
+    Per launch shape, kernel 1's mask at layer 0 of the steps at POS_SAMPLES
+    and of the deepest step (a later decode of the same shape that stops
+    sooner does not replace it), kernel 2's inputs at its first call, and
+    kernel 4's cross K/V and mask at its first call.  A decode on the card
     calls the wrapper only while it captures its CUDA graphs, so recording
     starts by dropping every captured decode (``decoding.graph_cache``):
     the path's decodes capture theirs inside it, and a recorded mask is the
@@ -615,7 +636,11 @@ class KernelCalls:
         self.bda: dict = {}     # (m, h, k, T, D, cache dtype) -> {pos: mask}
         self.last: dict = {}    # the same key -> (pos, mask) of the deepest step
         self.mha: dict = {}     # shapes, strides, dtype -> (q, k, v, mask)
-        self.paths: dict = {}   # either key -> the path that passed it first
+        # kernel 4: (q shape, K/V shape, dtype, mask dtype) -> (q shape, K,
+        # V, mask) of its first call; K, V and the mask are the decode's own
+        # buffers (a capture's q would be its graph pool's, so q is not kept)
+        self.dca: dict = {}
+        self.paths: dict = {}   # any key -> the path that passed it first
 
     @contextlib.contextmanager
     def recording(self, path: str):
@@ -625,6 +650,7 @@ class KernelCalls:
         from spmm_tpu_torch.ops import attention
 
         bda, mha = decoding.beam_decode_attention, attention.fused_mha
+        dca = decoding.decode_cross_attention
         decoding.graph_cache.clear()
 
         def strided_copy(t):
@@ -651,11 +677,20 @@ class KernelCalls:
                 self.mha[key] = tuple(map(strided_copy, (q, k, v, mask)))
             return mha(q, k, v, mask)
 
+        def dca_seen(q, k, v, mask):
+            key = ("dca", tuple(q.shape), tuple(k.shape), q.dtype, mask.dtype)
+            if key not in self.dca:
+                self.paths[key] = path
+                self.dca[key] = (tuple(q.shape), k, v, mask)
+            return dca(q, k, v, mask)
+
         decoding.beam_decode_attention, attention.fused_mha = bda_seen, mha_seen
+        decoding.decode_cross_attention = dca_seen
         try:
             yield self
         finally:
             decoding.beam_decode_attention, attention.fused_mha = bda, mha
+            decoding.decode_cross_attention = dca
 
     def kernel1_masks(self) -> dict:
         """key -> {pos: mask} at the sampled steps and the last step."""
@@ -3412,7 +3447,8 @@ def main_path_shapes(dev, calls, worst, worst2) -> list:
     shape the main paths passed it: kernel 1 on the masks they passed (held
     at the sampled steps and the last, with random q, k_new, v_new and
     cache; timed on the last, bf16 caches only: SDPA takes no fp8), kernel 2
-    on the very inputs of its first call."""
+    on the very inputs of its first call, kernel 4 on the cross K/V and mask
+    of its first call (random q), copied to 6 layers."""
     import torch
 
     rows = []
@@ -3445,6 +3481,15 @@ def main_path_shapes(dev, calls, worst, worst2) -> list:
         log_mha_timing(f"{path}, B={q.shape[0]} {q.shape[2]}x{kv.shape[2]}",
                        row)
         rows.append(row)
+    for key, (q_shape, k, v, mask) in calls.dca.items():
+        path = calls.paths[key]
+        g = torch.Generator(device=dev).manual_seed(len(rows))
+        q = torch.randn(q_shape, generator=g, device=dev).to(k.dtype)
+        row = {"kernel": KERNEL4["name"], "path": path,
+               **time_cross(dev, q, torch.stack([k] * CROSS_LAYERS),
+                            torch.stack([v] * CROSS_LAYERS), mask)}
+        log_cross_timing(f"from {path}, its K/V and mask", row)
+        rows.append(row)
     return rows
 
 
@@ -3452,7 +3497,7 @@ def cell_a_decode(dev, model, calls) -> dict:
     """Cell A's decode (portbench/traffic/pv2smiles-k2-b512.json), recorded
     in ``calls`` for the phase "shapes": one bf16 k=2 PV->SMILES batch of
     512 at 100 steps (T=104), no property masked, the stop unreachable; its
-    steps, kernel-1 launches and seconds."""
+    steps, kernel-1 and kernel-4 launches (6 a step) and seconds."""
     import numpy as np
     import torch
 
@@ -3463,10 +3508,19 @@ def cell_a_decode(dev, model, calls) -> dict:
         size=(512, 53)).astype(np.float32), device=dev)
     decoder = decoder_for(model, bf16=True)
     spec = BeamSpec(k=2, stop_count=2 * 2 * 100, max_steps=100)
+    from spmm_tpu_torch.ops.decode_cross_attention import (
+        decode_cross_attention)
+
+    before = decode_cross_attention.launches
     with calls.recording("cell A, batch 512, 100 steps"):
         res, secs, l1, _ = run_counted(dev, lambda: _beam_batch(
             model, decoder, pv, None, spec))
-    return {"steps": res["steps"], "launches": l1, "s": secs}
+    l4 = decode_cross_attention.launches - before
+    if l4 != CROSS_LAYERS * res["steps"]:
+        fail(f"cell A's decode launched kernel 4 {l4} times in "
+             f"{res['steps']} steps")
+    return {"steps": res["steps"], "launches": l1, "cross_launches": l4,
+            "s": secs}
 
 
 def cell_b_decode(dev, rxn, calls) -> dict:
@@ -3474,20 +3528,27 @@ def cell_b_decode(dev, rxn, calls) -> dict:
     ``calls`` for the phase "shapes": rxn ``_beam_batch`` over 32 sources of
     96 random ids, the encoder in fp32 (kernel 2 at B=32 96x96), the bf16
     k=5 beam (kernel 1 at m=160) over all 100 steps, the stop unreachable;
-    its steps, kernel-1 and kernel-2 launches and seconds."""
+    its steps, kernel-1, kernel-2 and kernel-4 launches and seconds."""
     from spmm_tpu_torch.inference.decoding import BeamSpec
     from spmm_tpu_torch.inference.rxn import _beam_batch, decoder_for
 
     decoder = decoder_for(rxn, bf16=True)
     spec = BeamSpec(k=5, stop_count=5 * 5 * 100, max_steps=100)
+    from spmm_tpu_torch.ops.decode_cross_attention import (
+        decode_cross_attention)
+
     ids, mask = rxn_source_batch(dev, 32, SEED + 41)
+    before = decode_cross_attention.launches
     with calls.recording("cell B, batch 32, 100 steps"):
         res, secs, l1, l2 = run_counted(dev, lambda: _beam_batch(
             rxn, decoder, ids, mask, spec))
+    l4 = decode_cross_attention.launches - before
     if res["steps"] != spec.max_steps + 1:       # positions 0 to 100
         fail(f"cell B's decode ran {res['steps']} positions, not 101")
     check_rxn_launches("cell B's decode", res["steps"], l1, l2)
-    return {"steps": res["steps"], "launches": [l1, l2], "s": secs}
+    if l4 != CROSS_LAYERS * res["steps"]:
+        fail(f"cell B's decode launched kernel 4 {l4} times")
+    return {"steps": res["steps"], "launches": [l1, l2, l4], "s": secs}
 
 
 def log_bda_timing(label: str, tm: dict) -> None:
@@ -3508,6 +3569,70 @@ def log_mha_timing(label: str, row: dict, dtype: str = "f32") -> None:
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}) = "
         f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel; sdpa vs "
         f"kernel {row['sdpa_vs_kernel_max_abs']:.2e}")
+
+
+def cross_inputs(dev, m, k, h, le, seed, dtype=None, layers=CROSS_LAYERS):
+    """Kernel 4's inputs at (m, k, h, Le), D=64: q as the query projection's
+    rows [m*k, 1, h*64], ``layers`` fusion layers of cross K/V [layers, m,
+    h, Le, 64] (bf16 by default) and an all-ones int32 mask, as cell A's
+    and the reaction decodes' full sources pass it."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((m * k, 1, h * 64), generator=g, device=dev).to(dtype)
+    kv = torch.randn((2, layers, m, h, le, 64), generator=g,
+                     device=dev).to(dtype)
+    mask = torch.ones((m, le), dtype=torch.int32, device=dev)
+    return q, kv[0], kv[1], mask
+
+
+def time_cross(dev, q, ks, vs, mask) -> dict:
+    """Kernel 4 against its plain route (max |diff| on layer 0, failing past
+    kernel 1's bars) and both timed by CUDA graph replays that walk the
+    layers of ``ks`` / ``vs`` ([layers, m, h, Le, D]), so that at cell A a
+    launch reads its layer's 85 MB cold as the decoder does (6 layers,
+    beyond the 50 MB L2); the bound is the larger of the bytes (K, V, q,
+    ctx, mask) over 3.35 TB/s and the flops over 67 TFLOP/s fp32."""
+    import torch
+
+    from spmm_tpu_torch.ops.decode_cross_attention import (
+        decode_cross_attention, decode_cross_attention_reference)
+
+    layers, m, h, le, d = ks.shape
+    k = q.shape[0] // m
+    got = decode_cross_attention(q, ks[0], vs[0], mask)
+    want = decode_cross_attention_reference(q, ks[0], vs[0], mask)
+    err = (got.float() - want.float()).abs().max().item()
+    bar = 1e-5 if q.dtype == torch.float32 else 2e-2
+    if not err <= bar * (1 + want.float().abs().max().item()):
+        fail(f"{KERNEL4['name']} at m={m} k={k} h={h} Le={le}: max |kernel - "
+             f"plain| {err:.3e}")
+    kernel_ms = cuda_ms(lambda i: decode_cross_attention(
+        q, ks[i % layers], vs[i % layers], mask), iters=60)
+    plain_ms = cuda_ms(lambda i: decode_cross_attention_reference(
+        q, ks[i % layers], vs[i % layers], mask), iters=24)
+    esize = q.element_size()
+    nbytes = (2 * m * h * le * d + 2 * m * k * h * d) * esize \
+        + mask.numel() * mask.element_size()
+    flops = 4 * m * h * k * le * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    return {"m": m, "k": k, "h": h, "Le": le,
+            "dtype": str(q.dtype).replace("torch.", ""), "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share": bound / kernel_ms, "bytes": nbytes, "flops": flops,
+            "max_abs_err": err}
+
+
+def log_cross_timing(label: str, row: dict) -> None:
+    log(f"  {KERNEL4['name']} {label} {row['dtype']} m={row['m']} "
+        f"k={row['k']} h={row['h']} Le={row['Le']}: kernel {row['ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms (plain/kernel "
+        f"{row['plain_ms'] / row['ms']:.2f}), bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}) = {100 * row['share']:.1f}% of the kernel; "
+        f"kernel vs plain {row['max_abs_err']:.2e}")
 
 
 # --------------------------------------------------------------------------- #
@@ -3948,7 +4073,9 @@ def main(argv=None) -> int:
     try:
         from spmm_tpu_torch.models.rxn import Rxn
         from spmm_tpu_torch.models.spmm import SPMM
-        from spmm_tpu_torch.ops import decode_attention, fused_attention
+        from spmm_tpu_torch.ops import (decode_attention,
+                                        decode_cross_attention,
+                                        fused_attention)
         from spmm_tpu_torch.utils.device import resolve_device
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})",
@@ -3996,13 +4123,16 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(3) as pool:
         parent_build = None if args.parent is None else pool.submit(
             parent_library, args.parent)
-        secs = list(pool.map(timed_build, (decode_attention, fused_attention)))
+        secs = list(pool.map(timed_build, (decode_attention, fused_attention,
+                                           decode_cross_attention)))
         parent_lib = None if parent_build is None else parent_build.result()
     log(f"[build] beam_decode_attention {secs[0]:.1f} s, fused_attention "
-        f"{secs[1]:.1f} s, together {time.perf_counter() - t0:.1f} s"
+        f"{secs[1]:.1f} s, decode_cross_attention {secs[2]:.1f} s, together "
+        f"{time.perf_counter() - t0:.1f} s"
         + ("" if parent_lib is None else
            f" (with the kernel-2 source under {args.parent})"))
-    for name in ("beam_decode_attention", "fused_attention"):
+    for name in ("beam_decode_attention", "fused_attention",
+                 "decode_cross_attention"):
         report = _build.library_path(name).with_suffix(".log")
         for entry, usage in ptxas_usage(report.read_text()):
             log(f"  ptxas {entry}: {usage}")
@@ -4041,6 +4171,17 @@ def main(argv=None) -> int:
     log_bda_timing("rxn beam, random mask", timing_k5)
     timing_evidence = time_kernel(dev, m=48, pos=8, k=1, kind="greedy")
     log_bda_timing("rxn evidence greedy mask", timing_evidence)
+    log(f"[kernels] {KERNEL4['name']} vs its plain route, timed over "
+        f"{CROSS_LAYERS} layers of K/V")
+    timing4 = []
+    for label, m, k, h, le in CROSS_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = dict(time_cross(dev, *cross_inputs(dev, m, k, h, le,
+                                                     seed=m + k + le,
+                                                     dtype=dtype)),
+                       shape=label)
+            log_cross_timing(label, row)
+            timing4.append(row)
     log("[kernels] fused_mha vs plain version")
     worst2 = compare_mha(dev)
     timing2 = time_mha(dev, sorted(s2p_launch_classes(),
@@ -4437,12 +4578,13 @@ def main(argv=None) -> int:
     mark("shapes")
     cell_a = cell_a_decode(dev, model, calls)
     log(f"[shapes] cell A's decode, bf16 k=2 batch 512, 100 steps: ran "
-        f"{cell_a['steps']}, {cell_a['launches']} kernel-1 launches, "
-        f"{cell_a['s']:.3f} s")
+        f"{cell_a['steps']}, {cell_a['launches']} kernel-1 and "
+        f"{cell_a['cross_launches']} kernel-4 launches, {cell_a['s']:.3f} s")
     cell_b = cell_b_decode(dev, rxn, calls)
     log(f"[shapes] cell B's decode, fp32 encoder over 32 sources of 96, bf16 "
         f"k=5, 100 steps: ran {cell_b['steps']} positions, launches "
-        f"{cell_b['launches']} (kernel 1, kernel 2), {cell_b['s']:.3f} s")
+        f"{cell_b['launches']} (kernel 1, kernel 2, kernel 4), "
+        f"{cell_b['s']:.3f} s")
     log("[shapes] each kernel against its plain version, and timed, at every "
         "launch shape the main paths passed it")
     main_shapes = main_path_shapes(dev, calls, worst, worst2)
@@ -4543,6 +4685,13 @@ def main(argv=None) -> int:
                    profile_ms=in_profile,
                    occupancy={key: row for key, row in occ.items()
                               if key.startswith(KERNEL2["name"])})
+    record4 = dict(KERNEL4, shapes=timing4,
+                   main_path_shapes=[row for row in main_shapes
+                                     if row["kernel"] == KERNEL4["name"]],
+                   cell_a_launches=cell_a["cross_launches"],
+                   cell_b_launches=cell_b["launches"][2],
+                   occupancy={key: row for key, row in occ.items()
+                              if key.startswith(KERNEL4["name"])})
     mark("lm")
     # M's weights and session cache take 71 GB of the card: the decode
     # graphs and models of the phases above go first
@@ -4557,7 +4706,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after freeing")
     record3, record_moe, record_prefill = lm_phase(dev)
     print(json.dumps({"kernels": [record, record2, record3, record_moe,
-                                  record_prefill]}))
+                                  record_prefill, record4]}))
     print(device_line)
     return 0
 

@@ -16,7 +16,9 @@ Beam semantics replicate the reference exactly (d_pv2smiles_single.py:79-110):
 The cache is append-only, [2, L, m, h, k, T, D]: the beam shuffle permutes
 only the [m, k, T] ancestry matrix ``anc``, and the additive mask resolves
 it at attention time.  Every layer of every step goes through
-``ops.decode_attention.beam_decode_attention`` (the CUDA kernel on the GPU).
+``ops.decode_attention.beam_decode_attention`` (kernel 1 on the GPU), and
+every fusion layer's cross-attention through
+``ops.decode_cross_attention.decode_cross_attention`` (kernel 4).
 The JAX code grows the cache in segments for XLA's static shapes; here it is
 allocated at ``max_len`` once and the kernel reads only the live prefix.
 
@@ -60,14 +62,16 @@ from spmm_tpu_torch.configs import BertArchConfig
 from spmm_tpu_torch.models.bert import (
     BertForMaskedLM, local_heads, merge_heads, split_heads)
 from spmm_tpu_torch.ops._build import captured_launches, count_launch
-from spmm_tpu_torch.ops.attention import multi_head_attention
 from spmm_tpu_torch.ops.decode_attention import (
     ancestry_mask,
     beam_decode_attention,
     beam_decode_attention_reference,
     compute_dtype,
 )
-from spmm_tpu_torch.ops.masks import MASK_VALUE
+from spmm_tpu_torch.ops.decode_cross_attention import (
+    decode_cross_attention,
+    decode_cross_attention_reference,
+)
 from spmm_tpu_torch.utils.spans import span
 
 Tensor = torch.Tensor
@@ -85,8 +89,9 @@ class BeamSpec:
     cls_id: int = 2
     sep_id: int = 3
     vocab_size: int = 300
-    # "kernel": beam_decode_attention (the CUDA kernel on a GPU tensor, its
-    # plain version on a CPU one); "plain": the plain version everywhere
+    # "kernel": beam_decode_attention and decode_cross_attention (the CUDA
+    # kernels on a GPU tensor, their plain versions on a CPU one); "plain":
+    # the plain versions everywhere
     attention: str = "kernel"
 
     @property
@@ -152,17 +157,19 @@ def decode_step(
 ) -> Tensor:
     """One cached decoder step in the beam layout; returns logits [m*k, V].
 
-    The k beams of a molecule attend to the shared encoder K/V as k query
-    positions of one attention call; self-attention goes through the fused
-    append + ancestry-masked attention of each layer."""
+    Self-attention goes through the fused append + ancestry-masked
+    attention of each layer (kernel 1), cross-attention through one call a
+    fusion layer in which the k beams of a molecule attend its encoder K/V
+    (kernel 4); ``attention="plain"`` takes both plain versions."""
     if attention not in ("kernel", "plain"):
         raise ValueError(f"unknown attention {attention!r}")
-    attend = (beam_decode_attention if attention == "kernel"
-              else beam_decode_attention_reference)
+    attend, cross = ((beam_decode_attention, decode_cross_attention)
+                     if attention == "kernel" else
+                     (beam_decode_attention_reference,
+                      decode_cross_attention_reference))
     h, d = decoder_heads(model, cfg), cfg.head_dim
     m, kb, T = anc.shape
     hidden = model.bert.embeddings(token[:, None], position_offset=pos)
-    xmask = ((1.0 - cross_mask.float()) * MASK_VALUE)[:, None, None, :]
     # the cache row at pos is written by the call itself, so the prefix
     # mask covers t < pos; the current token enters as the self term
     t_ids = torch.arange(T, device=anc.device)
@@ -182,12 +189,9 @@ def decode_step(
         hidden = layer.attention.output.LayerNorm(att + hidden)
         if layer.has_cross:
             ca = layer.crossattention
-            qx = ca.self.query(hidden).reshape(m, kb, h, d).transpose(1, 2)
-            ctxx = multi_head_attention(
-                qx, cross_kv["k"][i].to(qx.dtype),
-                cross_kv["v"][i].to(qx.dtype), xmask)      # [m, h, kb, d]
-            ctxx = ctxx.transpose(1, 2).reshape(m * kb, h, 1, d)
-            attx = ca.output.dense(merge_heads(ctxx))
+            ctxx = cross(ca.self.query(hidden), cross_kv["k"][i],
+                         cross_kv["v"][i], cross_mask)  # [m*kb, 1, h*d]
+            attx = ca.output.dense(ctxx)
             hidden = ca.output.LayerNorm(attx + hidden)
         hidden = layer.mlp(hidden)
     return model.cls.predictions(hidden)[:, 0, :]
@@ -271,14 +275,16 @@ class _Decode:
 
 class _CrossDecode(_Decode):
     """A decoder cross-attending to an encoder: a call loads its cross K/V
-    and mask into the state; the beam-layout cache [2, L, m, h, k, T, D]
-    and kernel 1."""
+    and mask into the state; the beam-layout cache [2, L, m, h, k, T, D],
+    kernel 1 and kernel 4."""
 
     def prepare(self) -> None:
         if self.attention == "kernel":
             from spmm_tpu_torch.ops import decode_attention
+            from spmm_tpu_torch.ops import decode_cross_attention as cross
 
             decode_attention.prepare(self.cache)
+            cross.prepare(self.cross["k"], self.cache.shape[4])
 
     def _load_inputs(self, cross_kv: dict[str, Tensor],
                      cross_mask: Tensor) -> None:
@@ -916,8 +922,9 @@ def greedy_decode(
     through ``decode_step``, with a single-lane cache [2, L, B, h, 1, T, D],
     an all-zero ancestry [B, 1, T] and T = max_steps + 2 rounded up to a
     multiple of 8.  Every layer of every step goes through
-    ``beam_decode_attention`` (``attention="kernel"``) or its plain version
-    (``"plain"``).
+    ``beam_decode_attention`` and every fusion layer through
+    ``decode_cross_attention`` (``attention="kernel"``), or through their
+    plain versions (``"plain"``).
 
     Each row decodes until it has emitted [SEP] or for ``max_steps`` steps;
     the stop test runs after the append, and rows keep appending after

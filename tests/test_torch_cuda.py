@@ -1,6 +1,7 @@
-"""Kernels 1, 2 and 3 on the card: the CUDA kernels of
-spmm_tpu_torch.ops.decode_attention, spmm_tpu_torch.ops.fused_attention and
-spmm_tpu_torch.ops.mla_decode, and the expert layer's kernels of
+"""Kernels 1, 2, 3 and 4 on the card: the CUDA kernels of
+spmm_tpu_torch.ops.decode_attention, spmm_tpu_torch.ops.fused_attention,
+spmm_tpu_torch.ops.mla_decode and spmm_tpu_torch.ops.decode_cross_attention,
+and the expert layer's kernels of
 spmm_tpu_torch.ops.moe (router, grouped products, pairs' sum), against
 their plain PyTorch versions.
 
@@ -11,7 +12,8 @@ Bars: kernel 1's ctx within 1e-5 (f32) and 2e-2 (bf16, fp8), and the cache
 after the call equals the plain version's bit for bit; kernel 2 within 2e-5
 (f32) and 3e-2 (bf16), the Pallas kernel's bars, and past 256 keys (its
 long and streaming kernels, whose tiles and softmax sums change the order
-of summation) within kernel 1's bars.
+of summation) within kernel 1's bars; kernel 4 (the decoder step's
+cross-attention) within kernel 1's bars too.
 Kernel 3 and the expert products within 2e-2 and 1e-2 of the largest
 magnitude (bf16 probabilities and outputs against fp32), the latent
 attention prefill (ops/mla_prefill.py) within 2e-2 of its plain route in
@@ -1069,3 +1071,132 @@ def test_latent_prefill_kernel_equals_plain_route(dev, monkeypatch):
                     1).float()
     token_err = (live.float() - ref).norm(dim=-1) / ref.norm(dim=-1)
     assert float(token_err.median()) < 1e-2, float(token_err.median())
+
+
+# ---- kernel 4: the decoder step's cross-attention ----
+
+def _cross_case(dev, m, beams, h, le, d, dtype, mask_kind, seed,
+                mask_dtype=torch.int32):
+    """q as the query projection's rows [m*k, 1, h*D], one fusion layer's
+    K/V [m, h, Le, D] and a binary mask: all ones, or random lengths of at
+    least one key (a source holds its [CLS] at least), one row of one."""
+    from spmm_tpu_torch.ops.decode_cross_attention import (
+        decode_cross_attention, decode_cross_attention_reference)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((m * beams, 1, h * d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((m, h, le, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    lens = torch.full((m,), le, device=dev)
+    if mask_kind == "padded":
+        lens = torch.randint(1, le + 1, (m,), generator=g, device=dev)
+        lens[0] = 1
+    mask = (torch.arange(le, device=dev)[None] < lens[:, None]).to(mask_dtype)
+    return decode_cross_attention, decode_cross_attention_reference, \
+        (q, k, v, mask)
+
+
+def _check_cross(kernel, plain, args) -> None:
+    before = kernel.launches
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = 1e-5 if got.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("mask_kind", ["ones", "padded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,beams,h,le,d", [
+    (512, 2, 12, 54, 64), (32, 5, 12, 96, 64), (128, 1, 12, 96, 64),
+    (64, 2, 6, 54, 64), (16, 3, 3, 512, 64), (8, 8, 12, 37, 64),
+    (8, 2, 2, 10, 32), (4, 3, 2, 33, 96), (4, 4, 2, 65, 128)],
+    ids=["cell_a", "cell_b", "greedy", "tp_h6", "le512", "k8_odd", "d32",
+         "d96", "d128"])
+def test_cross_kernel_matches_plain(dev, m, beams, h, le, d, dtype,
+                                    mask_kind):
+    _check_cross(*_cross_case(dev, m, beams, h, le, d, dtype, mask_kind,
+                              seed=m + beams + le))
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.int64, torch.bool,
+                                        torch.float32])
+def test_cross_kernel_mask_dtypes(dev, mask_dtype):
+    _check_cross(*_cross_case(dev, 32, 5, 12, 96, 64, torch.bfloat16,
+                              "padded", seed=3, mask_dtype=mask_dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_kernel_fully_masked_row(dev, dtype):
+    """A molecule with no key: every score sits near -10,000, where fp32's
+    spacing is 2**-10, so the order of a dot product's sum moves a score by
+    up to that and its probability by about 1e-3 (kernel 2's test of the
+    same case); the other molecules keep kernel 1's bars."""
+    kernel, plain, (q, k, v, mask) = _cross_case(dev, 4, 2, 12, 54, 64,
+                                                 dtype, "padded", 5)
+    mask[2] = 0
+    got, want = kernel(q, k, v, mask), plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    live = torch.arange(8, device=dev) // 2 != 2
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(got[~live].float(), want[~live].float(),
+                               atol=1e-3 if dtype == torch.float32 else 2e-2,
+                               rtol=0 if dtype == torch.float32 else 2e-2)
+
+
+def test_cross_kernel_refuses_what_it_does_not_take(dev):
+    kernel, _, (q, k, v, mask) = _cross_case(dev, 4, 2, 2, 54, 64,
+                                             torch.bfloat16, "padded", 0)
+    with pytest.raises(TypeError):
+        kernel(q.half(), k.half(), v.half(), mask)
+    with pytest.raises(TypeError):
+        kernel(q, k.float(), v.float(), mask)
+    with pytest.raises(TypeError):
+        kernel(q, k, v, mask.to(torch.int16))
+    with pytest.raises(ValueError, match="one device"):
+        kernel(q, k.cpu(), v.cpu(), mask)
+    long = _cross_case(dev, 2, 2, 2, 513, 64, torch.bfloat16, "ones", 0)[2]
+    with pytest.raises(ValueError, match="Le <= 512"):
+        kernel(*long)
+    many = _cross_case(dev, 2, 9, 2, 54, 64, torch.bfloat16, "ones", 0)[2]
+    with pytest.raises(ValueError, match="k <= 8"):
+        kernel(*many)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, mask)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernel(q.float().requires_grad_(), k.float(), v.float(), mask)
+
+
+def test_cross_kernel_six_launches_a_step_in_a_captured_a_decode(
+        dev, monkeypatch):
+    """Cell A's decode (bf16 SPMM decoder, k=2, 512 PVs, 6 fusion layers)
+    through freshly captured graphs: each graph recorded 6 launches of
+    kernel 4 (and 12 of kernel 1), and the replays counted 6 a step."""
+    from spmm_tpu_torch.inference import decoding
+    from spmm_tpu_torch.inference.pv2smiles import _beam_batch, decoder_for
+    from spmm_tpu_torch.models.spmm import SPMM
+    from spmm_tpu_torch.ops.decode_cross_attention import (
+        decode_cross_attention)
+
+    graphs = decoding.DecodeGraphs()
+    monkeypatch.setattr(decoding, "graph_cache", graphs)
+    model = SPMM.random_init(0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    pv = torch.randn((512, 53), generator=g, device=dev)
+    spec = decoding.BeamSpec(k=2, stop_count=2 * 2 * 100, max_steps=10)
+    before = (decode_cross_attention.launches, beam_decode_attention.launches)
+    res = _beam_batch(model, decoder_for(model, bf16=True), pv, None, spec)
+    torch.cuda.synchronize()
+    assert res["steps"] == spec.max_steps + 1
+    assert decode_cross_attention.launches - before[0] == 6 * res["steps"]
+    assert beam_decode_attention.launches - before[1] == 12 * res["steps"]
+    (entry,) = graphs._entries.values()
+    assert len(entry.launches) == res["steps"]
+    for launches in entry.launches.values():
+        assert launches[decode_cross_attention] == 6
+        assert launches[beam_decode_attention] == 12

@@ -28,7 +28,8 @@ CONFIG = "moonlight-16b-a3b"
 NEW_METRICS = ["k3_roofline.moonlight", "moe_ms.moonlight",
                "moe_product_roofline.moonlight", "turn_ms.moonlight",
                "mfu.moonlight", "idle_pct.moonlight", "gemm_ms.moonlight"]
-# the cell's metrics added after it, in order, at the end of the list
+# the cell's metrics added after it, in order, after its first ones (later
+# entries for other cells may come after them)
 LATER_METRICS = ["prefill_attention_ms.moonlight"]
 TINY = {"vocab_size": 97, "hidden_size": 64, "num_hidden_layers": 3,
         "num_attention_heads": 4, "num_key_value_heads": 4,
@@ -60,8 +61,15 @@ def test_the_cell_is_new_files_and_entries_beside_the_others():
     assert b["workloads"][-1]["name"] == CELL
     assert b["workloads"][-1]["config"] == CONFIG
     cells = NEW_METRICS + LATER_METRICS
-    assert [m["name"] for m in b["per_layer"][-len(cells):]] == cells
-    for m in b["per_layer"][-len(cells):]:
+    names = [m["name"] for m in b["per_layer"]]
+    first = names.index(NEW_METRICS[0])
+    assert names[first:first + len(NEW_METRICS)] == NEW_METRICS
+    assert not any(CELL in m.get("workloads", ())
+                   for m in b["per_layer"][:first])
+    mine = [m for m in b["per_layer"][first:]
+            if CELL in m.get("workloads", ())]
+    assert [m["name"] for m in mine] == cells
+    for m in mine:
         assert m["workloads"] == [CELL]
         assert m["moves"] == "mol_per_s.pv2smiles"
     rates = {m["name"]: m.get("workloads") for m in b["end_to_end"]}
