@@ -20,12 +20,19 @@ only, each input byte read once and each output byte written once):
 - the expert products (``moe_product_kernel``, the gated up-projection and
   the weighted down-projection): each expert that a token chose read once
   a launch (the expected number of experts that ``tokens * k`` uniform
-  choices touch), the tokens' rows read, the pairs' rows written and read.
+  choices touch), the tokens' rows read, the pairs' rows written and read;
+- a configuration that holds a chip's share of the experts
+  (``n_routed_experts`` cut, the published count under ``published``):
+  the router over the published count, and of the experts only the held
+  ones' work and bytes: k * held / published pairs a token on average, and
+  of ``tokens`` tokens' choices held * (1 - (1 - k / published)^tokens)
+  experts touched.
 """
 
 from __future__ import annotations
 
 from portbench.counts import PEAK_FLOPS, bound_s
+from portbench.reference.latent_moe import routed_experts
 
 BF16 = 2
 
@@ -43,10 +50,10 @@ def token_macs(cfg: dict, layer: int) -> float:
     macs = h * nh * (dn + dr) + h * (r + dr) + nh * dv * h
     if layer < cfg["first_k_dense_replace"]:
         return macs + 3 * h * cfg["intermediate_size"]
-    inter = cfg["moe_intermediate_size"]
-    return (macs + h * cfg["n_routed_experts"]
-            + 3 * h * inter * (cfg["num_experts_per_tok"]
-                               + cfg["n_shared_experts"]))
+    held, published = routed_experts(cfg)
+    routed = cfg["num_experts_per_tok"] * held / published
+    return (macs + h * published + 3 * h * cfg["moe_intermediate_size"]
+            * (routed + cfg["n_shared_experts"]))
 
 
 def prefill_flops(cfg: dict, history, turn: int) -> float:
@@ -105,17 +112,19 @@ def k3_turn_bound_s(cfg: dict, history, turn: int, answer: int
 
 
 def experts_touched(cfg: dict, tokens: int) -> float:
-    """The expected number of experts that ``tokens`` tokens' uniform
-    choices of k touch."""
-    e, k = cfg["n_routed_experts"], cfg["num_experts_per_tok"]
-    return e * (1.0 - (1.0 - k / e) ** tokens)
+    """The expected number of held experts that ``tokens`` tokens' uniform
+    choices of k among the published ones touch."""
+    held, published = routed_experts(cfg)
+    k = cfg["num_experts_per_tok"]
+    return held * (1.0 - (1.0 - k / published) ** tokens)
 
 
 def moe_launches(cfg: dict, tokens: int) -> tuple[float, float]:
     """(bytes, FLOPs) of the two expert-product launches of one expert
     layer over ``tokens`` tokens."""
     h, inter = cfg["hidden_size"], cfg["moe_intermediate_size"]
-    pairs = tokens * cfg["num_experts_per_tok"]
+    held, published = routed_experts(cfg)
+    pairs = tokens * cfg["num_experts_per_tok"] * held / published
     weights = experts_touched(cfg, tokens) * 3 * h * inter
     acts = tokens * h + 2 * pairs * inter + pairs * h
     return BF16 * (weights + acts), 2.0 * pairs * 3 * h * inter

@@ -24,6 +24,14 @@ public modeling code for this configuration:
   ``moe_intermediate_size``, plus the shared experts as one SwiGLU of
   ``n_shared_experts * moe_intermediate_size``; no token dropped.
 
+Where the configuration holds a chip's share of the experts
+(``n_routed_experts`` cut, its published count under ``published``), the
+router keeps its published width and chooses the top k of all the
+experts; only the held experts, the global ids [``first_expert``,
+``first_expert`` + held), add their products, and the shared experts
+always do.  What the absent experts would add is left out, as on the chip
+that holds this share.
+
 Queries are taken in blocks so that an 8k sequence fits.  Weights are made
 per tensor from (seed, name), under DeepSeek-V3's checkpoint names, so that
 the program and this reference hold the same values, and the reference
@@ -63,9 +71,17 @@ def tensor_seed(seed: int, name: str) -> int:
     return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
 
 
-def layer_spec(cfg: dict, i: int) -> list:
+def routed_experts(cfg: dict) -> tuple[int, int]:
+    """(held here, published) routed experts of an expert layer: the
+    published count from ``published`` where the configuration cuts it."""
+    held = cfg["n_routed_experts"]
+    return held, cfg.get("published", {}).get("n_routed_experts", held)
+
+
+def layer_spec(cfg: dict, i: int, first_expert: int = 0) -> list:
     """(name, shape, kind) of layer ``i``'s tensors; kind "normal" (bf16
-    values), "ones" or "bias" (fp32 values)."""
+    values), "ones" or "bias" (fp32 values).  The routed experts are the
+    held ones from global id ``first_expert``; the router spans all."""
     h, nh = cfg["hidden_size"], cfg["num_attention_heads"]
     dn, dr = cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"]
     dv, r = cfg["v_head_dim"], cfg["kv_lora_rank"]
@@ -85,10 +101,10 @@ def layer_spec(cfg: dict, i: int) -> list:
 
     if i < cfg["first_k_dense_replace"]:
         return out + swiglu(f"{p}mlp.", cfg["intermediate_size"])
-    e = cfg["n_routed_experts"]
+    held, e = routed_experts(cfg)
     out += [(f"{p}mlp.gate.weight", (e, h), "normal"),
             (f"{p}mlp.gate.e_score_correction_bias", (e,), "bias")]
-    for j in range(e):
+    for j in range(first_expert, first_expert + held):
         out += swiglu(f"{p}mlp.experts.{j}.", cfg["moe_intermediate_size"])
     return out + swiglu(f"{p}mlp.shared_experts.",
                         cfg["n_shared_experts"] * cfg["moe_intermediate_size"])
@@ -123,14 +139,16 @@ def make_tensor(cfg: dict, seed: int, name: str, shape, kind: str,
 
 class LatentMoeReference:
     """The forward of ``cfg`` (the configuration file's dict) with the
-    weights of ``seed``, on ``device``.  Making one turns TF32 off for the
-    process."""
+    weights of ``seed``, on ``device``; where ``cfg`` holds a share of the
+    experts, the share from global id ``first_expert`` (0: chip 0's).
+    Making one turns TF32 off for the process."""
 
-    def __init__(self, cfg: dict, seed: int, device, precision: str = "fp32"):
+    def __init__(self, cfg: dict, seed: int, device, precision: str = "fp32",
+                 first_expert: int = 0):
         if precision not in ("fp32", "fp8", "bf16"):
             raise ValueError(f"unknown precision {precision!r}")
         self.cfg, self.seed, self.dev = cfg, seed, device
-        self.precision = precision
+        self.precision, self.first_expert = precision, first_expert
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
@@ -192,7 +210,8 @@ class LatentMoeReference:
     def moe(self, x: torch.Tensor, w: dict, p: str) -> torch.Tensor:
         idx, weights = self.route(x, w, p)
         out = self.swiglu(x, w, f"{p}mlp.shared_experts.")
-        for e in range(self.cfg["n_routed_experts"]):
+        first = self.first_expert
+        for e in range(first, first + routed_experts(self.cfg)[0]):
             rows, slot = (idx == e).nonzero(as_tuple=True)
             if rows.numel():
                 y = self.swiglu(x[rows], w, f"{p}mlp.experts.{e}.")
@@ -248,7 +267,7 @@ class LatentMoeReference:
         xs = [outer["model.embed_tokens.weight"][s.to(self.dev)]
               for s in sequences]
         for i in range(self.cfg["num_hidden_layers"]):
-            w = self.tensors(layer_spec(self.cfg, i))
+            w = self.tensors(layer_spec(self.cfg, i, self.first_expert))
             xs = [self.layer(x, i, w) for x in xs]
             del w
         out = []

@@ -15,10 +15,11 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench import counts, weights
+from portbench import counts, lm_counts, weights
 from portbench.drivers._common import bert_arch, on_device
 from portbench.reference import Reference
-from portbench.tests.tiny import REPO, shrink_config
+from portbench.tests.tiny import (
+    LM_CELL, LM_CONFIG, REPO, lm_tiny, shrink_config)
 
 
 def flops(fn) -> int:
@@ -183,3 +184,45 @@ def test_kernel_bytes_and_bounds():
         config("spmm")["text"], config("spmm")["property"], [5, 9], 53,
         "fp32")
     assert launches == 2 + 53 * (2 + 2 * 2)
+
+
+def test_moonlight_work_is_unchanged():
+    """Cell M's counts, which ``mfu``, ``k3_roofline`` and
+    ``moe_product_roofline`` read, as they stood before the counts learnt
+    of a share of the experts: every seed holds the same work."""
+    from portbench.drivers import lm_turn
+
+    with open(os.path.join(REPO, "portbench", "configs",
+                           f"{LM_CONFIG}.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(REPO, "portbench", "traffic",
+                           f"{LM_CELL}.json")) as f:
+        mix = json.load(f)
+    work = lm_turn.Driver(cfg, mix, 2 ** 31 + 5, torch.device("cpu")).work(
+        {}, {"steps": 127})
+    assert work == {"model_flops": 425925883723776.0,
+                    "peak_flops": 989000000000000.0, "steps": 127,
+                    "k3": (6858, 0.7869998743307464),
+                    "moe_product": (6656, 1.1887333193463439)}
+
+
+@pytest.mark.parametrize("shares", [2, 4, 8])
+def test_expert_shares_split_the_expert_counts(shares):
+    """Over the shares of 16 experts (4 a token), the held experts' work
+    and the experts they touch add up to the whole layer's; the router's
+    work is every share's, at the published 16."""
+    whole = lm_tiny(n_routed_experts=16, num_experts_per_tok=4)
+    cut = dict(whole, n_routed_experts=16 // shares,
+               published={"n_routed_experts": 16})
+    h, inter = whole["hidden_size"], whole["moe_intermediate_size"]
+    routed = 3 * h * inter * 4
+    assert lm_counts.token_macs(cut, 1) == pytest.approx(
+        lm_counts.token_macs(whole, 1) - routed * (1 - 1 / shares),
+        rel=1e-12)
+    assert lm_counts.token_macs(cut, 0) == lm_counts.token_macs(whole, 0)
+    for tokens in (1, 7, 300):
+        assert shares * lm_counts.experts_touched(cut, tokens) == \
+            pytest.approx(lm_counts.experts_touched(whole, tokens),
+                          rel=1e-12)
+        assert shares * lm_counts.moe_launches(cut, tokens)[1] == \
+            pytest.approx(lm_counts.moe_launches(whole, tokens)[1], rel=1e-12)

@@ -1,8 +1,10 @@
 """The harness on the CPU at tiny widths: the contract line, a cell, a
 configuration, a traffic mix and a per-layer metric added as new files and
-entries alone, and the refusal to run without a card.  These tests drive
-the run on the CPU by handing it the device; the benchmark itself never
-runs there."""
+entries alone, a configuration cut to one chip's share added so, the
+refusal to run without a card, and ``BENCHMARK.json``'s contract
+(``contract_errors``), which refuses each wrong cut with its own message.
+These tests drive the run on the CPU by handing it the device; the
+benchmark itself never runs there."""
 
 import hashlib
 import json
@@ -14,7 +16,8 @@ import pytest
 import torch
 
 from portbench import run
-from portbench.tests.tiny import REPO, edit, tiny_root
+from portbench.tests.tiny import (
+    LM_CELL, LM_CONFIG, LM_TINY_TRAFFIC, REPO, edit, lm_tiny, tiny_root)
 
 CPU = torch.device("cpu")
 SEED = "3987654321"
@@ -180,57 +183,297 @@ def test_refuses_without_the_program(tmp_path, monkeypatch):
 
 NAME = r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$"
 UNIT = r"^[A-Za-z0-9_/%.-]{1,16}$"
+# the keys that a cut to one chip's share may change (model-configs, section
+# 4): the routed experts held here, the depth and the vocabulary; never a
+# width, a head count or size, an expert's width or experts per token
+EXPERTS = ("n_routed_experts", "num_experts")
+CUT_KEYS = EXPERTS + ("num_hidden_layers", "vocab_size")
+MIN_EXPERTS = 8
+VOCAB_SHARE = 8          # at least an eighth of the vocabulary
+MIN_LAYERS_PAST_DENSE = 4
+
+
+def cut_errors(name: str, reduced: list, cfg: dict) -> list[str]:
+    """What keeps ``cfg`` (configuration ``name``, its file's dict) from
+    being a cut to one chip's share of a stated deployment."""
+    out = []
+    published = cfg.get("published")
+    if not reduced:
+        if published is not None:
+            out.append(f"config {name}: nothing cut, yet a published object")
+        return out
+    if not isinstance(published, dict):
+        return [f"config {name}: cut, but no published object"]
+    for key in reduced:
+        if key not in CUT_KEYS:
+            out.append(f"config {name}: {key} is cut, and a cut may change "
+                       f"only {', '.join(CUT_KEYS)}")
+        elif key not in cfg:
+            out.append(f"config {name}: cut key {key} is not in the file")
+        elif key not in published:
+            out.append(f"config {name}: cut key {key} has no published value")
+        elif published[key] == cfg[key]:
+            out.append(f"config {name}: {key} is {cfg[key]}, its published "
+                       "value: not cut")
+    for key in sorted(set(published) - set(reduced)):
+        out.append(f"config {name}: published {key} is not in reduced")
+    deployment = cfg.get("deployment")
+    if not (isinstance(deployment, str) and deployment.strip()):
+        out.append(f"config {name}: cut, but no deployment that says over "
+                   "how many chips each layer is divided, and how")
+
+    def cut(key):
+        return key in reduced and key in cfg and key in published
+
+    for key in EXPERTS:
+        if cut(key):
+            held, whole = cfg[key], published[key]
+            if held < MIN_EXPERTS:
+                out.append(f"config {name}: {held} experts held, under "
+                           f"{MIN_EXPERTS}")
+            elif whole % held:
+                out.append(f"config {name}: {held} experts held do not "
+                           f"divide the published {whole}")
+    if cut("vocab_size"):
+        least = -(-published["vocab_size"] // VOCAB_SHARE)
+        if cfg["vocab_size"] < least:
+            out.append(f"config {name}: vocabulary {cfg['vocab_size']}, "
+                       f"under an eighth of {published['vocab_size']}")
+    if cut("num_hidden_layers"):
+        least = cfg.get("first_k_dense_replace", 0) + MIN_LAYERS_PAST_DENSE
+        if cfg["num_hidden_layers"] < least:
+            out.append(f"config {name}: {cfg['num_hidden_layers']} layers, "
+                       f"under the leading dense ones and "
+                       f"{MIN_LAYERS_PAST_DENSE} more ({least})")
+    return out
+
+
+def contract_errors(bench: dict, root: str) -> list[str]:
+    """Each way in which ``bench`` (``BENCHMARK.json``'s dict, its files
+    under ``root``) breaks the benchmark's contract, one message each."""
+    import re
+
+    out = []
+
+    def need(ok, msg):
+        if not ok:
+            out.append(msg)
+
+    keys = {"command", "paths", "run_seconds", "configs", "workloads",
+            "end_to_end", "per_layer"}
+    need(set(bench) == keys, f"top-level keys {sorted(bench)}")
+    need(bench.get("paths") == ["portbench"], "paths is not [portbench]")
+    seconds = bench.get("run_seconds", 0)
+    need(1 <= seconds <= 51, f"run_seconds {seconds} outside 1-51")
+    runs = 2 + 14 * 24
+    need(runs * (seconds + 60) + 24 * 180 + 1200 <= 43200,
+         f"run_seconds {seconds}: a full check of 24 cells overruns")
+    configs = {c["name"]: c for c in bench.get("configs", [])}
+    for c in bench.get("configs", []):
+        name = c["name"]
+        need(set(c) == {"name", "source", "file", "reduced", "why"},
+             f"config {name}: keys {sorted(c)}")
+        path = os.path.join(root, c["file"])
+        need(os.path.exists(path), f"config {name}: no file {c['file']}")
+        need(c["file"].startswith("portbench/"),
+             f"config {name}: file {c['file']} outside portbench/")
+        if os.path.exists(path):
+            with open(path) as f:
+                out += cut_errors(name, c["reduced"], json.load(f))
+    workloads = bench.get("workloads", [])
+    cells = {w["name"]: w for w in workloads}
+    for w in workloads:
+        name = w["name"]
+        need(set(w) == {"name", "config", "traffic", "chips", "why"},
+             f"cell {name}: keys {sorted(w)}")
+        need(w["config"] in configs, f"cell {name}: no config {w['config']}")
+        need(w["chips"] in (1, 4), f"cell {name}: chips {w['chips']}")
+        need(len(w["why"]) <= 200 and "\n" not in w["why"],
+             f"cell {name}: why longer than 200 or on two lines")
+        need(os.path.exists(os.path.join(
+            root, "portbench", "traffic", f"{w['traffic']}.json")),
+            f"cell {name}: no traffic {w['traffic']}")
+    four = sum(w["chips"] == 4 for w in workloads)
+    most = max(1, len(workloads) // 4)
+    need(four <= most, f"{four} four-chip cells of {len(workloads)}: at most "
+                       f"{most}")
+    e2e = {m["name"]: m for m in bench.get("end_to_end", [])}
+    need(e2e.get("setup_s", {}).get("bound") == 0.25,
+         "setup_s is missing or its bound is not 0.25")
+    for m in bench.get("end_to_end", []) + bench.get("per_layer", []):
+        name = m["name"]
+        need(re.match(NAME, name), f"metric {name}: not a name")
+        need(re.match(UNIT, m["unit"]), f"metric {name}: unit {m['unit']}")
+        need(m["better"] in ("lower", "higher"),
+             f"metric {name}: better {m['better']}")
+        need(set(m.get("workloads", cells)) <= set(cells),
+             f"metric {name}: names a cell that is not there")
+    for m in bench.get("end_to_end", []):
+        name = m["name"]
+        need(m["source"] in ("host_clock", "device_trace"),
+             f"metric {name}: source {m['source']}")
+        need(0.01 <= m.get("bound", 0) <= 0.25,
+             f"metric {name}: bound outside 0.01-0.25")
+    for m in bench.get("per_layer", []):
+        name = m["name"]
+        need("bound" not in m, f"metric {name}: a per-layer bound")
+        need(m["moves"] in e2e, f"metric {name}: moves {m['moves']}")
+        need("workloads" in m, f"metric {name}: no workloads")
+        for cell in m.get("workloads", []) if m["moves"] in e2e else []:
+            need(cell in e2e[m["moves"]].get("workloads", [cell]),
+                 f"metric {name}: cell {cell} does not report "
+                 f"{m['moves']}")
+        need(any(os.path.exists(os.path.join(
+            root, "portbench", "metrics", f"{base}.py"))
+            for base in (name, name.split(".")[0])),
+            f"metric {name}: no reader")
+    layers = {}
+    for m in bench.get("per_layer", []):
+        layers.setdefault(m["name"].split(".")[0], set()).add(m["layer"])
+    for base, names in layers.items():
+        need(len(names) == 1, f"metrics {base}.*: layers {sorted(names)}")
+    for cell, w in cells.items():
+        names = {m["name"] for m in run.reported(bench["end_to_end"], cell)}
+        need("setup_s" in names and len(names) >= 2,
+             f"cell {cell}: end-to-end metrics {sorted(names)}")
+        need(run.reported(bench["per_layer"], cell),
+             f"cell {cell}: no per-layer metric")
+        path = os.path.join(root, "portbench", "traffic",
+                            f"{w['traffic']}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                mix = json.load(f)
+            need(mix["rate_metric"] in names,
+                 f"cell {cell}: rate {mix['rate_metric']} not reported")
+            need(all(v is not None for v in mix["limits"].values()),
+                 f"cell {cell}: a limit of None")
+    need(len(json.dumps(bench)) <= 64 * 1024, "BENCHMARK.json over 64 KiB")
+    return out
 
 
 def test_benchmark_json_meets_the_contract():
-    import re
-
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
-    assert set(bench) == {"command", "paths", "run_seconds", "configs",
-                          "workloads", "end_to_end", "per_layer"}
-    assert bench["paths"] == ["portbench"]
-    assert 1 <= bench["run_seconds"] <= 51
-    runs = 2 + 14 * 24
-    assert runs * (bench["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
-    configs = {c["name"]: c for c in bench["configs"]}
-    for c in bench["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert os.path.exists(os.path.join(REPO, c["file"]))
-        assert c["file"].startswith("portbench/") and c["reduced"] == []
-    cells = {w["name"]: w for w in bench["workloads"]}
-    for w in bench["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["config"] in configs and w["chips"] == 1
-        assert len(w["why"]) <= 200 and "\n" not in w["why"]
-        assert os.path.exists(os.path.join(
-            REPO, "portbench", "traffic", f"{w['traffic']}.json"))
-    e2e = {m["name"]: m for m in bench["end_to_end"]}
-    assert e2e["setup_s"]["bound"] == 0.25
-    for m in bench["end_to_end"] + bench["per_layer"]:
-        assert re.match(NAME, m["name"]) and re.match(UNIT, m["unit"])
-        assert m["better"] in ("lower", "higher")
-        assert set(m.get("workloads", cells)) <= set(cells)
-    for m in bench["end_to_end"]:
-        assert m["source"] in ("host_clock", "device_trace")
-        assert 0.01 <= m["bound"] <= 0.25
-    for m in bench["per_layer"]:
-        assert "bound" not in m and m["moves"] in e2e
-        for cell in m["workloads"]:
-            assert cell in e2e[m["moves"]].get("workloads", [cell])
-        assert any(os.path.exists(os.path.join(
-            REPO, "portbench", "metrics", f"{name}.py"))
-            for name in (m["name"], m["name"].split(".")[0]))
-    layers = {}
-    for m in bench["per_layer"]:
-        layers.setdefault(m["name"].split(".")[0], set()).add(m["layer"])
-    assert all(len(v) == 1 for v in layers.values())
-    for cell in cells:
-        names = {m["name"] for m in run.reported(bench["end_to_end"], cell)}
-        assert "setup_s" in names and len(names) >= 2
-        assert run.reported(bench["per_layer"], cell)
-        mix = json.load(open(os.path.join(
-            REPO, "portbench", "traffic", f"{cells[cell]['traffic']}.json")))
-        assert mix["rate_metric"] in names
-        assert all(v is not None for v in mix["limits"].values())
-    assert len(json.dumps(bench)) <= 64 * 1024
+    assert contract_errors(bench, REPO) == []
+
+
+# ---- a configuration cut to one chip's share ----
+
+CUT = "depth5"
+CUT_CONFIG, CUT_CELL = f"moonlight-{CUT}", f"moonlight-{CUT}-turn4"
+
+
+def add_cut_cell(root: str) -> None:
+    """Add to the tiny copy at ``root``, as new files and entries alone, a
+    depth cut of the latent MoE configuration at tiny widths (5 of the
+    published 27 layers: the dense one and 4 expert layers), its traffic,
+    a cell over them and the cell's per-layer entries."""
+    bench_dir = os.path.join(root, "portbench")
+    cfg = lm_tiny(num_hidden_layers=5, published={"num_hidden_layers": 27},
+                  deployment="layers 1-5 of 27 on this chip, whole: the "
+                             "rest are further stages of a pipeline")
+    with open(os.path.join(bench_dir, "configs", f"{CUT_CONFIG}.json"),
+              "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(bench_dir, "traffic", f"{LM_CELL}.json")) as f:
+        mix = dict(json.load(f), **LM_TINY_TRAFFIC)
+    with open(os.path.join(bench_dir, "traffic", f"{CUT_CELL}.json"),
+              "w") as f:
+        json.dump(mix, f)
+
+    def register(bench):
+        entry = next(c for c in bench["configs"] if c["name"] == LM_CONFIG)
+        bench["configs"].append(dict(
+            entry, name=CUT_CONFIG, reduced=["num_hidden_layers"],
+            file=f"portbench/configs/{CUT_CONFIG}.json"))
+        bench["workloads"].append({"name": CUT_CELL, "config": CUT_CONFIG,
+                                   "traffic": CUT_CELL, "chips": 1,
+                                   "why": "a test cell"})
+        for m in bench["end_to_end"]:
+            if LM_CELL in m.get("workloads", ()):
+                m["workloads"].append(CUT_CELL)
+        bench["per_layer"] += [
+            dict(m, name=f"{m['name'].split('.')[0]}.{CUT}",
+                 workloads=[CUT_CELL])
+            for m in bench["per_layer"] if m.get("workloads") == [LM_CELL]]
+        return bench
+
+    edit(os.path.join(root, "BENCHMARK.json"), register)
+
+
+def test_a_cut_configuration_as_new_files_and_entries(tmp_path, capsys):
+    root = tiny_root(tmp_path)
+    bench_dir = os.path.join(root, "portbench")
+    before = tree_digest(bench_dir)
+    add_cut_cell(root)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        assert contract_errors(json.load(f), root) == []
+    lines = {}
+    for trace in ("0", "1"):
+        rc, out, err = drive(root, CUT_CELL, trace, capsys)
+        assert rc == 0, err
+        lines[trace] = json.loads(out.strip().splitlines()[-1])
+        assert lines[trace]["correct"] is True
+        assert lines[trace]["failed"] == 0
+    assert set(lines["0"]["metrics"]) == {"mol_per_s.pv2smiles", "setup_s"}
+    assert f"mfu.{CUT}" in lines["1"]["metrics"]
+    after = tree_digest(bench_dir)
+    assert {k: v for k, v in after.items() if k in before} == before
+    assert set(after) - set(before) == {f"configs/{CUT_CONFIG}.json",
+                                        f"traffic/{CUT_CELL}.json"}
+
+
+def _cut(entry, cfg, key, kept, published):
+    cfg[key], cfg["published"][key] = kept, published
+    entry["reduced"].append(key)
+
+
+# one change at a time to the cut configuration, and the error it earns
+MUTATIONS = {
+    "a width cut": (lambda bench, entry, cfg: _cut(
+        entry, cfg, "hidden_size", 64, 2048),
+        "hidden_size is cut, and a cut may change only"),
+    "no published value": (lambda bench, entry, cfg: entry["reduced"].append(
+        "vocab_size"), "cut key vocab_size has no published value"),
+    "the published value kept": (lambda bench, entry, cfg: cfg[
+        "published"].update(num_hidden_layers=5),
+        "num_hidden_layers is 5, its published value: not cut"),
+    "no deployment": (lambda bench, entry, cfg: cfg.pop("deployment"),
+                      "no deployment"),
+    "4 experts held": (lambda bench, entry, cfg: _cut(
+        entry, cfg, "n_routed_experts", 4, 8), "4 experts held, under 8"),
+    "48 held of 100": (lambda bench, entry, cfg: _cut(
+        entry, cfg, "n_routed_experts", 48, 100),
+        "48 experts held do not divide the published 100"),
+    "under an eighth of the vocabulary": (lambda bench, entry, cfg: _cut(
+        entry, cfg, "vocab_size", 97, 1000),
+        "vocabulary 97, under an eighth of 1000"),
+    "4 layers": (lambda bench, entry, cfg: cfg.update(num_hidden_layers=4),
+                 "4 layers, under the leading dense ones and 4 more (5)"),
+    "two four-chip cells of 5": (lambda bench, entry, cfg: [
+        w.update(chips=4) for w in bench["workloads"][-2:]],
+        "2 four-chip cells of 5: at most 1"),
+}
+
+
+@pytest.mark.parametrize("mutation", list(MUTATIONS))
+def test_the_contract_refuses_a_wrong_cut(tmp_path, mutation):
+    root = tiny_root(tmp_path)
+    add_cut_cell(root)
+    change, message = MUTATIONS[mutation]
+    cfg_path = os.path.join(root, "portbench", "configs",
+                            f"{CUT_CONFIG}.json")
+
+    def mutate(bench):
+        entry = next(c for c in bench["configs"] if c["name"] == CUT_CONFIG)
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        change(bench, entry, cfg)
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        return bench
+
+    edit(os.path.join(root, "BENCHMARK.json"), mutate)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        errors = contract_errors(json.load(f), root)
+    assert len(errors) == 1 and message in errors[0], errors

@@ -12,7 +12,8 @@ import torch
 from portbench import weights
 from portbench.drivers._common import bert_arch, on_device
 from portbench.reference import Reference, detokenize, load_vocab
-from portbench.tests.tiny import REPO, shrink_config
+from portbench.reference.latent_moe import LatentMoeReference, layer_spec
+from portbench.tests.tiny import REPO, lm_tiny, shrink_config
 
 CPU = torch.device("cpu")
 
@@ -188,3 +189,39 @@ def test_beam_search_matches_the_port(spmm, k, stop):
     assert torch.equal(got["n_finished"], want["n_finished"])
     torch.testing.assert_close(got["logp"].float(), want["logp"],
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shares", [1, 2, 4])
+def test_expert_shares_add_up_to_the_whole_layer(shares):
+    """The chip's share of the experts (model-configs, section 4): at hidden
+    64 with 16 experts, 4 a token and 1 shared, the outputs of one expert
+    layer's ``shares`` shares, each with the shared expert, which every
+    chip computes alike, counted once, add up to the uncut layer's.  One
+    share of all 16 is the uncut layer bit for bit; more shares sum in
+    another order, which fp32 moves by far less than 1e-5 of the largest
+    output."""
+    whole = lm_tiny(n_routed_experts=16, num_experts_per_tok=4)
+    assert whole["n_shared_experts"] == 1
+    held = 16 // shares
+    cut = dict(whole, n_routed_experts=held,
+               published={"n_routed_experts": 16})
+    layer, seed = 1, 2 ** 31 + 41
+    p = f"model.layers.{layer}."
+    x = torch.randn(48, 64, generator=torch.Generator().manual_seed(3))
+    ref = LatentMoeReference(whole, seed, CPU)
+    want = ref.moe(x, ref.tensors(layer_spec(whole, layer)), p)
+    got, routed = None, []
+    for first in range(0, 16, held):
+        part = LatentMoeReference(cut, seed, CPU, first_expert=first)
+        w = part.tensors(layer_spec(cut, layer, first))
+        assert len([n for n in w if ".experts." in n]) == 3 * held
+        out = part.moe(x, w, p)
+        shared = part.swiglu(x, w, f"{p}mlp.shared_experts.")
+        routed.append(out - shared)
+        got = out if got is None else got + out - shared
+    if shares == 1:
+        assert torch.equal(got, want)
+    else:
+        assert all(r.abs().max() > 0 for r in routed)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())

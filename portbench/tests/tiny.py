@@ -25,6 +25,27 @@ TRAFFIC = {"pv2smiles-k2-b512": {"batch": 4, "max_steps": 6},
 # limits loose enough for any sound tiny run, tight enough for a fault
 TINY_LIMITS = {"token_gap": 0.1, "mean_token_gap": 0.01, "score_gap": 0.05,
                "pv_error": 1e-3}
+# the latent MoE configuration and its cell's traffic at tiny widths
+LM_CONFIG, LM_CELL = "moonlight-16b-a3b", "moonlight-8k-turn256-b128"
+LM_TINY = {"vocab_size": 97, "hidden_size": 64, "num_hidden_layers": 3,
+           "num_attention_heads": 4, "num_key_value_heads": 4,
+           "kv_lora_rank": 32, "qk_nope_head_dim": 16, "qk_rope_head_dim": 8,
+           "v_head_dim": 16, "intermediate_size": 96,
+           "moe_intermediate_size": 32, "n_routed_experts": 8,
+           "num_experts_per_tok": 2, "n_shared_experts": 1,
+           "max_position_embeddings": 64}
+LM_TINY_TRAFFIC = {"batch": 3, "history": {"min": 5, "max": 20}, "turn": 4,
+                   "answer": 5, "positions": 64, "trace_batches": 1,
+                   "check_rows": 2,
+                   # bf16 program against the fp32 reference at hidden 64
+                   "limits": {"mean_token_gap": 0.01}}
+
+
+def lm_tiny(**changes) -> dict:
+    """The latent MoE configuration at tiny widths, with ``changes``."""
+    with open(os.path.join(REPO, "portbench", "configs",
+                           f"{LM_CONFIG}.json")) as f:
+        return {**json.load(f), **LM_TINY, **changes}
 
 
 def shrink_config(name: str, config: dict) -> dict:
