@@ -1,6 +1,14 @@
-"""Turns of the latent MoE LM over cached sessions: ``inference.lm.
+"""Turns of a language model over cached sessions: ``inference.lm.
 answer_turn`` over a batch of rows, each with a long history prefilled once
 in set-up; a batch is a fresh turn a row, answered greedily.
+
+The configuration names what is particular to its model, and the driver
+names no model itself: ``model`` the program's model, made by
+``portbench/programs/<model>.py``'s ``build``; ``reference`` the path of
+its reference module (the interface in ``portbench/reference/__init__.py``),
+which gives the weights that both sides load, the reference that the
+comparison reads and the turn's needed work.  Both are loaded by path from
+the checkout that holds this driver.
 
 Inputs from the seed: each row's history length (the ``batch`` quantiles of
 the uniform distribution over [min, max] in an order drawn from the seed,
@@ -16,8 +24,9 @@ answer:
 - ``mean_token_gap``: over every served answer position, the reference's
   best log-probability less the served token's, averaged.  Greedy decoding
   serves the argmax, so only rounding opens a gap: bf16 weights,
-  activations and cache, and the expert choices that they flip where two
-  experts' scores nearly tie, which compound over the 26 expert layers;
+  activations and cache, and (in ``moonlight-16b-a3b``) the expert choices
+  that they flip where two experts' scores nearly tie, which compound over
+  the 26 expert layers;
 - ``answer_errors``: rows of a batch with an answer of another length or an
   id outside the vocabulary.
 
@@ -30,23 +39,35 @@ Control ``ref_fp8`` (calibration and the control test only): the reference
 with every product's operands rounded to e4m3 stands for the program,
 teacher-forced over the same tokens; its argmax at each position stands for
 the served token.  Witness ``ref_bf16`` (calibration only), the same with
-the reference in bf16 (``LatentMoeReference`` precision "bf16"): what the
-program's rounding alone does to the gaps, without the program's code.
+the reference in bf16 (``Reference`` precision "bf16"): what the program's
+rounding alone does to the gaps, without the program's code.
 """
 
 from __future__ import annotations
 
+import importlib.util
+import os
+
 import numpy as np
 import torch
 
-from portbench import lm_counts
 from portbench import traffic as traffic_mod
 from portbench.counts import PEAK_FLOPS
 from portbench.drivers._common import phase, sample
-from portbench.reference.latent_moe import (
-    LatentMoeReference, make_tensor, tensor_kinds)
 
 HISTORY_STREAM = 3
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def load(path: str):
+    """The module at ``path``, from the root of this driver's checkout."""
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(path)[0].replace("/", "."),
+        os.path.join(ROOT, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Driver:
@@ -58,6 +79,8 @@ class Driver:
         self.rows, self.turn = traffic["batch"], traffic["turn"]
         self.answer = traffic["answer"]
         self.history = self.histories()
+        self.reference = load(config["reference"])
+        self.program = load(f"portbench/programs/{config['model']}.py")
 
     def histories(self) -> list:
         """Each row's history ids (host arrays)."""
@@ -70,16 +93,14 @@ class Driver:
                 for length in lengths]
 
     def setup(self) -> None:
-        from spmm_tpu_torch.configs import LatentMoeConfig
         from spmm_tpu_torch.inference import lm
-        from spmm_tpu_torch.models.latent_moe import LatentMoe
 
-        cfg = self.config
+        cfg, ref = self.config, self.reference
         with phase("model and weights", self.dev):
             with torch.device(self.dev):
-                self.model = LatentMoe(LatentMoeConfig.from_dict(cfg))
-            kinds = tensor_kinds(cfg)
-            self.model.load_checkpoint(lambda name, shape: make_tensor(
+                self.model = self.program.build(cfg)
+            kinds = ref.tensor_kinds(cfg)
+            self.model.load_checkpoint(lambda name, shape: ref.make_tensor(
                 cfg, self.seed, name, shape, kinds[name], self.dev))
             self.model.eval()
         with phase("session cache and histories", self.dev):
@@ -115,17 +136,10 @@ class Driver:
             torch.cuda.empty_cache()
 
     def work(self, host: dict, res: dict) -> dict:
-        cfg, lengths = self.config, [len(h) for h in self.history]
-        return {
-            "model_flops": lm_counts.turn_flops(cfg, lengths, self.turn,
-                                                self.answer),
-            "peak_flops": PEAK_FLOPS["bf16"],
-            "steps": res["steps"],
-            "k3": lm_counts.k3_turn_bound_s(cfg, lengths, self.turn,
-                                            self.answer),
-            "moe_product": lm_counts.moe_turn_bound_s(cfg, self.rows, self.turn,
-                                                   self.answer),
-        }
+        lengths = [len(h) for h in self.history]
+        return {**self.reference.work(self.config, lengths, self.rows,
+                                      self.turn, self.answer),
+                "peak_flops": PEAK_FLOPS["bf16"], "steps": res["steps"]}
 
     # ---- the comparison ----
 
@@ -152,13 +166,14 @@ class Driver:
             start = len(self.history[r]) + self.turn - 1
             wanted.append(torch.arange(start, start + self.answer))
             served.append(torch.as_tensor(ans, device=self.dev))
-        ref = LatentMoeReference(self.config, self.seed, self.dev)
+        make = self.reference.Reference
+        ref = make(self.config, self.seed, self.dev)
         with phase("reference", self.dev):
             logps = [torch.log_softmax(lg, -1)
                      for lg in ref.logits(seqs, wanted)]
         if self.control in ("ref_fp8", "ref_bf16"):
-            low = LatentMoeReference(self.config, self.seed, self.dev,
-                                     self.control[4:])
+            low = make(self.config, self.seed, self.dev,
+                       precision=self.control[4:])
             served = [lg.argmax(-1) for lg in low.logits(seqs, wanted)]
         gaps = torch.cat([lp.max(-1).values - lp.gather(-1, s[:, None])[:, 0]
                           for lp, s in zip(logps, served)])

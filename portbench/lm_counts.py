@@ -21,8 +21,9 @@ only, each input byte read once and each output byte written once):
   the weighted down-projection): each expert that a token chose read once
   a launch (the expected number of experts that ``tokens * k`` uniform
   choices touch), the tokens' rows read, the pairs' rows written and read;
-- a configuration that holds a chip's share of the experts
-  (``n_routed_experts`` cut, the published count under ``published``):
+- a configuration that holds a chip's share of the experts (their count,
+  ``n_routed_experts`` or ``num_experts``, cut, the published count under
+  ``published``):
   the router over the published count, and of the experts only the held
   ones' work and bytes: k * held / published pairs a token on average, and
   of ``tokens`` tokens' choices held * (1 - (1 - k / published)^tokens)
@@ -32,7 +33,7 @@ only, each input byte read once and each output byte written once):
 from __future__ import annotations
 
 from portbench.counts import PEAK_FLOPS, bound_s
-from portbench.reference.latent_moe import routed_experts
+from portbench.experts import routed_experts
 
 BF16 = 2
 

@@ -24,13 +24,13 @@ public modeling code for this configuration:
   ``moe_intermediate_size``, plus the shared experts as one SwiGLU of
   ``n_shared_experts * moe_intermediate_size``; no token dropped.
 
-Where the configuration holds a chip's share of the experts
-(``n_routed_experts`` cut, its published count under ``published``), the
-router keeps its published width and chooses the top k of all the
-experts; only the held experts, the global ids [``first_expert``,
-``first_expert`` + held), add their products, and the shared experts
-always do.  What the absent experts would add is left out, as on the chip
-that holds this share.
+Where the configuration holds a chip's share of the experts (their count,
+``n_routed_experts`` or ``num_experts``, cut and its published value under
+``published``), the router keeps its published width and chooses the top k
+of all the experts; only the held experts, the global ids
+[``first_expert``, ``first_expert`` + held), add their products, and the
+shared experts always do.  What the absent experts would add is left out,
+as on the chip that holds this share.
 
 Queries are taken in blocks so that an 8k sequence fits.  Weights are made
 per tensor from (seed, name), under DeepSeek-V3's checkpoint names, so that
@@ -46,6 +46,10 @@ witness of what bf16 alone does to the served tokens): every product's
 operands and result in bf16 (fp32 sums), the residual stream rounded to
 bf16 after each addition; the router's product, the norms and the softmax
 in fp32.
+
+The module gives the interface of ``portbench/reference/__init__.py``:
+``Reference`` is ``LatentMoeReference``, ``work`` the turn's counts of
+``portbench/lm_counts.py``.
 """
 
 from __future__ import annotations
@@ -55,6 +59,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from portbench import lm_counts
+from portbench.experts import routed_experts
 
 FP8_MAX = 448.0
 QUERY_BLOCK = 1024
@@ -69,13 +76,6 @@ def tensor_seed(seed: int, name: str) -> int:
     """The generator seed of one named tensor."""
     digest = hashlib.sha256(f"{seed}/{name}".encode()).digest()
     return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
-
-
-def routed_experts(cfg: dict) -> tuple[int, int]:
-    """(held here, published) routed experts of an expert layer: the
-    published count from ``published`` where the configuration cuts it."""
-    held = cfg["n_routed_experts"]
-    return held, cfg.get("published", {}).get("n_routed_experts", held)
 
 
 def layer_spec(cfg: dict, i: int, first_expert: int = 0) -> list:
@@ -276,3 +276,17 @@ class LatentMoeReference:
                               self.cfg["rms_norm_eps"])
             out.append(self.linear(h, outer["lm_head.weight"]))
         return out
+
+
+Reference = LatentMoeReference
+
+
+def work(cfg: dict, history, rows: int, turn: int, answer: int) -> dict:
+    """A turn's needed work over rows with the given history lengths, for
+    the per-layer readers: its FLOPs (``mfu``), and kernel 3's and the
+    expert products' (launches, summed bound seconds)."""
+    return {
+        "model_flops": lm_counts.turn_flops(cfg, history, turn, answer),
+        "k3": lm_counts.k3_turn_bound_s(cfg, history, turn, answer),
+        "moe_product": lm_counts.moe_turn_bound_s(cfg, rows, turn, answer),
+    }

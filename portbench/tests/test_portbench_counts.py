@@ -226,3 +226,20 @@ def test_expert_shares_split_the_expert_counts(shares):
                           rel=1e-12)
         assert shares * lm_counts.moe_launches(cut, tokens)[1] == \
             pytest.approx(lm_counts.moe_launches(whole, tokens)[1], rel=1e-12)
+
+
+def test_num_experts_counts_as_n_routed_experts():
+    """The counts read the experts under either key: a configuration that
+    counts them as ``num_experts`` (Kimi-Linear's key), whole or cut to a
+    share, needs the work that the same counts under ``n_routed_experts``
+    need."""
+    named = lm_tiny(n_routed_experts=16, num_experts_per_tok=4)
+    whole = {k: v for k, v in named.items() if k != "n_routed_experts"}
+    for held in (16, 4):
+        a = dict(named, n_routed_experts=held,
+                 published={"n_routed_experts": 16})
+        b = dict(whole, num_experts=held, published={"num_experts": 16})
+        assert lm_counts.token_macs(b, 1) == lm_counts.token_macs(a, 1)
+        assert lm_counts.moe_launches(b, 300) == lm_counts.moe_launches(a, 300)
+        assert lm_counts.moe_turn_bound_s(b, 3, 4, 5) == \
+            lm_counts.moe_turn_bound_s(a, 3, 4, 5)

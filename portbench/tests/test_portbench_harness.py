@@ -1,7 +1,8 @@
 """The harness on the CPU at tiny widths: the contract line, a cell, a
 configuration, a traffic mix and a per-layer metric added as new files and
-entries alone, a configuration cut to one chip's share added so, the
-refusal to run without a card, and ``BENCHMARK.json``'s contract
+entries alone, a configuration cut to one chip's share added so, a second
+language model with a reference module of its own added so, the refusal to
+run without a card, and ``BENCHMARK.json``'s contract
 (``contract_errors``), which refuses each wrong cut with its own message.
 These tests drive the run on the CPU by handing it the device; the
 benchmark itself never runs there."""
@@ -16,6 +17,8 @@ import pytest
 import torch
 
 from portbench import run
+from portbench.experts import EXPERTS
+from portbench.tests import moonlight
 from portbench.tests.tiny import (
     LM_CELL, LM_CONFIG, LM_TINY_TRAFFIC, REPO, edit, lm_tiny, tiny_root)
 
@@ -186,7 +189,6 @@ UNIT = r"^[A-Za-z0-9_/%.-]{1,16}$"
 # the keys that a cut to one chip's share may change (model-configs, section
 # 4): the routed experts held here, the depth and the vocabulary; never a
 # width, a head count or size, an expert's width or experts per token
-EXPERTS = ("n_routed_experts", "num_experts")
 CUT_KEYS = EXPERTS + ("num_hidden_layers", "vocab_size")
 MIN_EXPERTS = 8
 VOCAB_SHARE = 8          # at least an eighth of the vocabulary
@@ -279,7 +281,11 @@ def contract_errors(bench: dict, root: str) -> list[str]:
              f"config {name}: file {c['file']} outside portbench/")
         if os.path.exists(path):
             with open(path) as f:
-                out += cut_errors(name, c["reduced"], json.load(f))
+                cfg = json.load(f)
+            out += cut_errors(name, c["reduced"], cfg)
+            ref = cfg.get("reference")
+            need(ref and os.path.exists(os.path.join(root, ref)),
+                 f"config {name}: no reference {ref}")
     workloads = bench.get("workloads", [])
     cells = {w["name"]: w for w in workloads}
     for w in workloads:
@@ -343,8 +349,12 @@ def contract_errors(bench: dict, root: str) -> list[str]:
         if os.path.exists(path):
             with open(path) as f:
                 mix = json.load(f)
-            need(mix["rate_metric"] in names,
-                 f"cell {cell}: rate {mix['rate_metric']} not reported")
+            rates = sorted(m["name"] for m in run.reported(
+                bench["end_to_end"], cell)
+                if m["name"] != "setup_s" and m["unit"].endswith("/s"))
+            need(rates == [mix["rate_metric"]],
+                 f"cell {cell}: rates {rates}, where its traffic's is "
+                 f"{mix['rate_metric']} alone")
             need(all(v is not None for v in mix["limits"].values()),
                  f"cell {cell}: a limit of None")
     need(len(json.dumps(bench)) <= 64 * 1024, "BENCHMARK.json over 64 KiB")
@@ -357,48 +367,61 @@ def test_benchmark_json_meets_the_contract():
     assert contract_errors(bench, REPO) == []
 
 
+def test_moonlight_entries_by_name():
+    moonlight.check_entries(REPO)
+
+
 # ---- a configuration cut to one chip's share ----
 
 CUT = "depth5"
 CUT_CONFIG, CUT_CELL = f"moonlight-{CUT}", f"moonlight-{CUT}-turn4"
+# 5 of the published 27 layers: the dense one and 4 expert layers
+DEPTH_CUT = {"num_hidden_layers": 5, "published": {"num_hidden_layers": 27},
+             "deployment": "layers 1-5 of 27 on this chip, whole: the rest "
+                           "are further stages of a pipeline"}
 
 
-def add_cut_cell(root: str) -> None:
+def add_lm_cell(root: str, name: str, cell: str, suffix: str, cfg: dict,
+                reduced: list, bases=None) -> None:
     """Add to the tiny copy at ``root``, as new files and entries alone, a
-    depth cut of the latent MoE configuration at tiny widths (5 of the
-    published 27 layers: the dense one and 4 expert layers), its traffic,
-    a cell over them and the cell's per-layer entries."""
+    language model's configuration ``name`` (``cfg``; its entry M's with
+    ``reduced``), its traffic (M's at tiny sizes), ``cell`` over them under
+    M's rate, and the cell's per-layer entries ``<base>.<suffix>``, copied
+    from M's for each of ``bases`` (all of M's by default)."""
     bench_dir = os.path.join(root, "portbench")
-    cfg = lm_tiny(num_hidden_layers=5, published={"num_hidden_layers": 27},
-                  deployment="layers 1-5 of 27 on this chip, whole: the "
-                             "rest are further stages of a pipeline")
-    with open(os.path.join(bench_dir, "configs", f"{CUT_CONFIG}.json"),
-              "w") as f:
+    with open(os.path.join(bench_dir, "configs", f"{name}.json"), "w") as f:
         json.dump(cfg, f)
     with open(os.path.join(bench_dir, "traffic", f"{LM_CELL}.json")) as f:
         mix = dict(json.load(f), **LM_TINY_TRAFFIC)
-    with open(os.path.join(bench_dir, "traffic", f"{CUT_CELL}.json"),
-              "w") as f:
+    with open(os.path.join(bench_dir, "traffic", f"{cell}.json"), "w") as f:
         json.dump(mix, f)
 
     def register(bench):
         entry = next(c for c in bench["configs"] if c["name"] == LM_CONFIG)
         bench["configs"].append(dict(
-            entry, name=CUT_CONFIG, reduced=["num_hidden_layers"],
-            file=f"portbench/configs/{CUT_CONFIG}.json"))
-        bench["workloads"].append({"name": CUT_CELL, "config": CUT_CONFIG,
-                                   "traffic": CUT_CELL, "chips": 1,
+            entry, name=name, reduced=reduced,
+            file=f"portbench/configs/{name}.json"))
+        bench["workloads"].append({"name": cell, "config": name,
+                                   "traffic": cell, "chips": 1,
                                    "why": "a test cell"})
         for m in bench["end_to_end"]:
             if LM_CELL in m.get("workloads", ()):
-                m["workloads"].append(CUT_CELL)
-        bench["per_layer"] += [
-            dict(m, name=f"{m['name'].split('.')[0]}.{CUT}",
-                 workloads=[CUT_CELL])
-            for m in bench["per_layer"] if m.get("workloads") == [LM_CELL]]
+                m["workloads"].append(cell)
+        for m in list(bench["per_layer"]):
+            base = m["name"].split(".")[0]
+            if m.get("workloads") == [LM_CELL] and base in (bases or [base]):
+                bench["per_layer"].append(
+                    dict(m, name=f"{base}.{suffix}", workloads=[cell]))
         return bench
 
     edit(os.path.join(root, "BENCHMARK.json"), register)
+
+
+def add_cut_cell(root: str) -> None:
+    """A depth cut of the latent MoE configuration at tiny widths, its
+    traffic, a cell over them and all of M's per-layer entries for it."""
+    add_lm_cell(root, CUT_CONFIG, CUT_CELL, CUT, lm_tiny(**DEPTH_CUT),
+                ["num_hidden_layers"])
 
 
 def test_a_cut_configuration_as_new_files_and_entries(tmp_path, capsys):
@@ -421,6 +444,87 @@ def test_a_cut_configuration_as_new_files_and_entries(tmp_path, capsys):
     assert {k: v for k, v in after.items() if k in before} == before
     assert set(after) - set(before) == {f"configs/{CUT_CONFIG}.json",
                                         f"traffic/{CUT_CELL}.json"}
+
+
+# ---- a second language model, with a reference module of its own ----
+
+SECOND = "second"
+SECOND_CONFIG, SECOND_CELL = "second-lm", "second-lm-turn4"
+SECOND_REFERENCE = "portbench/reference/second_lm.py"
+
+
+def test_a_second_language_model_as_new_files_and_entries(tmp_path, capsys):
+    """A language model after M whose configuration names a reference
+    module of its own (here one that gives latent_moe.py's interface),
+    added as new files and entries alone: the contract holds, M's entries
+    stand as they were, and the LM turn driver runs the cell ``correct``
+    through the module that its configuration names."""
+    root = tiny_root(tmp_path)
+    bench_dir = os.path.join(root, "portbench")
+    before = tree_digest(bench_dir)
+    with open(os.path.join(root, SECOND_REFERENCE), "w") as f:
+        f.write('"""A second language model\'s reference."""\n\n'
+                "from portbench.reference.latent_moe import (  # noqa: F401\n"
+                "    Reference, make_tensor, tensor_kinds, work)\n")
+    add_lm_cell(root, SECOND_CONFIG, SECOND_CELL, SECOND,
+                lm_tiny(**DEPTH_CUT, reference=SECOND_REFERENCE),
+                ["num_hidden_layers"], bases=["mfu"])
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        assert contract_errors(json.load(f), root) == []
+    moonlight.check_entries(root)
+    lines = {}
+    for trace in ("0", "1"):
+        rc, out, err = drive(root, SECOND_CELL, trace, capsys)
+        assert rc == 0, err
+        lines[trace] = json.loads(out.strip().splitlines()[-1])
+        assert lines[trace]["correct"] is True
+        assert lines[trace]["failed"] == 0
+    assert set(lines["0"]["metrics"]) == {"mol_per_s.pv2smiles", "setup_s"}
+    assert set(lines["1"]["metrics"]) == {f"mfu.{SECOND}"}
+    cfg = run.load_json(root, "portbench", "configs", f"{SECOND_CONFIG}.json")
+    mix = run.load_json(root, "portbench", "traffic", f"{SECOND_CELL}.json")
+    driver = run.load_module(root, "drivers", "lm_turn").Driver(
+        cfg, mix, 1, CPU)
+    assert driver.reference.__file__ == os.path.join(root, SECOND_REFERENCE)
+    after = tree_digest(bench_dir)
+    assert {k: v for k, v in after.items() if k in before} == before
+    assert set(after) - set(before) == {
+        f"configs/{SECOND_CONFIG}.json", f"traffic/{SECOND_CELL}.json",
+        "reference/second_lm.py"}
+
+
+@pytest.mark.parametrize("rates", [
+    ["mol_per_s.pv2smiles", "mol_per_s.rxn"], ["mol_per_s.rxn"]],
+    ids=["a second rate", "another rate"])
+def test_the_contract_holds_a_cell_to_its_traffics_rate(tmp_path, rates):
+    root = tiny_root(tmp_path)
+    add_cut_cell(root)
+
+    def move(bench):
+        for m in bench["end_to_end"]:
+            if "workloads" in m:
+                m["workloads"] = [w for w in m["workloads"] if w != CUT_CELL]
+                if m["name"] in rates:
+                    m["workloads"].append(CUT_CELL)
+        return bench
+
+    edit(os.path.join(root, "BENCHMARK.json"), move)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        errors = contract_errors(json.load(f), root)
+    assert (f"cell {CUT_CELL}: rates {rates}, where its traffic's is "
+            "mol_per_s.pv2smiles alone") in errors
+
+
+def test_the_contract_refuses_a_configuration_without_its_reference(
+        tmp_path):
+    root = tiny_root(tmp_path)
+    add_cut_cell(root)
+    edit(os.path.join(root, "portbench", "configs", f"{CUT_CONFIG}.json"),
+         lambda c: dict(c, reference="portbench/reference/absent.py"))
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        errors = contract_errors(json.load(f), root)
+    assert errors == [f"config {CUT_CONFIG}: no reference "
+                      "portbench/reference/absent.py"]
 
 
 def _cut(entry, cfg, key, kept, published):

@@ -202,9 +202,32 @@ def test_expert_shares_add_up_to_the_whole_layer(shares):
     output."""
     whole = lm_tiny(n_routed_experts=16, num_experts_per_tok=4)
     assert whole["n_shared_experts"] == 1
+    _shares_add_up(whole, "n_routed_experts", shares)
+
+
+@pytest.mark.parametrize("shares", [1, 2, 4])
+def test_num_experts_shares_add_up_to_the_whole_layer(shares):
+    """The same with the experts counted under ``num_experts``
+    (Kimi-Linear's key): the layer is the one that ``n_routed_experts``
+    gives bit for bit, a cut of it routes over its published 16, and its
+    shares add up to the whole layer."""
+    named = lm_tiny(n_routed_experts=16, num_experts_per_tok=4)
+    whole = {k: v for k, v in named.items() if k != "n_routed_experts"}
+    whole["num_experts"] = 16
+    layer, seed = 1, 2 ** 31 + 41
+    p = f"model.layers.{layer}."
+    x = torch.randn(48, 64, generator=torch.Generator().manual_seed(3))
+    outs = []
+    for cfg in (named, whole):
+        ref = LatentMoeReference(cfg, seed, CPU)
+        outs.append(ref.moe(x, ref.tensors(layer_spec(cfg, layer)), p))
+    assert torch.equal(*outs)
+    _shares_add_up(whole, "num_experts", shares)
+
+
+def _shares_add_up(whole: dict, key: str, shares: int) -> None:
     held = 16 // shares
-    cut = dict(whole, n_routed_experts=held,
-               published={"n_routed_experts": 16})
+    cut = dict(whole, **{key: held}, published={key: 16})
     layer, seed = 1, 2 ** 31 + 41
     p = f"model.layers.{layer}."
     x = torch.randn(48, 64, generator=torch.Generator().manual_seed(3))
@@ -215,6 +238,7 @@ def test_expert_shares_add_up_to_the_whole_layer(shares):
         part = LatentMoeReference(cut, seed, CPU, first_expert=first)
         w = part.tensors(layer_spec(cut, layer, first))
         assert len([n for n in w if ".experts." in n]) == 3 * held
+        assert w[f"{p}mlp.gate.weight"].shape == (16, 64)
         out = part.moe(x, w, p)
         shared = part.swiglu(x, w, f"{p}mlp.shared_experts.")
         routed.append(out - shared)
