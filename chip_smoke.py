@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (spmm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--only lm]
+    python3 chip_smoke.py [--parent DIR] [--only lm|split_gemm]
 
 Drives the port's paths at the full width of the SPMM model (12-layer
 768-wide text BERT with fusion from layer 6, 6-layer property BERT, 53
@@ -82,7 +82,14 @@ Phases, in order; any failure exits non-zero:
               and timed beside its bound, bf16 and f32, at cell A's shape
               (m=512, k=2, Le=54), cell B's (32, 5, 96), rxn greedy's
               (128, 1, 96) and a tp rank's 6 heads at A's, walking 6
-              layers of K/V so that A's launches read cold;
+              layers of K/V so that A's launches read cold; the split-TF32
+              linear (split_tf32_gemm) at cell C's products (M of 128 to
+              12,800, (N, K) of (768, 768), (3072, 768), (768, 3072)):
+              its error and cuBLAS SGEMM's against fp64 (failing past 2x
+              SGEMM's), its device time beside its bound and SGEMM's
+              (library_ms, a yardstick the port never calls), its split of
+              K, and the host's microseconds a routed call against
+              F.linear's (--only split_gemm: phases 1, 2 and this alone);
   4. exact    captures the mask that inference/decoding.py passes kernel 1
               at the last step of a full-width bf16 batch of 128 (by
               wrapping the name it calls), holds kernel 1 to its plain
@@ -91,7 +98,10 @@ Phases, in order; any failure exits non-zero:
               plain version: identical seqs, as initialised and with the
               [SEP] logit raised (harvest); and fp32 predict_pv of 128
               SMILES through kernel 2 and through the plain attention:
-              within 1e-4, 960 launches per batch; full-width fp32 greedy
+              within 1e-4, 960 launches per batch, their linears through
+              kernel 5 (4,553 launches each), and the same batch with
+              nn.Linear's forward (cuBLAS SGEMM, no kernel-5 launch) within
+              1e-4 of kernel 5's; full-width fp32 greedy
               over 8 synthetic reactions and k=5 beam search over 4, both
               kernels against both plain versions: identical seqs (and
               steps, n_finished), as initialised and with the [SEP] logit
@@ -118,7 +128,8 @@ Phases, in order; any failure exits non-zero:
               batch, one kv_fp8 batch; then HTTP -> Smiles2PvService (fp32,
               batch 128): a wave of 128 requests, an empty one (400),
               /healthz.  Each path is a main path: every kernel's launches
-              are counted from 0 over it;
+              are counted from 0 over it (the SMILES->PV wave 4,553 of
+              kernel 5 a batch);
   rxn         reaction prediction, each run a main path: a bf16 greedy
               batch (128 sources of 96 random tokens, 100 steps)
               timed, predict_beam bf16 k=5 over 32 reactions timed,
@@ -225,7 +236,9 @@ Phases, in order; any failure exits non-zero:
               it:
               kernel 1 on the masks they passed at steps 0, 1, 33, 100 and
               the last, kernel 2 on the inputs of its first call, kernel 4
-              on the cross K/V and mask of its first call; and each
+              on the cross K/V and mask of its first call, kernel 5 on the
+              x, weight and bias of its first call (against fp64 within 2x
+              SGEMM's error; the first 24 shapes of x); and each
               shape is timed as in phase 3 (kernel 1 on the last mask it
               was passed, bf16 caches; kernel 2 on those inputs); cells
               A's and B's decodes launch kernel 4 6 times a step; with
@@ -279,9 +292,23 @@ KERNEL4 = {"name": "decode_cross_attention", "route": "cuda",
 CROSS_SHAPES = (("cell A", 512, 2, 12, 54), ("cell B", 32, 5, 12, 96),
                 ("rxn greedy", 128, 1, 12, 96), ("tp h=6", 512, 2, 6, 54))
 CROSS_LAYERS = 6                # the decoder's fusion layers
+KERNEL5 = {"name": "split_tf32_gemm", "route": "cuda",
+           "source": "spmm_tpu_torch/csrc/split_tf32_gemm.cu",
+           "replaces": None}
+# cell C's fp32 products: rows 128 (i + 1) at property step i, 128 x 100
+# for the text encoder and cross K/V; (N, K) of the attention and output
+# projections, the FFN's up and its down
+SPLIT_ROWS = (128, 1280, 3456, 6912, 12800)
+SPLIT_WIDTHS = ((768, 768), (3072, 768), (768, 3072))
+TF32_FLOPS = 495e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 S2P_INPUT = os.path.join(REPO, "examples", "s2p_input.txt")
 S2P_LAUNCHES = 6 + 53 * 18      # text layers + 53 steps x (6 + 6 x 2)
+# kernel 5 in a SMILES->PV batch: 6 text layers x 6 linears, 6 fusion
+# layers' cross K and V over the text, then a step's 6 property layers x 6,
+# 6 fusion layers x 8 (their cross K/V now over the step's rows) and the
+# MTR head's first linear
+S2P_SPLIT_LAUNCHES = 6 * 6 + 6 * 2 + 53 * (6 * 6 + 6 * 8 + 1)
 RXN_ENC_LAYERS = 6              # kernel-2 launches per reaction batch
 RXN_SRC_LEN = 96                # cell B's source length
 # (label, Lq, Lk, mask, cross K/V, launches per batch) of the reactant
@@ -623,14 +650,18 @@ class KernelCalls:
     the wrappers launch as before, so their launch counts are untouched.
     Per launch shape, kernel 1's mask at layer 0 of the steps at POS_SAMPLES
     and of the deepest step (a later decode of the same shape that stops
-    sooner does not replace it), kernel 2's inputs at its first call, and
-    kernel 4's cross K/V and mask at its first call.  A decode on the card
+    sooner does not replace it), kernel 2's inputs at its first call,
+    kernel 4's cross K/V and mask at its first call, and kernel 5's (the
+    split-TF32 linear, through models/bert's name) x, weight and bias at
+    its first call, for the first SPLIT_KEPT shapes of x.  A decode on the
+    card
     calls the wrapper only while it captures its CUDA graphs, so recording
     starts by dropping every captured decode (``decoding.graph_cache``):
     the path's decodes capture theirs inside it, and a recorded mask is the
     buffer its graph writes at every replay."""
 
     POS_SAMPLES = (0, 1, 33, 100)
+    SPLIT_KEPT = 24
 
     def __init__(self) -> None:
         self.bda: dict = {}     # (m, h, k, T, D, cache dtype) -> {pos: mask}
@@ -640,6 +671,8 @@ class KernelCalls:
         # V, mask) of its first call; K, V and the mask are the decode's own
         # buffers (a capture's q would be its graph pool's, so q is not kept)
         self.dca: dict = {}
+        # kernel 5: ("split", rows, N, K) -> (x [rows, K], weight, bias)
+        self.split: dict = {}
         self.paths: dict = {}   # any key -> the path that passed it first
 
     @contextlib.contextmanager
@@ -647,10 +680,12 @@ class KernelCalls:
         import torch
 
         from spmm_tpu_torch.inference import decoding
+        from spmm_tpu_torch.models import bert
         from spmm_tpu_torch.ops import attention
 
         bda, mha = decoding.beam_decode_attention, attention.fused_mha
         dca = decoding.decode_cross_attention
+        split = bert.split_linear
         decoding.graph_cache.clear()
 
         def strided_copy(t):
@@ -684,13 +719,25 @@ class KernelCalls:
                 self.dca[key] = (tuple(q.shape), k, v, mask)
             return dca(q, k, v, mask)
 
+        def split_seen(x, weight, bias=None):
+            rows = x.numel() // x.shape[-1]
+            key = ("split", rows, weight.shape[0], weight.shape[1])
+            if key not in self.paths:
+                self.paths[key] = path
+                if len(self.split) < self.SPLIT_KEPT:
+                    self.split[key] = (x.reshape(rows, -1).clone(), weight,
+                                       bias)
+            return split(x, weight, bias)
+
         decoding.beam_decode_attention, attention.fused_mha = bda_seen, mha_seen
         decoding.decode_cross_attention = dca_seen
+        bert.split_linear = split_seen
         try:
             yield self
         finally:
             decoding.beam_decode_attention, attention.fused_mha = bda, mha
             decoding.decode_cross_attention = dca
+            bert.split_linear = split
 
     def kernel1_masks(self) -> dict:
         """key -> {pos: mask} at the sampled steps and the last step."""
@@ -1168,9 +1215,18 @@ def launch_counts() -> tuple:
 def reset_launch_counts() -> None:
     from spmm_tpu_torch.ops.decode_attention import beam_decode_attention
     from spmm_tpu_torch.ops.fused_attention import fused_mha
+    from spmm_tpu_torch.ops.split_gemm import split_linear
 
     beam_decode_attention.launches = 0
     fused_mha.launches = 0
+    split_linear.launches = 0
+
+
+def split_launches() -> int:
+    """Kernel 5's launches (``launch_counts`` keeps kernels 1 and 2)."""
+    from spmm_tpu_torch.ops.split_gemm import split_linear
+
+    return split_linear.launches
 
 
 def run_counted(dev, fn):
@@ -1241,18 +1297,40 @@ def s2p_batch(n: int = 128) -> tuple:
 
 def exactness_s2p(dev, model) -> tuple[dict, dict]:
     """fp32 predict_pv of 128 SMILES through kernel 2 and through the plain
-    attention: within 1e-4 (the golden-gate bar), 960 kernel launches."""
+    attention: within 1e-4 (the golden-gate bar), 960 kernel launches; both
+    with their linears through kernel 5, 4,553 launches each.  The same
+    batch through kernel 2 with ``nn.Linear``'s forward (cuBLAS SGEMM, no
+    kernel-5 launch) holds kernel 5 to the library within 1e-4 too."""
     import numpy as np
     import torch
+    from torch import nn
 
     from spmm_tpu_torch.inference.smiles2pv import predict_pv
+    from spmm_tpu_torch.models.bert import Linear
 
     smiles, ids, mask = s2p_batch()
-    out = {}
-    for impl in ("kernel", "plain"):
-        out[impl] = run_counted(dev, lambda: predict_pv(
-            model, ids, mask, attention_impl=impl, device=dev))
+    out, splits = {}, {}
+    for impl in ("kernel", "plain", "nn.Linear"):
+        routed = Linear.forward
+        if impl == "nn.Linear":
+            Linear.forward = nn.Linear.forward
+        try:
+            reset_launch_counts()           # the main path starts here
+            out[impl] = run_counted(dev, lambda: predict_pv(
+                model, ids, mask, attention_impl="plain" if impl == "plain"
+                else "kernel", device=dev))
+            splits[impl] = split_launches()  # ... and ends here
+        finally:
+            Linear.forward = routed
     (pk, tk, _, lk), (pp, tp, _, lp) = out["kernel"], out["plain"]
+    pl, tl = out["nn.Linear"][:2]
+    if list(splits.values()) != [S2P_SPLIT_LAUNCHES, S2P_SPLIT_LAUNCHES, 0]:
+        fail(f"predict_pv launched {KERNEL5['name']} {splits} times, "
+             f"expected {S2P_SPLIT_LAUNCHES} (none with nn.Linear)")
+    linear_err = (pk - pl).abs().max().item()
+    if linear_err > 1e-4:
+        fail(f"fp32 predictions differ by {linear_err:.3e} > 1e-4 between "
+             f"{KERNEL5['name']} and nn.Linear")
     if pk.shape != (128, 53) or pk.dtype != torch.float32:
         fail(f"predict_pv gave {pk.dtype} {tuple(pk.shape)}")
     if not torch.isfinite(pk).all():
@@ -1266,8 +1344,9 @@ def exactness_s2p(dev, model) -> tuple[dict, dict]:
              f"expected {S2P_LAUNCHES}")
     ref = {s: row for s, row in zip(smiles, pk.cpu().numpy())}
     return {"max_abs_diff": err, "kernel_s": tk, "plain_s": tp,
-            "launches": lk, "pred_abs_max": float(np.abs(
-                pk.cpu().numpy()).max())}, ref
+            "launches": lk, "split_launches": splits["kernel"],
+            "vs_nn_linear_max_abs_diff": linear_err, "nn_linear_s": tl,
+            "pred_abs_max": float(np.abs(pk.cpu().numpy()).max())}, ref
 
 
 def rxn_sources(n: int, parts: int = 2) -> list:
@@ -1735,6 +1814,7 @@ def serving_s2p(dev, model, ref: dict, batch: int = 128) -> dict:
                           "pv")
         wall = time.perf_counter() - t0
         other, launches = launch_counts()       # ... and ends here
+        splits = split_launches()
         try:
             status = _post(url, {"smiles": ""}, "/smiles2pv")[0]
         except urllib.error.HTTPError as exc:
@@ -1749,9 +1829,11 @@ def serving_s2p(dev, model, ref: dict, batch: int = 128) -> dict:
         svc.close()
     if health["requests"] != batch:
         fail(f"/healthz counts {health['requests']} requests, sent {batch}")
-    if launches != S2P_LAUNCHES * health["batches"] or other:
-        fail(f"SMILES->PV serving ran {launches} fused_mha launches in "
-             f"{health['batches']} batches ({other} of kernel 1)")
+    if launches != S2P_LAUNCHES * health["batches"] or other or \
+            splits != S2P_SPLIT_LAUNCHES * health["batches"]:
+        fail(f"SMILES->PV serving ran {launches} fused_mha and {splits} "
+             f"{KERNEL5['name']} launches in {health['batches']} batches "
+             f"({other} of kernel 1)")
     got = stats.normalize(np.asarray(pvs, np.float32))
     want = np.stack([ref[s] for s in smiles])
     if got.shape != (batch, 53) or not np.isfinite(got).all():
@@ -1761,7 +1843,8 @@ def serving_s2p(dev, model, ref: dict, batch: int = 128) -> dict:
     if err > 1e-4:
         fail(f"served PVs differ from offline predict_pv by {err:.3e}")
     per_batch_s = health["batch_seconds"] / health["batches"]
-    return {"launches": launches, "batches": health["batches"],
+    return {"launches": launches, "split_launches": splits,
+            "batches": health["batches"],
             "requests": health["requests"], "wave_wall_s": wall,
             "batch_call_s": per_batch_s, "mol_per_s": batch / per_batch_s,
             "served_vs_offline_max_abs": err, "example": pvs[0][:4]}
@@ -3448,7 +3531,9 @@ def main_path_shapes(dev, calls, worst, worst2) -> list:
     at the sampled steps and the last, with random q, k_new, v_new and
     cache; timed on the last, bf16 caches only: SDPA takes no fp8), kernel 2
     on the very inputs of its first call, kernel 4 on the cross K/V and mask
-    of its first call (random q), copied to 6 layers."""
+    of its first call (random q), copied to 6 layers, kernel 5 on the very
+    x, weight and bias of its first call (its error against fp64 within 2x
+    cuBLAS SGEMM's)."""
     import torch
 
     rows = []
@@ -3489,6 +3574,12 @@ def main_path_shapes(dev, calls, worst, worst2) -> list:
                **time_cross(dev, q, torch.stack([k] * CROSS_LAYERS),
                             torch.stack([v] * CROSS_LAYERS), mask)}
         log_cross_timing(f"from {path}, its K/V and mask", row)
+        rows.append(row)
+    for key, (x, w, b) in calls.split.items():
+        path = calls.paths[key]
+        row = {"kernel": KERNEL5["name"], "path": path,
+               **time_split_gemm(dev, x, w, b)}
+        log_split_row(f"from {path}", row)
         rows.append(row)
     return rows
 
@@ -3633,6 +3724,124 @@ def log_cross_timing(label: str, row: dict) -> None:
         f"{row['plain_ms'] / row['ms']:.2f}), bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}) = {100 * row['share']:.1f}% of the kernel; "
         f"kernel vs plain {row['max_abs_err']:.2e}")
+
+
+def time_split_gemm(dev, x, w, b) -> dict:
+    """The split-TF32 linear on x [M, K], w [N, K] and bias b: its relative
+    RMS and largest error against fp64 beside cuBLAS SGEMM's (TF32 off;
+    failing past 2x SGEMM's), its device time (CUDA-graph replays) beside
+    SGEMM's and its bound: the larger of the fp32 function's bytes (x, W,
+    bias and y, each once) over 3.35 TB/s and the three products' 3 x 2MNK
+    over 495 TFLOP/s (TF32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from spmm_tpu_torch.ops.split_gemm import plan, split_linear
+
+    (m, k), n = x.shape, w.shape[0]
+    with torch.no_grad():
+        ref = F.linear(x.double(), w.double(),
+                       None if b is None else b.double())
+
+        def errors(y):
+            d = y.double() - ref
+            return ((d.pow(2).mean().sqrt()
+                     / ref.pow(2).mean().sqrt()).item(),
+                    (d.abs().max() / ref.abs().max()).item())
+
+        rms, big = errors(split_linear(x, w, b))
+        rms32, big32 = errors(F.linear(x, w, b))
+        del ref
+        if not (rms <= 2 * rms32 and big <= 2 * big32):
+            fail(f"{KERNEL5['name']} at M={m} N={n} K={k}: error (RMS, "
+                 f"largest) {rms:.3e}, {big:.3e} against SGEMM's "
+                 f"{rms32:.3e}, {big32:.3e}")
+        kernel_ms = cuda_ms(lambda i: split_linear(x, w, b), iters=20)
+        library_ms = cuda_ms(lambda i: F.linear(x, w, b), iters=20)
+    nbytes = 4 * (m * k + n * k + n + m * n)
+    flops = 2 * m * n * k
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    return {"m": m, "n": n, "k": k, "ms": kernel_ms, "library_ms": library_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share": bound / kernel_ms, "fp32_tflops": flops / kernel_ms / 1e9,
+            "library_tflops": flops / library_ms / 1e9,
+            "splits": plan(m, n, k)["splits"], "rms_err": rms,
+            "max_err": big, "sgemm_rms_err": rms32, "sgemm_max_err": big32}
+
+
+def log_split_row(label: str, row: dict) -> None:
+    log(f"  {KERNEL5['name']} {label} M={row['m']} N={row['n']} "
+        f"K={row['k']} (splits {row['splits']}): {row['ms']:.4f} ms "
+        f"({row['fp32_tflops']:.1f} TFLOP/s of fp32 work), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) = "
+        f"{100 * row['share']:.1f}%; SGEMM {row['library_ms']:.4f} "
+        f"ms ({row['library_tflops']:.1f} TFLOP/s); error RMS "
+        f"{row['rms_err']:.3e} (SGEMM {row['sgemm_rms_err']:.3e}, "
+        f"x{row['rms_err'] / row['sgemm_rms_err']:.2f}), largest "
+        f"{row['max_err']:.3e} (SGEMM {row['sgemm_max_err']:.3e}, "
+        f"x{row['max_err'] / row['sgemm_max_err']:.2f})")
+
+
+def split_gemm_host_us(dev, calls: int = 200) -> dict:
+    """Host microseconds a call, enqueue only (fewer calls than the launch
+    queue holds, a synchronise before and after the timed loop): a routed
+    ``models.bert.Linear`` against ``nn.Linear`` (the module call each
+    layer makes), and ``split_linear`` against ``F.linear``, on the same
+    fp32 operands at cell C's smallest step (128 x 768 x 768)."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from spmm_tpu_torch.models.bert import Linear
+    from spmm_tpu_torch.ops.split_gemm import split_linear
+
+    lin = Linear(768, 768).to(dev).eval()
+    plain = nn.Linear(768, 768).to(dev).eval()
+    x = torch.randn((128, 768), device=dev)
+    w, b = lin.weight, lin.bias
+
+    def per_call(fn) -> float:
+        best = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return best
+
+    with torch.no_grad():
+        lin(x)
+        return {"Linear_us": per_call(lambda: lin(x)),
+                "nn_Linear_us": per_call(lambda: plain(x)),
+                "split_linear_us": per_call(lambda: split_linear(x, w, b)),
+                "F_linear_us": per_call(lambda: F.linear(x, w, b))}
+
+
+def split_gemm_phase(dev) -> dict:
+    """Kernel 5's rows at cell C's shapes and the host's cost of a call."""
+    import torch
+
+    rows = []
+    for n, k in SPLIT_WIDTHS:
+        for m in SPLIT_ROWS:
+            g = torch.Generator(device=dev).manual_seed(m + n + k)
+            row = time_split_gemm(
+                dev, torch.randn((m, k), generator=g, device=dev),
+                torch.randn((n, k), generator=g, device=dev),
+                torch.randn((n,), generator=g, device=dev))
+            rows.append(row)
+            log_split_row("on N(0, 1)", row)
+    host = split_gemm_host_us(dev)
+    log(f"  host a call at 128x768x768: Linear (routed) "
+        f"{host['Linear_us']:.2f} us, nn.Linear {host['nn_Linear_us']:.2f} "
+        f"us; split_linear {host['split_linear_us']:.2f} us, F.linear "
+        f"{host['F_linear_us']:.2f} us")
+    return dict(KERNEL5, shapes=rows, host_us=host)
 
 
 # --------------------------------------------------------------------------- #
@@ -4061,7 +4270,7 @@ def main(argv=None) -> int:
                         help="a checkout of another commit (git archive): "
                              "time its kernel-2 library beside this one at "
                              "the inputs past 256 keys")
-    parser.add_argument("--only", choices=["lm"], default=None,
+    parser.add_argument("--only", choices=["lm", "split_gemm"], default=None,
                         help="run phase 1 and this phase alone")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
@@ -4075,7 +4284,7 @@ def main(argv=None) -> int:
         from spmm_tpu_torch.models.spmm import SPMM
         from spmm_tpu_torch.ops import (decode_attention,
                                         decode_cross_attention,
-                                        fused_attention)
+                                        fused_attention, split_gemm)
         from spmm_tpu_torch.utils.device import resolve_device
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})",
@@ -4107,6 +4316,18 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": list(lm_phase(dev))}))
         print(device_line)
         return 0
+    if args.only == "split_gemm":
+        from spmm_tpu_torch.ops import _build, split_gemm
+
+        mark("build")
+        split_gemm.build()
+        report = _build.library_path("split_tf32_gemm").with_suffix(".log")
+        for entry, usage in ptxas_usage(report.read_text()):
+            log(f"  ptxas {entry}: {usage}")
+        mark("split_gemm")
+        print(json.dumps({"kernels": [split_gemm_phase(dev)]}))
+        print(device_line)
+        return 0
 
     # ---- 2. build: one nvcc per source, all started together ----
     from concurrent.futures import ThreadPoolExecutor
@@ -4120,19 +4341,21 @@ def main(argv=None) -> int:
 
     mark("build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         parent_build = None if args.parent is None else pool.submit(
             parent_library, args.parent)
         secs = list(pool.map(timed_build, (decode_attention, fused_attention,
-                                           decode_cross_attention)))
+                                           decode_cross_attention,
+                                           split_gemm)))
         parent_lib = None if parent_build is None else parent_build.result()
     log(f"[build] beam_decode_attention {secs[0]:.1f} s, fused_attention "
-        f"{secs[1]:.1f} s, decode_cross_attention {secs[2]:.1f} s, together "
+        f"{secs[1]:.1f} s, decode_cross_attention {secs[2]:.1f} s, "
+        f"split_tf32_gemm {secs[3]:.1f} s, together "
         f"{time.perf_counter() - t0:.1f} s"
         + ("" if parent_lib is None else
            f" (with the kernel-2 source under {args.parent})"))
     for name in ("beam_decode_attention", "fused_attention",
-                 "decode_cross_attention"):
+                 "decode_cross_attention", "split_tf32_gemm"):
         report = _build.library_path(name).with_suffix(".log")
         for entry, usage in ptxas_usage(report.read_text()):
             log(f"  ptxas {entry}: {usage}")
@@ -4182,6 +4405,9 @@ def main(argv=None) -> int:
                        shape=label)
             log_cross_timing(label, row)
             timing4.append(row)
+    log(f"[kernels] {KERNEL5['name']} against fp64 and cuBLAS SGEMM at "
+        f"cell C's products")
+    record5 = split_gemm_phase(dev)
     log("[kernels] fused_mha vs plain version")
     worst2 = compare_mha(dev)
     timing2 = time_mha(dev, sorted(s2p_launch_classes(),
@@ -4247,7 +4473,10 @@ def main(argv=None) -> int:
     log(f"  smiles2pv: fp32 predict_pv of 128 SMILES (L=100), max |pred "
         f"diff| {res['max_abs_diff']:.2e} (max |pred| "
         f"{res['pred_abs_max']:.3f}), {res['launches']} fused_mha launches; "
-        f"kernel path {res['kernel_s']:.2f} s, plain {res['plain_s']:.2f} s")
+        f"kernel path {res['kernel_s']:.2f} s, plain {res['plain_s']:.2f} s; "
+        f"{res['split_launches']} {KERNEL5['name']} launches, against "
+        f"nn.Linear max |pred diff| {res['vs_nn_linear_max_abs_diff']:.2e} "
+        f"(nn.Linear {res['nn_linear_s']:.2f} s)")
     t0 = time.perf_counter()
     rxn = Rxn.random_init(SEED, device=dev)
     log(f"[exact] full-width reaction model random init in "
@@ -4685,6 +4914,12 @@ def main(argv=None) -> int:
                    profile_ms=in_profile,
                    occupancy={key: row for key, row in occ.items()
                               if key.startswith(KERNEL2["name"])})
+    record5 = dict(record5, launches=serve2["split_launches"],
+                   exact_launches=exact["smiles2pv"]["split_launches"],
+                   vs_nn_linear_max_abs_diff=exact["smiles2pv"][
+                       "vs_nn_linear_max_abs_diff"],
+                   main_path_shapes=[row for row in main_shapes
+                                     if row["kernel"] == KERNEL5["name"]])
     record4 = dict(KERNEL4, shapes=timing4,
                    main_path_shapes=[row for row in main_shapes
                                      if row["kernel"] == KERNEL4["name"]],
@@ -4706,7 +4941,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after freeing")
     record3, record_moe, record_prefill = lm_phase(dev)
     print(json.dumps({"kernels": [record, record2, record3, record_moe,
-                                  record_prefill, record4]}))
+                                  record_prefill, record4, record5]}))
     print(device_line)
     return 0
 

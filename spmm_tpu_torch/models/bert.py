@@ -55,6 +55,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from spmm_tpu_torch.configs import BertArchConfig
+from spmm_tpu_torch.ops import split_gemm
+from spmm_tpu_torch.ops.split_gemm import split_linear
 from spmm_tpu_torch.ops.attention import dropout, multi_head_attention
 from spmm_tpu_torch.ops.masks import (
     extend_attention_mask,
@@ -81,6 +83,50 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
+
+
+_PLAIN = (torch.Tensor, nn.Parameter)   # not a DTensor of parallel/
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose fp32 products at inference on a card run on the
+    tensor cores: ``ops.split_gemm.split_linear``, three TF32 products held
+    to fp32's accuracy.  A call goes there when
+      - the module is in eval mode and ``split`` is set: a model loaded for
+        inference, whose weights nobody writes while it runs (the kernel
+        keeps each weight's TF32 parts).  Training keeps its modules, the
+        momentum twins' included, in training mode, and
+        ``parallel.fsdp.apply_fsdp`` clears ``split`` (FSDP refills a
+        gathered weight in place without a new ``_version``);
+      - its input is a plain fp32 CUDA tensor outside autocast, and TF32 is
+        not allowed (``torch.backends.cuda.matmul.allow_tf32``: then
+        ``F.linear`` runs in TF32, as it did);
+      - the weight is a plain fp32 one (not a DTensor of ``parallel``)
+        whose widths the kernel takes (N a multiple of 96, K of 32);
+      - autograd needs nothing from it (grad mode off, or nothing requires
+        a gradient).
+    Every other call, and every call on the CPU, is ``F.linear``.
+    Parameters and state-dict keys are ``nn.Linear``'s."""
+
+    split = True
+
+    def forward(self, x: Tensor) -> Tensor:
+        if x.is_cuda and self.routes(x):
+            return split_linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight, self.bias)
+
+    def routes(self, x: Tensor) -> bool:
+        """Whether a call on ``x`` goes to the kernel, the device aside."""
+        w, b = self.weight, self.bias
+        return (self.split and not self.training
+                and x.dtype == torch.float32 and w.dtype == torch.float32
+                and type(x) is torch.Tensor and type(w) in _PLAIN
+                and not torch.backends.cuda.matmul.allow_tf32
+                and not torch.is_autocast_enabled(x.device.type)
+                and split_gemm.takes(*w.shape)
+                and not (torch.is_grad_enabled() and (
+                    x.requires_grad or w.requires_grad
+                    or (b is not None and b.requires_grad))))
 
 
 def checkpointed(fn: Callable, generator: Optional[torch.Generator],
@@ -167,15 +213,15 @@ class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertArchConfig, kv_width: int):
         super().__init__()
         h = cfg.hidden_size
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(kv_width, h)
-        self.value = nn.Linear(kv_width, h)
+        self.query = Linear(h, h)
+        self.key = Linear(kv_width, h)
+        self.value = Linear(kv_width, h)
 
 
 class BertSelfOutput(nn.Module):
     def __init__(self, cfg: BertArchConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
 
@@ -223,13 +269,13 @@ class BertAttention(nn.Module):
 class BertIntermediate(nn.Module):
     def __init__(self, cfg: BertArchConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.dense = Linear(cfg.hidden_size, cfg.intermediate_size)
 
 
 class BertOutput(nn.Module):
     def __init__(self, cfg: BertArchConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.dense = Linear(cfg.intermediate_size, cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
 
@@ -405,7 +451,7 @@ class BertModel(nn.Module):
 class BertPredictionTransform(nn.Module):
     def __init__(self, cfg: BertArchConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
 
@@ -417,7 +463,7 @@ class BertLMPredictionHead(nn.Module):
     def __init__(self, cfg: BertArchConfig):
         super().__init__()
         self.transform = BertPredictionTransform(cfg)
-        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size)
+        self.decoder = Linear(cfg.hidden_size, cfg.vocab_size)
         self.bias = self.decoder.bias
 
     def forward(self, hidden: Tensor) -> Tensor:

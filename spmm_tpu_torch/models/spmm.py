@@ -22,7 +22,8 @@ import torch
 from torch import nn
 
 from spmm_tpu_torch.configs import BertArchConfig, property_config, text_config
-from spmm_tpu_torch.models.bert import BertForMaskedLM, BertModel, LayerNorm
+from spmm_tpu_torch.models.bert import (BertForMaskedLM, BertModel, LayerNorm,
+                                        Linear)
 
 N_PROPERTIES = 53
 EMBED_DIM = 256          # contrastive projection width
@@ -53,16 +54,16 @@ class SPMM(nn.Module):
         h = text_cfg.hidden_size
         self.text_encoder = BertForMaskedLM(text_cfg)
         self.property_encoder = BertModel(prop_cfg)
-        self.property_embed = nn.Linear(1, h)
+        self.property_embed = Linear(1, h)
         self.property_cls = nn.Parameter(torch.zeros(1, 1, h))
         self.property_mask = nn.Parameter(torch.zeros(1, 1, h))
         self.property_mtr_head = nn.Sequential(
-            nn.Linear(h, h), nn.GELU(), LayerNorm(h, text_cfg.layer_norm_eps),
-            nn.Linear(h, 1))
+            Linear(h, h), nn.GELU(), LayerNorm(h, text_cfg.layer_norm_eps),
+            Linear(h, 1))
         if with_pretrain_heads:
-            self.property_proj = nn.Linear(h, embed_dim)
-            self.text_proj = nn.Linear(h, embed_dim)
-            self.itm_head = nn.Linear(2 * h, 2)
+            self.property_proj = Linear(h, embed_dim)
+            self.text_proj = Linear(h, embed_dim)
+            self.itm_head = Linear(2 * h, 2)
 
     @classmethod
     def random_init(cls, seed: int, text_cfg: Optional[BertArchConfig] = None,

@@ -91,7 +91,7 @@ def apply_fsdp(model: nn.Module) -> nn.Module:
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
-    from spmm_tpu_torch.models.bert import BertLayer
+    from spmm_tpu_torch.models.bert import BertLayer, Linear
 
     if _mesh.minor_dim() != FSDP_AXIS:
         raise ValueError("fully-sharded data parallelism needs a ('dp', "
@@ -111,4 +111,7 @@ def apply_fsdp(model: nn.Module) -> nn.Module:
         fully_shard(unit, mesh=fmesh, shard_placement_fn=placement,
                     ignored_params=replicated & set(unit.parameters()))
         unit.set_gradient_divide_factor(float(size))
+    for m in model.modules():
+        if isinstance(m, Linear):
+            m.split = False     # a gathered weight is refilled in place
     return model

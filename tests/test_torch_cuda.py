@@ -1,7 +1,7 @@
-"""Kernels 1, 2, 3 and 4 on the card: the CUDA kernels of
+"""Kernels 1 to 5 on the card: the CUDA kernels of
 spmm_tpu_torch.ops.decode_attention, spmm_tpu_torch.ops.fused_attention,
-spmm_tpu_torch.ops.mla_decode and spmm_tpu_torch.ops.decode_cross_attention,
-and the expert layer's kernels of
+spmm_tpu_torch.ops.mla_decode, spmm_tpu_torch.ops.decode_cross_attention and
+spmm_tpu_torch.ops.split_gemm, and the expert layer's kernels of
 spmm_tpu_torch.ops.moe (router, grouped products, pairs' sum), against
 their plain PyTorch versions.
 
@@ -25,6 +25,11 @@ on the card equals the plain route on the CPU, one fine-tune step on the
 card equals the same step on the CPU, the decode loops' CUDA graphs equal
 the eager loop (the latent MoE turn's too), and the decode path's spans
 read as the benchmark reads them.
+Kernel 5 (the split-TF32 linear) within 2x cuBLAS SGEMM's relative RMS and
+largest error against fp64, at cell C's shapes and on C's own activations;
+``predict_pv`` through it within 1e-4 of ``nn.Linear``'s; TF32 allowed,
+a pretrain step (fp32 and bf16) and FSDP's gathered weights keep
+``F.linear`` bit for bit.
 """
 
 import pytest
@@ -1200,3 +1205,307 @@ def test_cross_kernel_six_launches_a_step_in_a_captured_a_decode(
     for launches in entry.launches.values():
         assert launches[decode_cross_attention] == 6
         assert launches[beam_decode_attention] == 12
+
+
+# ---- the split-TF32 linear (ops/split_gemm.py, csrc/split_tf32_gemm.cu) ----
+
+# cell C's products: M = 128 (i + 1) rows at property step i (128 to 6,912),
+# 128 x 100 for the text encoder and the cross K/V; K, N of 768 and 3,072
+SPLIT_ROWS = [128, 1280, 3456, 6912, 128 * 100]
+
+
+def _rel_errors(y, ref):
+    d = y.double() - ref
+    return ((d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item(),
+            (d.abs().max() / ref.abs().max()).item())
+
+
+def _against_sgemm(x, w, b):
+    """(kernel, cuBLAS SGEMM) relative RMS and largest errors against the
+    fp64 product of the same operands, TF32 off."""
+    import torch.nn.functional as F
+
+    from spmm_tpu_torch.ops.split_gemm import split_linear
+
+    with torch.no_grad():
+        ref = F.linear(x.double(), w.double(),
+                       None if b is None else b.double())
+        got = split_linear(x, w, b)
+        sgemm = F.linear(x, w, b)
+    torch.cuda.synchronize()
+    return _rel_errors(got, ref), _rel_errors(sgemm, ref)
+
+
+@pytest.mark.parametrize("n", [768, 3072])
+@pytest.mark.parametrize("k", [768, 3072])
+@pytest.mark.parametrize("m", SPLIT_ROWS)
+def test_split_gemm_holds_sgemm_accuracy(dev, m, k, n):
+    """N(0, 1) operands and bias at every shape of cell C: the kernel's
+    relative RMS and largest error against fp64 at most 2x cuBLAS SGEMM's
+    on the same operands (fp32's accuracy, not TF32's)."""
+    g = torch.Generator(device=dev).manual_seed(m + 7 * k + n)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((n, k), generator=g, device=dev)
+    b = torch.randn((n,), generator=g, device=dev)
+    (rms, big), (rms32, big32) = _against_sgemm(x, w, b)
+    assert rms <= 2 * rms32 and big <= 2 * big32, (rms, rms32, big, big32)
+
+
+def test_split_gemm_on_cell_c_s_own_activations(dev, monkeypatch):
+    """One SMILES->PV batch of 128 at published widths: every routed
+    linear goes through the kernel (36 text, 12 cross K/V and 85 a
+    property step), the predictions are those of the same batch through
+    ``nn.Linear`` (cuBLAS SGEMM) within 1e-4, and at C's row counts the
+    kernel holds its inputs' products within 2x SGEMM's errors against
+    fp64."""
+    from torch import nn
+
+    from spmm_tpu_torch.inference.smiles2pv import predict_pv
+    from spmm_tpu_torch.models import bert
+    from spmm_tpu_torch.models.bert import Linear
+    from spmm_tpu_torch.models.spmm import SPMM
+
+    model = SPMM.random_init(0, device=dev)
+    g = torch.Generator().manual_seed(11)
+    lengths = torch.randint(8, 100, (128,), generator=g)
+    lengths[0] = 100
+    mask = (torch.arange(100)[None] < lengths[:, None]).int()
+    ids = torch.randint(4, 300, (128, 100), generator=g) * mask
+    kept, inner = {}, bert.split_linear
+
+    def record(x, w, b=None):
+        rows = x.numel() // x.shape[-1]
+        key = (rows, w.shape[0], w.shape[1])
+        if rows in SPLIT_ROWS and key not in kept:
+            kept[key] = (x.reshape(rows, -1).clone(), w, b)
+        return inner(x, w, b)
+
+    monkeypatch.setattr(bert, "split_linear", record)
+    before = inner.launches
+    got = predict_pv(model, ids.to(dev), mask.to(dev), device=dev)
+    torch.cuda.synchronize()
+    launches = inner.launches - before
+    assert launches == 6 * 6 + 6 * 2 + 53 * (6 * 6 + 6 * 8 + 1)
+    with monkeypatch.context() as m:
+        m.setattr(Linear, "forward", nn.Linear.forward)
+        want = predict_pv(model, ids.to(dev), mask.to(dev), device=dev)
+    torch.cuda.synchronize()
+    assert inner.launches - before == launches
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4, err
+    assert len(kept) >= 8
+    for (m, n, k), (x, w, b) in sorted(kept.items()):
+        (rms, big), (rms32, big32) = _against_sgemm(x, w, b)
+        assert rms <= 2 * rms32 and big <= 2 * big32, (m, n, k, rms, rms32,
+                                                       big, big32)
+
+
+def test_split_gemm_with_tf32_allowed_keeps_f_linear(dev):
+    """Under ``allow_tf32`` a Linear in eval mode launches nothing and
+    gives ``F.linear``'s TF32 product bit for bit: the control of cell C
+    (the program with TF32 products) runs as it did."""
+    import torch.nn.functional as F
+
+    from spmm_tpu_torch.models.bert import Linear
+    from spmm_tpu_torch.ops.split_gemm import split_linear
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    lin = Linear(768, 3072).to(dev).eval()
+    x = torch.randn((3456, 768), generator=g, device=dev)
+    before = split_linear.launches
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got = lin(x)
+            tf32 = F.linear(x, lin.weight, lin.bias)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert split_linear.launches == before
+    assert torch.equal(got, tf32)
+    with torch.no_grad():
+        lin(x)
+    assert split_linear.launches == before + 1
+
+
+def test_split_gemm_under_graph_capture(dev):
+    """A routed linear captured in a CUDA graph replays to the eager
+    result bit for bit, with its weight's parts made before the capture or,
+    for a weight first seen inside it, by the graph itself."""
+    from spmm_tpu_torch.models.bert import Linear
+    from spmm_tpu_torch.ops import split_gemm
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    warm = Linear(768, 3072).to(dev).eval()
+    fresh = Linear(3072, 768).to(dev).eval()
+    x = torch.randn((640, 768), generator=g, device=dev)
+    with torch.no_grad():
+        want = fresh(warm(x))
+        key = id(fresh.weight)
+        split_gemm._parts.pop(key)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fresh(warm(x))
+        assert key not in split_gemm._parts
+        x.copy_(torch.randn((640, 768), generator=g, device=dev))
+        want2 = fresh(warm(x))
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, want2) and not torch.equal(out, want)
+
+
+# widths the kernel takes (N a multiple of 96, K of 32) at a small size
+WIDE = dict(vocab_size=300, hidden_size=192, num_hidden_layers=3,
+            num_attention_heads=3, intermediate_size=384,
+            max_position_embeddings=128, type_vocab_size=2, fusion_layer=1,
+            encoder_width=192)
+
+
+def _wide_configs():
+    from spmm_tpu_torch.configs import BertArchConfig
+
+    text = BertArchConfig(**WIDE)
+    prop = BertArchConfig(**dict(WIDE, vocab_size=1, num_hidden_layers=2,
+                                 fusion_layer=2, add_cross_attention=False))
+    return text, prop
+
+
+def _pretrain_inputs(dev, n=8, length=24, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(4, 300, (n, length), generator=g)
+    ids[:, 0] = 2
+    mask = (torch.arange(length)[None]
+            < torch.randint(4, length + 1, (n, 1), generator=g)).int()
+    mask[0] = 1
+    rows = torch.arange(n)
+    batch = {"prop": torch.randn((n, 53), generator=g), "ids": ids * mask,
+             "mask": mask}
+    noise = {"mpm_mask": (torch.rand((n, 53), generator=g) < 0.5).float(),
+             "neg_prop_idx": (rows + 1) % n, "neg_text_idx": (rows - 1) % n}
+    return ({k: v.to(dev) for k, v in batch.items()},
+            {k: v.to(dev) for k, v in noise.items()})
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_pretrain_step_keeps_nn_linear(dev, bf16, monkeypatch):
+    """One pretrain step (EMA, the momentum twins' no-grad forward, the
+    MLM teacher, AdamW) at widths the kernel takes, fp32 and under bf16
+    autocast: it launches the split kernel never, and its losses and every
+    parameter, twin and queue after it are bit for bit the same step's
+    with ``Linear.forward`` set to ``nn.Linear.forward``."""
+    import copy
+
+    from torch import nn
+
+    from spmm_tpu_torch.configs import PretrainConfig
+    from spmm_tpu_torch.models.bert import Linear
+    from spmm_tpu_torch.ops.split_gemm import split_linear
+    from spmm_tpu_torch.training.pretrain import (init_pretrain_state,
+                                                  make_pretrain_step)
+
+    text, prop = _wide_configs()
+    pcfg = PretrainConfig(embed_dim=16, queue_size=64, bf16_compute=bf16)
+    start = init_pretrain_state(0, pcfg, text, prop, device=dev)
+    batch, noise = _pretrain_inputs(dev)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name in ("routed", "nn_linear"):
+            model = copy.deepcopy(start)
+            with monkeypatch.context() as m:
+                if name == "nn_linear":
+                    m.setattr(Linear, "forward", nn.Linear.forward)
+                before = split_linear.launches
+                _, step = make_pretrain_step(model, pcfg, 10,
+                                             data_parallel=False)
+                res = step(12, batch, None, noise)
+                torch.cuda.synchronize()
+                assert split_linear.launches == before
+            out[name] = (res, model.state_dict())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (res, got), (ref, want) = out["routed"], out["nn_linear"]
+    for key in ("loss", "loss_ita", "loss_itm", "loss_mlm", "loss_mpm"):
+        if key in ref:
+            assert torch.equal(res[key], ref[key]), key
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+
+
+def test_fsdp_weights_refilled_between_no_grad_forwards(dev, monkeypatch):
+    """FSDP2 on a world-1 NCCL group, the model in eval mode (the case in
+    which a Linear would route): two no-grad forwards of the momentum
+    property encoder with the twins' shards changed in place between them
+    (``ema_update``).  Nothing launches the split kernel, and each forward
+    equals the same one with ``Linear.forward`` set to
+    ``nn.Linear.forward``; the second sees the changed weights."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+    from torch import nn
+
+    from spmm_tpu_torch.configs import PretrainConfig
+    from spmm_tpu_torch.models.bert import Linear
+    from spmm_tpu_torch.ops.split_gemm import split_linear
+    from spmm_tpu_torch.parallel import fsdp, mesh
+    from spmm_tpu_torch.training.pretrain import (ema_update,
+                                                  init_pretrain_state)
+
+    text, prop = _wide_configs()
+    start = init_pretrain_state(0, PretrainConfig(embed_dim=16,
+                                                  queue_size=64),
+                                text, prop, device=dev)
+    with torch.no_grad():          # the twins apart from the online weights
+        for p in start.property_encoder_m.parameters():
+            p.mul_(0.5)
+    g = torch.Generator(device=dev).manual_seed(2)
+    embeds = torch.randn((4, 54, 192), generator=g, device=dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        fsdp.dp_fsdp_mesh(1, 1)
+        for name in ("routed", "nn_linear"):
+            model = fsdp.apply_fsdp(copy.deepcopy(start)).eval()
+            with monkeypatch.context() as m:
+                if name == "nn_linear":
+                    m.setattr(Linear, "forward", nn.Linear.forward)
+                before = split_linear.launches
+
+                def forward():
+                    # the root unit's own weights (the embeddings' LayerNorm)
+                    # gathered around it, the layer units' by their hooks
+                    model.unshard()
+                    y = model.property_encoder_m(inputs_embeds=embeds)
+                    model.reshard()
+                    return y.clone()
+
+                with torch.no_grad():
+                    first = forward()
+                    ema_update(model, 0.5)
+                    second = forward()
+                torch.cuda.synchronize()
+                assert split_linear.launches == before
+            out[name] = (first, second)
+            del model
+    finally:
+        mesh.clear_mesh()
+        dist.destroy_process_group()
+    (f1, s1), (f2, s2) = out["routed"], out["nn_linear"]
+    assert torch.equal(f1, f2) and torch.equal(s1, s2)
+    assert not torch.equal(f1, s1)
+
+
+def test_split_gemm_refuses_what_it_does_not_take(dev):
+    from spmm_tpu_torch.ops.split_gemm import split_linear
+
+    x = torch.randn((4, 768), device=dev)
+    with pytest.raises(ValueError, match="multiple of 96"):
+        split_linear(x, torch.randn((300, 768), device=dev))
+    with pytest.raises(TypeError, match="fp32"):
+        split_linear(x.bfloat16(), torch.randn((768, 768), device=dev))
